@@ -9,9 +9,12 @@ Phases, each one line of output, each raising on failure:
 2. build: compile every kernel of ``cluster_tools_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once);
 3. kernels: each kernel against its plain PyTorch twin on CUDA tensors,
-   exact equality (B1 tiled CCL, B2 watershed flow, B3 EDT cascade on all
-   axes at radius 32 and n-1 with anisotropic weights, B4 remap with -1
-   slots and a chained pair);
+   exact equality (B1 tiled CCL and B1d, its run-doubling variant, against
+   both CCL twins on a smooth mask and on adversarial tiles: all
+   foreground, checkerboard, isolated voxels, one-voxel-wide serpentines;
+   B2 watershed flow; B3 EDT cascade on all axes at radius 32 and n-1, and
+   at n in {1, 7, 31, 33, 127, 576, 1100} x radius in {0, 1, 32, n-1}, with
+   anisotropic weights; B4 remap with -1 slots and a chained pair);
 4. main path: ``make_ws_ccl_split`` at the benchmark's headline config
    (``(1, 512, 512, 512)`` synthetic volume, halo 32, threshold 0.45, EDT
    cap 32, min seed distance 2, sparse seed CCL): one warm-up (host syncs
@@ -26,7 +29,9 @@ Phases, each one line of output, each raising on failure:
 6. main-path kernels: every launch of the main path replayed on the inputs
    it was given, against its twin (exact), timed beside its twin and its
    bound; a kernel's ``ms``/``plain_ms``/``bound_ms`` are sums over its
-   launches in one run;
+   launches in one run.  B1d is not on the main path (as in the
+   reference): it is replayed on B1's cc-stage input, held exactly against
+   both CCL twins, and its row reports 0 launches;
 7. tiled seeds: the whole step with ``seed_mode="tiled"`` at 128x256x256
    (B1 and B4 also run in the seeds stage), ``impl="cuda"`` against
    ``impl="torch"`` bit for bit, with its own launch counts.
@@ -60,12 +65,16 @@ INT32_OPS_PER_S = 67e12 / 4
 MAIN_SHAPE = (1, 512, 512, 512)
 
 KERNELS = {
-    # name: (source, replaces)
-    "tile_ccl": ("cluster_tools_tpu_torch/csrc/tile_ccl.cu", "cluster_tools_tpu/ops/pallas_kernels.py:185"),
-    "tile_ws_propagate": ("cluster_tools_tpu_torch/csrc/tile_ws.cu", "cluster_tools_tpu/ops/pallas_kernels.py:277"),
-    "edt_cascade": ("cluster_tools_tpu_torch/csrc/edt_cascade.cu", "cluster_tools_tpu/ops/pallas_kernels.py:332"),
-    "apply_remap": ("cluster_tools_tpu_torch/csrc/apply_remap.cu", "cluster_tools_tpu/ops/pallas_kernels.py:384"),
+    # name: (id, source, replaces)
+    "tile_ccl": ("B1", "cluster_tools_tpu_torch/csrc/tile_ccl.cu", "cluster_tools_tpu/ops/pallas_kernels.py:185"),
+    "tile_ccl_doubling": ("B1d", "cluster_tools_tpu_torch/csrc/tile_ccl_doubling.cu",
+                          "cluster_tools_tpu/ops/pallas_kernels.py:76"),
+    "tile_ws_propagate": ("B2", "cluster_tools_tpu_torch/csrc/tile_ws.cu", "cluster_tools_tpu/ops/pallas_kernels.py:277"),
+    "edt_cascade": ("B3", "cluster_tools_tpu_torch/csrc/edt_cascade.cu", "cluster_tools_tpu/ops/pallas_kernels.py:332"),
+    "apply_remap": ("B4", "cluster_tools_tpu_torch/csrc/apply_remap.cu", "cluster_tools_tpu/ops/pallas_kernels.py:384"),
 }
+# the kernels the main path must launch (B1d is a variant nothing selects)
+MAIN_PATH_KERNELS = ("tile_ccl", "tile_ws_propagate", "edt_cascade", "apply_remap")
 
 
 def log(phase: str, msg: str) -> None:
@@ -103,16 +112,31 @@ def require_equal(what: str, a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
+def check_ccl(K, what: str, mask: torch.Tensor, tile) -> None:
+    """B1 and B1d against both CCL twins (exact)."""
+    unit = K.tile_ccl_torch(mask, tile)
+    require_equal(f"B1 tile_ccl {what}", K.tile_ccl(mask, tile, impl="cuda"), unit)
+    b1d = K.tile_ccl(mask, tile, impl="cuda", doubling=True)
+    require_equal(f"B1d tile_ccl_doubling {what} (doubling twin)", b1d, K.tile_ccl_doubling_torch(mask, tile))
+    require_equal(f"B1d tile_ccl_doubling {what} (unit-step twin)", b1d, unit)
+
+
 def phase_kernels(K, gen) -> None:
     from cluster_tools_tpu_torch.ops.tile_ws import descent_directions
-    from cluster_tools_tpu_torch.utils.synthetic import synthetic_boundaries
+    from cluster_tools_tpu_torch.utils.synthetic import adversarial_tiles_np, synthetic_boundaries
 
     dev = "cuda"
     shape = (64, 128, 256)
     tile = (16, 16, 128)
     v = synthetic_boundaries(shape, gen, passes=4)
     mask = (v < v.median()).contiguous()
-    require_equal("B1 tile_ccl", K.tile_ccl(mask, tile, impl="cuda"), K.tile_ccl_torch(mask, tile))
+    check_ccl(K, "smooth mask", mask, tile)
+    check_ccl(K, "adversarial tiles", torch.from_numpy(adversarial_tiles_np(tile)).to(dev), tile)
+    # small tiles; rows of 40 voxels are not whole 32-bit words
+    for nshape, ntile in (((32, 40, 96), (4, 5, 32)), ((32, 40, 120), (4, 5, 40))):
+        noise = torch.rand(nshape, generator=gen, device=dev)
+        for p in (0.2, 0.5, 0.75):
+            check_ccl(K, f"noise p={p}, tile {ntile}", (noise < p).contiguous(), ntile)
 
     seeds = torch.zeros(shape, dtype=torch.int32, device=dev)
     pts = torch.randint(0, 64, (200, 3), generator=gen, device=dev) * torch.tensor([1, 2, 4], device=dev)
@@ -133,6 +157,18 @@ def phase_kernels(K, gen) -> None:
                 require_equal(f"B3 edt_cascade axis {axis} r {radius} w {w}", a,
                               K.edt_cascade_torch(f, axis, radius, w, 1e12))
                 n_b3 += 1
+    # short, odd and long lines, radius 0 to n-1; anisotropic sampling (40, 4, 1.5)
+    for axis, w in zip(range(3), (1600.0, 16.0, 2.25)):
+        for n in (1, 7, 31, 33, 127, 576, 1100):  # 1100: the shared-memory branch
+            dims = [6, 9, 45]
+            dims[axis] = n
+            r = torch.rand(dims, generator=gen, device=dev)
+            g = torch.where(r < 0.8, torch.tensor(np.float32(1e12), device=dev), r * 100).contiguous()
+            for radius in sorted({0, 1, min(32, n - 1), n - 1}):
+                require_equal(f"B3 edt_cascade axis {axis} n {n} r {radius}",
+                              K.edt_cascade(g, axis, radius, w, 1e12, impl="cuda"),
+                              K.edt_cascade_torch(g, axis, radius, w, 1e12))
+                n_b3 += 1
 
     n_tiles = (shape[0] // 16) * (shape[1] // 16) * (shape[2] // 128)
     old = torch.full((n_tiles, 64), -1, dtype=torch.int32, device=dev)
@@ -148,8 +184,10 @@ def phase_kernels(K, gen) -> None:
     require_equal("B4 apply_remap", K.apply_remap(labels, old, new, tile, 64, impl="cuda"),
                   K.apply_remap_torch(labels, old, new, tile, 64))
     torch.cuda.synchronize()
-    log("kernels", f"B1, B2 (jump + stepping twins), B3 ({n_b3} axis/radius/weight cases), "
-                   f"B4 (-1 slots, chained pair) equal their twins exactly at {shape}")
+    log("kernels", f"B1 and B1d (smooth mask, 8 adversarial tiles, noise at 3 densities on 4x5x32 and "
+                   f"4x5x40 tiles), "
+                   f"B2 (jump + stepping twins), B3 ({n_b3} axis/n/radius/weight cases), "
+                   f"B4 (-1 slots, chained pair) equal their twins exactly")
 
 
 def bound_ms(name: str, args, kwargs) -> tuple:
@@ -159,14 +197,15 @@ def bound_ms(name: str, args, kwargs) -> tuple:
     x = args[0]
     n = x.numel()
     t_ops = 0.0
-    if name == "tile_ccl":
+    if name in ("tile_ccl", "tile_ccl_doubling"):
         nbytes = n * (x.element_size() + 4)
     elif name == "tile_ws_propagate":
         nbytes = n * 12
     elif name == "edt_cascade":
         nbytes = n * 8
-        # two float32 adds and two mins per step
-        t_ops = 4.0 * kwargs["radius"] * n / FP32_OPS_PER_S * 1e3
+        # per step: min of the two neighbours, one float32 add, one min
+        # (min(a + c, b + c) == min(a, b) + c exactly: rounding is monotone)
+        t_ops = 3.0 * kwargs["radius"] * n / FP32_OPS_PER_S * 1e3
     else:  # apply_remap: int32 compare + select per live slot and voxel
         old, new = args[1], args[2]
         nbytes = n * 8 + old.numel() * 8
@@ -181,6 +220,9 @@ def replay(K, name, args, kwargs):
     if name == "tile_ccl":
         kfn = lambda: K.tile_ccl(args[0], kwargs["tile"], impl="cuda")
         tfn = lambda: K.tile_ccl_torch(args[0], kwargs["tile"])
+    elif name == "tile_ccl_doubling":
+        kfn = lambda: K.tile_ccl(args[0], kwargs["tile"], impl="cuda", doubling=True)
+        tfn = lambda: K.tile_ccl_doubling_torch(args[0], kwargs["tile"])
     elif name == "tile_ws_propagate":
         kfn = lambda: K.tile_ws_propagate(args[0], args[1], kwargs["tile"], impl="cuda")
         tfn = lambda: K.tile_ws_propagate_torch(args[0], args[1], kwargs["tile"])
@@ -226,7 +268,7 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = build.build_all()
     log("build", "kernels " + ", ".join(
-        f"{k} ({b}) {secs[k]:.1f}s" for k, b in zip(KERNELS, ("B1", "B2", "B3", "B4"))
+        f"{k} ({ident}) {secs[k]:.1f}s" for k, (ident, _, _) in KERNELS.items()
     ) + f"; wall {time.perf_counter() - t0:.1f}s")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -287,7 +329,7 @@ def main() -> int:
                 + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items())
                 + f" ms; {vol.numel() / total_s:.4g} voxels/s; peak {peak_gb:.2f} GB; "
                 f"launches per run {launches}; rungs per run {rungs}; host syncs per stage {syncs}")
-    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
+    missing = [k for k in MAIN_PATH_KERNELS if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
     if overflow:
@@ -326,17 +368,25 @@ def main() -> int:
     if n_captured != Counter({k: v for k, v in launches.items() if v}):
         raise AssertionError(f"captured launches {dict(n_captured)} != timed run's {launches}")
     rows = []
-    for kname, (source, replaces) in KERNELS.items():
+    for kname, (_, source, replaces) in KERNELS.items():
         ms = plain = err = 0.0
         bounds = []
-        for i, (_, kargs, kkw) in enumerate(c for c in captured if c[0] == kname):
+        # B1d replays B1's cc-stage launch: the main path never selects it
+        src = "tile_ccl" if kname == "tile_ccl_doubling" else kname
+        for i, (_, kargs, kkw) in enumerate(c for c in captured if c[0] == src):
             kfn, tfn = replay(K, kname, kargs, kkw)
-            err = max(err, require_equal(f"{kname} launch {i} on main-path inputs", kfn(), tfn()))
+            out = kfn()
+            err = max(err, require_equal(f"{kname} launch {i} on main-path inputs", out, tfn()))
+            if kname == "tile_ccl_doubling":
+                require_equal(f"{kname} replay of tile_ccl launch {i} (unit-step twin)", out,
+                              K.tile_ccl_torch(kargs[0], kkw["tile"]))
+            del out
             t, tp = cuda_ms(kfn, 5), cuda_ms(tfn, 1)
             b = bound_ms(kname, kargs, kkw)
             ms, plain = ms + t, plain + tp
             bounds.append(b)
-            log("main-kernels", f"{kname} launch {i} shape {tuple(kargs[0].shape)} "
+            what = f"replay of tile_ccl launch {i}" if src != kname else f"launch {i}"
+            log("main-kernels", f"{kname} {what} shape {tuple(kargs[0].shape)} "
                                 f"{ {k: v for k, v in kkw.items() if k in ('axis', 'radius')} }: "
                                 f"{t:.3f} ms (twin {tp:.3f} ms, bound {b[0]:.3f} ms by {b[1]})")
         rows.append(dict(name=kname, route="cuda", source=source, replaces=replaces,

@@ -27,6 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / ".torch_ext"
 # kernel library -> source file
 SOURCES = {
     "tile_ccl": "tile_ccl.cu",
+    "tile_ccl_doubling": "tile_ccl_doubling.cu",
     "tile_ws_propagate": "tile_ws.cu",
     "edt_cascade": "edt_cascade.cu",
     "apply_remap": "apply_remap.cu",
@@ -59,7 +60,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1()
-    h.update((CSRC / "common.cuh").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update((CSRC / SOURCES[name]).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
@@ -108,6 +110,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
         "tile_ccl": ("ct_tile_ccl", [P, P, I, I, I, I, I, I, P]),
+        "tile_ccl_doubling": ("ct_tile_ccl_doubling", [P, P, I, I, I, I, I, I, P]),
         "tile_ws_propagate": ("ct_tile_ws_propagate", [P, P, P, I, I, I, I, I, I, P]),
         "edt_cascade": ("ct_edt_cascade", [P, P, I, I, I, I, I, F, F, P]),
         "apply_remap": ("ct_apply_remap", [P, P, P, P, I, I, I, I, I, I, I, P]),

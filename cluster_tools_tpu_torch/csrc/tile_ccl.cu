@@ -5,89 +5,181 @@
 // GLOBAL flat index (padded volume order) of its in-tile component;
 // background gets BIG = 2**30.
 //
-// Design: one CTA per tile, the tile's labels in shared memory (a
-// 16x16x128 int32 tile is 128 KiB, under the 227 KiB opt-in limit).  Each
-// thread owns up to 32 voxels at a stride of the block size (coalesced
-// loads, conflict-free shared accesses); their foreground bits and the
-// in-tile validity of their six neighbours live in registers.  Sweeps
-// propagate the 6-neighbour minimum in place (Gauss-Seidel); a sweep in
-// which no thread lowered a label proves the fixed point, which is unique
-// (the component's minimum index), so the race-tolerant in-place update
-// gives the same output as the TPU kernel's Jacobi steps.
+// Design: union-find over x-runs in shared memory, one CTA per tile.  The
+// TPU kernel sweeps a 6-neighbour min until nothing changes, so its work
+// grows with the longest path inside the tile; here the work is a fixed
+// number of passes, each thread taking 32-voxel chunks of the tile's rows:
+//   1. the mask goes into a bit array;
+//   2. every x-run start (a set bit whose left neighbour is clear, found 32
+//      at a time with shifts) becomes its own parent: a run is one node,
+//      so x-neighbours need no unions;
+//   3. one union per overlap segment of a row with its -y row and with its
+//      -z row (segment starts found with shifts, as run starts): a pair of
+//      overlapping runs overlaps in exactly one segment, so no union is
+//      repeated.  A union hooks the larger root under the smaller one with
+//      a 16-bit atomicCAS that succeeds only on a root (lock-free); finds
+//      split their paths with plain stores (a parent is only ever replaced
+//      by one of its ancestors, so the races are benign);
+//   4. every run start points at its root;
+//   5. a voxel's label is its run start's parent, the run start read off
+//      the bit array 32 bits at a time; 16-byte stores where rows allow.
+// Parents only point to smaller local indices, so a component's root is its
+// minimum local index, and local order equals global order inside a tile:
+// the root is exactly the label the TPU kernel converges to.  16-bit
+// parents (a tile holds <= 32768 voxels) keep a 16x16x128 tile in 68 KiB,
+// two 1024-thread CTAs per SM: the unions are chains of dependent
+// shared-memory accesses, and more threads in flight hide more of them.
 //
-// Bound: device memory (1 byte read + 4 bytes written per voxel); the
-// sweeps run out of shared memory.
+// Bound: device memory (1 byte read + 4 bytes written per voxel).
 
-#include "common.cuh"
+#include "tile_mask.cuh"
 
 namespace {
 
+using namespace tile_mask;
+
 constexpr int kBig = 1 << 30;
 constexpr int kThreads = 1024;
-constexpr int kPerThread = 32;  // tile voxels <= kThreads * kPerThread
+
+// The root above x; with kSplit, every node on the way is re-pointed to
+// its grandparent (plain stores: a node's parent is only ever replaced by
+// one of its ancestors).
+template <bool kSplit>
+__device__ __forceinline__ int find_root(uint16_t* par, int x) {
+  volatile uint16_t* p = par;
+  int cur = p[x];
+  if (cur != x) {
+    int prev = x, next;
+    while (cur > (next = p[cur])) {  // cur is not a root
+      if (kSplit) p[prev] = (uint16_t)next;
+      prev = cur;
+      cur = next;
+    }
+  }
+  return cur;
+}
+
+__device__ __forceinline__ void unite(uint16_t* par, int a, int b) {
+  int ra = find_root<true>(par, a), rb = find_root<true>(par, b);
+  while (ra != rb) {
+    if (ra > rb) {
+      const int t = ra;
+      ra = rb;
+      rb = t;
+    }
+    // hook rb under ra if rb is still a root; else climb to rb's parent
+    const int old = atomicCAS((unsigned short*)&par[rb], (unsigned short)rb, (unsigned short)ra);
+    if (old == rb) return;
+    rb = old;
+  }
+}
+
+// 32 mask bits from bit position p on (the bit array ends in a zero word)
+__device__ __forceinline__ uint32_t bits_at(const uint32_t* fg, int p) {
+  return __funnelshift_r(fg[p >> 5], fg[(p >> 5) + 1], p & 31);
+}
+
+// One 32-voxel chunk of a row: local index of its first voxel, its x
+// offset in the row, and its foreground bits.
+struct Chunk {
+  int p, lx0;
+  uint32_t w;
+};
+
+__device__ __forceinline__ Chunk chunk(const uint32_t* fg, int item, int nch, int tx) {
+  const int r = item / nch, j = item - r * nch;
+  Chunk c;
+  c.lx0 = 32 * j;
+  c.p = r * tx + c.lx0;
+  const int len = min(32, tx - c.lx0);
+  c.w = bits_at(fg, c.p) & (len == 32 ? ~0u : (1u << len) - 1);
+  return c;
+}
+
+// bits of `w` that start a run: set, with the bit before clear (`before`
+// is the bit ahead of the chunk, 0 at a row start)
+__device__ __forceinline__ uint32_t run_starts(uint32_t w, uint32_t before) {
+  return w & ~((w << 1) | before);
+}
 
 __global__ void __launch_bounds__(kThreads)
-tile_ccl_kernel(const uint8_t* __restrict__ mask, int32_t* __restrict__ out,
-                int Y, int X, int tz, int ty, int tx, int gy, int gx) {
-  extern __shared__ int32_t lab[];
+tile_ccl_kernel(const uint8_t* __restrict__ mask, int32_t* __restrict__ out, int Y, int X, int tz,
+                int ty, int tx, int gy, int gx, int xbits, int ybits, bool vec) {
+  extern __shared__ uint32_t smem[];
   const int nv = tz * ty * tx;
-  const int t = blockIdx.x;
-  const int z0 = (t / (gy * gx)) * tz;
-  const int y0 = ((t / gx) % gy) * ty;
-  const int x0 = (t % gx) * tx;
-  const int sy = tx, sz = tx * ty;
+  const Geom g = make_geom(Y, X, tz, ty, tx, gy, gx, xbits, ybits);
+  uint32_t* fg = smem;
+  uint16_t* par = reinterpret_cast<uint16_t*>(smem + n_words(nv));
 
-  uint32_t fg = 0, xm = 0, xp = 0, ym = 0, yp = 0, zm = 0, zp = 0;
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int v = threadIdx.x + k * kThreads;
-    if (v < nv) {
-      const int lz = v / sz, ly = (v / sy) % ty, lx = v % tx;
-      const int g = ((z0 + lz) * Y + y0 + ly) * X + x0 + lx;
-      const bool m = mask[g] != 0;
-      const uint32_t bit = 1u << k;
-      if (m) fg |= bit;
-      if (lx > 0) xm |= bit;
-      if (lx < tx - 1) xp |= bit;
-      if (ly > 0) ym |= bit;
-      if (ly < ty - 1) yp |= bit;
-      if (lz > 0) zm |= bit;
-      if (lz < tz - 1) zp |= bit;
-      lab[v] = m ? g : kBig;
+  load_mask<kThreads>(mask, g, nv, vec, fg);
+
+  const int nch = (tx + 31) >> 5;  // chunks per row
+  const int n_items = tz * ty * nch;
+
+  for (int it = threadIdx.x; it < n_items; it += kThreads) {
+    const Chunk c = chunk(fg, it, nch, tx);
+    for (uint32_t s = run_starts(c.w, c.lx0 ? bit(fg, c.p - 1) : 0u); s; s &= s - 1) {
+      const int v = c.p + __ffs(s) - 1;
+      par[v] = (uint16_t)v;
     }
   }
   __syncthreads();
 
-  while (true) {
-    int changed = 0;
+  for (int it = threadIdx.x; it < n_items; it += kThreads) {
+    const Chunk c = chunk(fg, it, nch, tx);
+    if (!c.w) continue;
+    const int r = it / nch;
+    const bool before = c.lx0 && bit(fg, c.p - 1);
 #pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const uint32_t bit = 1u << k;
-      if (fg & bit) {
-        const int v = threadIdx.x + k * kThreads;
-        const int cur = lab[v];
-        int m = cur;
-        if (xm & bit) m = min(m, lab[v - 1]);
-        if (xp & bit) m = min(m, lab[v + 1]);
-        if (ym & bit) m = min(m, lab[v - sy]);
-        if (yp & bit) m = min(m, lab[v + sy]);
-        if (zm & bit) m = min(m, lab[v - sz]);
-        if (zp & bit) m = min(m, lab[v + sz]);
-        if (m < cur) {
-          lab[v] = m;
-          changed = 1;
-        }
+    for (int nb = 0; nb < 2; ++nb) {
+      if (nb == 0 ? r % ty == 0 : r < ty) continue;  // no -y / -z row
+      const int q = c.p - (nb == 0 ? tx : g.sz);
+      const uint32_t o = c.w & bits_at(fg, q);
+      for (uint32_t s = run_starts(o, before && bit(fg, q - 1)); s; s &= s - 1) {
+        const int b = __ffs(s) - 1, lx = c.lx0 + b;
+        unite(par, c.p + b - ones_below(fg, c.p + b, lx), q + b - ones_below(fg, q + b, lx));
       }
     }
-    if (!__syncthreads_or(changed)) break;
   }
+  __syncthreads();
 
+  // finds here only read, so the one store to a run start is its own thread's
+  for (int it = threadIdx.x; it < n_items; it += kThreads) {
+    const Chunk c = chunk(fg, it, nch, tx);
+    for (uint32_t s = run_starts(c.w, c.lx0 ? bit(fg, c.p - 1) : 0u); s; s &= s - 1) {
+      const int v = c.p + __ffs(s) - 1;
+      par[v] = (uint16_t)find_root<false>(par, v);
+    }
+  }
+  __syncthreads();
+
+  if (vec) {  // four voxels of one row a thread, one 16-byte store
+#pragma unroll 4
+    for (int v = 4 * threadIdx.x; v < nv; v += 4 * kThreads) {
+      const uint32_t nib = (fg[v >> 5] >> (v & 31)) & 15u;
+      int lab[4] = {kBig, kBig, kBig, kBig};
+      if (nib) {
+        int lz, ly, lx;
+        g.split(v, lz, ly, lx);
+        int root = nib & 1u ? g.global(par[v - ones_below(fg, v, lx)]) : kBig;
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int v = threadIdx.x + k * kThreads;
-    if (v < nv) {
-      const int lz = v / sz, ly = (v / sy) % ty, lx = v % tx;
-      out[((z0 + lz) * Y + y0 + ly) * X + x0 + lx] = lab[v];
+        for (int i = 0; i < 4; ++i) {
+          if (!((nib >> i) & 1u)) continue;
+          if (i > 0 && !((nib >> (i - 1)) & 1u)) root = g.global(par[v + i]);  // a run starts here
+          lab[i] = root;
+        }
+      }
+      *reinterpret_cast<int4*>(out + g.global(v)) = make_int4(lab[0], lab[1], lab[2], lab[3]);
+    }
+  } else {
+    for (int v = threadIdx.x; v < nv; v += kThreads) {
+      int lab = kBig;
+      if (bit(fg, v)) {
+        int lz, ly, lx;
+        g.split(v, lz, ly, lx);
+        lab = g.global(par[v - ones_below(fg, v, lx)]);
+      }
+      out[g.global(v)] = lab;
     }
   }
 }
@@ -97,16 +189,19 @@ tile_ccl_kernel(const uint8_t* __restrict__ mask, int32_t* __restrict__ out,
 extern "C" int ct_tile_ccl(const void* mask, void* out, int Z, int Y, int X,
                            int tz, int ty, int tx, void* stream) {
   const int nv = tz * ty * tx;
-  if (nv <= 0 || nv > kThreads * kPerThread || Z % tz || Y % ty || X % tx)
+  if (nv <= 0 || nv > kMaxVoxels || Z % tz || Y % ty || X % tx)
     return (int)cudaErrorInvalidValue;
   const int gz = Z / tz, gy = Y / ty, gx = X / tx;
-  const size_t smem = (size_t)nv * sizeof(int32_t);
+  int xbits, ybits;
+  pow2_bits(ty, tx, &ybits, &xbits);
+  const size_t smem = n_words(nv) * sizeof(uint32_t) + (size_t)nv * sizeof(uint16_t);
   cudaError_t err = cudaFuncSetAttribute(
       tile_ccl_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = gz * gy * gx;
   if (n_tiles == 0) return 0;
+  const bool vec = vec_ok(mask, X, tx) && ((uintptr_t)out & 15) == 0;
   tile_ccl_kernel<<<n_tiles, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)mask, (int32_t*)out, Y, X, tz, ty, tx, gy, gx);
+      (const uint8_t*)mask, (int32_t*)out, Y, X, tz, ty, tx, gy, gx, xbits, ybits, vec);
   return (int)cudaGetLastError();
 }

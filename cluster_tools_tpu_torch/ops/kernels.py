@@ -1,17 +1,21 @@
-"""The four tile kernels of the main path: CUDA wrappers and plain twins.
+"""The tile kernels: CUDA wrappers and plain twins.
 
 Port of ``cluster_tools_tpu/ops/pallas_kernels.py``.  Each TPU kernel has a
 hand-written Hopper kernel in ``csrc/`` (built by ``..build``) and a plain
 PyTorch twin here that computes the same function:
 
-====================  ==================  ===================================
-wrapper               CUDA source         replaces (Pallas kernel)
-====================  ==================  ===================================
-``tile_ccl``          tile_ccl.cu         ``tile_ccl_pallas`` (B1)
-``tile_ws_propagate`` tile_ws.cu          ``tile_ws_propagate_pallas`` (B2)
-``edt_cascade``       edt_cascade.cu      ``edt_cascade_pallas`` (B3)
-``apply_remap``       apply_remap.cu      ``apply_remap_pallas`` (B4)
-====================  ==================  ===================================
+================================  ======================  =============================================
+wrapper                           CUDA source             replaces (Pallas kernel)
+================================  ======================  =============================================
+``tile_ccl``                      tile_ccl.cu             ``tile_ccl_pallas`` (B1, ``_ccl_kernel``)
+``tile_ccl(..., doubling=True)``  tile_ccl_doubling.cu    ``tile_ccl_pallas(doubling=True)`` (B1d)
+``tile_ws_propagate``             tile_ws.cu              ``tile_ws_propagate_pallas`` (B2)
+``edt_cascade``                   edt_cascade.cu          ``edt_cascade_pallas`` (B3)
+``apply_remap``                   apply_remap.cu          ``apply_remap_pallas`` (B4)
+================================  ======================  =============================================
+
+B1d computes B1's function by run doubling (``_ccl_kernel_doubling``); as
+in the reference, nothing on the main path selects it.
 
 A wrapper runs the twin only for a CPU tensor (or ``impl="torch"``); for
 a CUDA tensor it launches its kernel or raises — never a silent fallback.
@@ -145,20 +149,58 @@ def tile_ccl_torch(mask: torch.Tensor, tile=DEFAULT_TILE) -> torch.Tensor:
     return from_tiles(glob, (z, y, x), tile)
 
 
-def tile_ccl(mask: torch.Tensor, tile=DEFAULT_TILE, impl: str = "auto") -> torch.Tensor:
+def tile_ccl_doubling_torch(mask: torch.Tensor, tile=DEFAULT_TILE) -> torch.Tensor:
+    """Twin of B1d: the run-doubling recurrence step for step, batched over
+    tiles.  Per iteration, for each axis and direction, a label jumps
+    ``2^k`` along the axis where the whole segment between is foreground
+    (``conn_k[i] = conn_{k-1}[i] & conn_{k-1}[i - 2^{k-1}]``); iterations
+    stop when nothing changes."""
+    z, y, x = mask.shape
+    dev = mask.device
+    m = to_tiles(mask.to(torch.bool), tile)
+    gidx = to_tiles(torch.arange(z * y * x, dtype=torch.int32, device=dev).reshape(z, y, x), tile)
+    lab = torch.where(m, gidx, BIG)
+
+    def axis_sweep(l, ax):
+        n = l.shape[ax]
+        for direction in (1, -1):
+            conn = m & _shift(m, direction, ax, False)
+            cur = l
+            step = 1
+            while step < n:
+                cand = _shift(cur, direction * step, ax, BIG)
+                cur = torch.where(conn, torch.minimum(cur, cand), cur)
+                if step * 2 < n:
+                    conn = conn & _shift(conn, direction * step, ax, False)
+                step *= 2
+            l = torch.minimum(l, torch.where(m, cur, BIG))
+        return l
+
+    while True:
+        new = lab
+        for ax in (1, 2, 3):
+            new = axis_sweep(new, ax)
+        if not bool((new != lab).any()):
+            return from_tiles(new, (z, y, x), tile)
+        lab = new
+
+
+def tile_ccl(mask: torch.Tensor, tile=DEFAULT_TILE, impl: str = "auto", doubling: bool = False) -> torch.Tensor:
     """Exact per-tile CCL of a 3-D bool mask; labels are global flat indices.
 
     Shape must be divisible by ``tile``.  Foreground voxels get the minimum
     global flat index of their within-tile component; background ``BIG``.
+    ``doubling`` selects the run-doubling kernel (B1d), the same function.
     """
     _check_tiled(mask.shape, tile)
     if resolve_impl(impl, mask) == "torch":
-        return tile_ccl_torch(mask, tile)
-    _record("tile_ccl", (mask,), {"tile": tuple(tile)})
-    _check(mask, (torch.bool, torch.uint8), "tile_ccl mask")
+        return tile_ccl_doubling_torch(mask, tile) if doubling else tile_ccl_torch(mask, tile)
+    name = "tile_ccl_doubling" if doubling else "tile_ccl"
+    _record(name, (mask,), {"tile": tuple(tile)})
+    _check(mask, (torch.bool, torch.uint8), f"{name} mask")
     out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
     _launch(
-        "tile_ccl", mask.device, _cuda_lib("tile_ccl"), "ct_tile_ccl",
+        name, mask.device, _cuda_lib(name), f"ct_{name}",
         mask.data_ptr(), out.data_ptr(), *mask.shape, *tile,
     )
     return out

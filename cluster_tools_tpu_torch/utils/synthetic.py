@@ -41,3 +41,42 @@ def synthetic_boundaries(shape, generator: torch.Generator, passes: int = DEFAUL
             v = (v + torch.roll(v, 1, axis) + torch.roll(v, -1, axis)) / 3.0
     lo, hi = v.min(), v.max()
     return (v - lo) / torch.clamp(hi - lo, min=1e-6)
+
+
+def serpentine_tile(tile) -> np.ndarray:
+    """A one-voxel-wide path filling a tile: full x-rows on every other
+    ``(z, y)``, visited in boustrophedon order and joined by one voxel at
+    the row end where the path turns (the longest in-tile path a sweep
+    labeller can meet)."""
+    tz, ty, tx = tile
+    m = np.zeros(tile, bool)
+    cells = []
+    for zi in range((tz + 1) // 2):
+        ys = range((ty + 1) // 2)
+        cells += [(2 * zi, 2 * yi) for yi in (ys if zi % 2 == 0 else reversed(ys))]
+    for k, (z, y) in enumerate(cells):
+        m[z, y, :] = True
+        if k + 1 < len(cells):
+            z2, y2 = cells[k + 1]
+            m[(z + z2) // 2, (y + y2) // 2, tx - 1 if k % 2 == 0 else 0] = True
+    return m
+
+
+def adversarial_tiles_np(tile) -> np.ndarray:
+    """Eight tiles (2 x 2 x 2 of ``tile``) that stress in-tile CCL: all
+    foreground, checkerboard, isolated voxels, a serpentine and its mirror,
+    a serpentine whose rows are cut into short runs, random p=0.5, empty."""
+    tz, ty, tx = tile
+    i = np.indices(tile)
+    serp = serpentine_tile(tile)
+    cut = serp.copy()
+    cut[0::2, 0::2, 1::2] = False
+    pats = [
+        np.ones(tile, bool), i.sum(0) % 2 == 0, (i % 2 == 0).all(0), serp, serp[:, :, ::-1],
+        cut, np.random.default_rng(0).random(tile) < 0.5, np.zeros(tile, bool),
+    ]
+    vol = np.zeros((2 * tz, 2 * ty, 2 * tx), bool)
+    for k, p in enumerate(pats):
+        a, b, c = k // 4, (k // 2) % 2, k % 2
+        vol[a * tz:(a + 1) * tz, b * ty:(b + 1) * ty, c * tx:(c + 1) * tx] = p
+    return vol

@@ -1,4 +1,4 @@
-"""Parity of the torch port's four kernel twins with the JAX package.
+"""Parity of the torch port's kernel twins with the JAX package.
 
 Each twin in ``cluster_tools_tpu_torch.ops.kernels`` is held, with zero
 tolerance, against the Pallas kernel it replaces (run in interpret mode,
@@ -26,7 +26,7 @@ from cluster_tools_tpu_torch.ops import kernels as K
 from cluster_tools_tpu_torch.ops import tile_ccl as tccl
 from cluster_tools_tpu_torch.ops import tile_ws as tws
 from cluster_tools_tpu_torch.utils.reference_io import from_reference
-from cluster_tools_tpu_torch.utils.synthetic import synthetic_boundaries_np
+from cluster_tools_tpu_torch.utils.synthetic import adversarial_tiles_np, synthetic_boundaries_np
 
 TILE = (16, 16, 128)
 SHAPE = (16, 32, 256)
@@ -34,6 +34,13 @@ SHAPE = (16, 32, 256)
 # one intra-op thread: the suite runs many test processes side by side, and
 # torch's default thread pool oversubscribes the cores under that load
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _pin_modes(monkeypatch):
+    monkeypatch.setenv("CT_TIER_MODE", "cond")
+    monkeypatch.setenv("CT_FILL_MODE", "capacity")
+    monkeypatch.setenv("CT_SEED_CCL", "tiled")
 
 
 def _t(a):
@@ -74,6 +81,28 @@ def test_tile_ccl_twin_matches_pallas_and_reference_twin(masks, kind):
     got = K.tile_ccl(_t(m), TILE).numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, np.asarray(tile_local_labels_xla(jnp.asarray(m), TILE)))
+    assert got.dtype == np.int32
+
+
+# the reference's own adversarial masks for the run-doubling kernel
+# (tests/test_tile_ccl.py), then the smooth and noise masks above
+DOUBLING_CASES = ["p0.5-seed0", "p0.75-seed1", "p0.2-seed2", "smooth", "noise"]
+
+
+def _ccl_case(masks, case):
+    if case in masks:
+        return masks[case]
+    p, seed = case.split("-")
+    return np.random.default_rng(int(seed[4:])).random(SHAPE) < float(p[1:])
+
+
+@pytest.mark.parametrize("case", DOUBLING_CASES)
+def test_tile_ccl_doubling_twin_matches_pallas_doubling(masks, case):
+    m = _ccl_case(masks, case)
+    want = np.asarray(tile_ccl_pallas(jnp.asarray(m), tile=TILE, interpret=True, doubling=True))
+    np.testing.assert_array_equal(K.tile_ccl_doubling_torch(_t(m), TILE).numpy(), want)
+    got = K.tile_ccl(_t(m), TILE, doubling=True).numpy()
+    np.testing.assert_array_equal(got, want)
     assert got.dtype == np.int32
 
 
@@ -207,10 +236,29 @@ def cuda():
     return torch.device("cuda")
 
 
+def _gpu_ccl_masks(masks):
+    """The parity masks plus tiles that stress in-tile CCL: all foreground,
+    checkerboard, isolated voxels, serpentines (one-voxel-wide paths
+    filling a tile), random and empty tiles."""
+    out = {case: _ccl_case(masks, case) for case in DOUBLING_CASES}
+    out["adversarial"] = adversarial_tiles_np(TILE)
+    return out
+
+
 @pytest.mark.gpu
 def test_cuda_tile_ccl_matches_twin(cuda, masks):
-    m = _t(masks["noise"]).to(cuda)
-    assert torch.equal(K.tile_ccl(m, TILE, impl="cuda"), K.tile_ccl_torch(m, TILE))
+    for case, m in _gpu_ccl_masks(masks).items():
+        m = _t(m).to(cuda)
+        assert torch.equal(K.tile_ccl(m, TILE, impl="cuda"), K.tile_ccl_torch(m, TILE)), case
+
+
+@pytest.mark.gpu
+def test_cuda_tile_ccl_doubling_matches_both_twins(cuda, masks):
+    for case, m in _gpu_ccl_masks(masks).items():
+        m = _t(m).to(cuda)
+        got = K.tile_ccl(m, TILE, impl="cuda", doubling=True)
+        assert torch.equal(got, K.tile_ccl_doubling_torch(m, TILE)), case
+        assert torch.equal(got, K.tile_ccl_torch(m, TILE)), case
 
 
 @pytest.mark.gpu
@@ -226,6 +274,19 @@ def test_cuda_edt_cascade_matches_twin(cuda, edt_input, axis):
     for r, w in ((32, 1.0), (EDT_SHAPE[axis] - 1, 2.25)):
         r = min(r, EDT_SHAPE[axis] - 1)
         assert torch.equal(K.edt_cascade(f, axis, r, w, 1e12, impl="cuda"), K.edt_cascade_torch(f, axis, r, w, 1e12))
+    # short, odd and long lines (n not a multiple of 32, n < 32, radius
+    # n - 1 above 32, n = 1100 above the register paths) with the
+    # anisotropic weights
+    w = (40.0**2, 4.0**2, 1.5**2)[axis]
+    rng = np.random.default_rng(13)
+    for n in (1, 7, 31, 33, 127, 576, 1100):
+        dims = [6, 9, 45]
+        dims[axis] = n
+        g = np.where(rng.random(dims) < 0.8, np.float32(1e12), rng.random(dims, np.float32) * 100)
+        g = _t(g.astype(np.float32)).to(cuda)
+        for r in sorted({0, 1, min(32, n - 1), n - 1}):
+            got = K.edt_cascade(g, axis, r, w, 1e12, impl="cuda")
+            assert torch.equal(got, K.edt_cascade_torch(g, axis, r, w, 1e12)), (n, r)
 
 
 @pytest.mark.gpu
