@@ -12,9 +12,13 @@ Phases, each one line of output, each raising on failure:
    exact equality (B1 tiled CCL and B1d, its run-doubling variant, against
    both CCL twins on a smooth mask and on adversarial tiles: all
    foreground, checkerboard, isolated voxels, one-voxel-wide serpentines;
-   B2 watershed flow; B3 EDT cascade on all axes at radius 32 and n-1, and
-   at n in {1, 7, 31, 33, 127, 576, 1100} x radius in {0, 1, 32, n-1}, with
-   anisotropic weights; B4 remap with -1 slots and a chained pair);
+   B2 watershed flow against both flow twins on a descent field, on it
+   edited with voxels the flow stage never makes, and on the adversarial
+   fields of ``adversarial_flow_np`` at four tile shapes; B3 EDT cascade on
+   all axes at radius 32 and n-1, and at n in {1, 7, 31, 33, 127, 576,
+   1100} x radius in {0, 1, 32, n-1}, with anisotropic weights; B4 remap
+   with -1 slots and a chained pair, and every kind of
+   ``adversarial_remap_np`` table on three tile shapes);
 4. main path: ``make_ws_ccl_split`` at the benchmark's headline config
    (``(1, 512, 512, 512)`` synthetic volume, halo 32, threshold 0.45, EDT
    cap 32, min seed distance 2, sparse seed CCL): one warm-up (host syncs
@@ -29,10 +33,14 @@ Phases, each one line of output, each raising on failure:
 6. main-path kernels: every launch of the main path replayed on the inputs
    it was given, against its twin (exact), timed beside its twin and its
    bound; a kernel's ``ms``/``plain_ms``/``bound_ms`` are sums over its
-   launches in one run.  B1d is not on the main path (as in the
+   launches in one run; each B4 launch prints its tables' mean and maximum
+   live slots per tile.  B1d is not on the main path (as in the
    reference): it is replayed on B1's cc-stage input, held exactly against
    both CCL twins, and its row reports 0 launches;
-7. tiled seeds: the whole step with ``seed_mode="tiled"`` at 128x256x256
+7. flow worst: B2 timed at the main path's flow shape with every tile one
+   adversarial tile, each of the eight in turn, beside its main-path time;
+   the slowest is held against the jump twin;
+8. tiled seeds: the whole step with ``seed_mode="tiled"`` at 128x256x256
    (B1 and B4 also run in the seeds stage), ``impl="cuda"`` against
    ``impl="torch"`` bit for bit, with its own launch counts.
 
@@ -75,6 +83,8 @@ KERNELS = {
 }
 # the kernels the main path must launch (B1d is a variant nothing selects)
 MAIN_PATH_KERNELS = ("tile_ccl", "tile_ws_propagate", "edt_cascade", "apply_remap")
+# tiles of B2's adversarial fields: small, unaligned rows and odd ty, the main tile
+FLOW_TILES = ((4, 8, 32), (4, 5, 30), (8, 8, 64), (16, 16, 128))
 
 
 def log(phase: str, msg: str) -> None:
@@ -123,7 +133,14 @@ def check_ccl(K, what: str, mask: torch.Tensor, tile) -> None:
 
 def phase_kernels(K, gen) -> None:
     from cluster_tools_tpu_torch.ops.tile_ws import descent_directions
-    from cluster_tools_tpu_torch.utils.synthetic import adversarial_tiles_np, synthetic_boundaries
+    from cluster_tools_tpu_torch.utils.synthetic import (
+        REMAP_KINDS,
+        adversarial_flow_np,
+        adversarial_remap_np,
+        adversarial_tiles_np,
+        flow_edits_np,
+        synthetic_boundaries,
+    )
 
     dev = "cuda"
     shape = (64, 128, 256)
@@ -147,6 +164,16 @@ def phase_kernels(K, gen) -> None:
     flow = K.tile_ws_propagate(dirs, sv, tile, impl="cuda")
     require_equal("B2 tile_ws_propagate (jump twin)", flow, K.tile_ws_propagate_torch(dirs, sv, tile, "jump"))
     require_equal("B2 tile_ws_propagate (stepping twin)", flow, K.tile_ws_propagate_torch(dirs, sv, tile, "stepping"))
+    # off the flow stage's domain: seeded and invalid non-terminals, seeded
+    # exits, unknown codes; then the adversarial fields at each of FLOW_TILES
+    flow_cases = [("edited field", flow_edits_np(dirs.cpu().numpy(), sv.cpu().numpy(), tile, tiles=range(8)), tile)]
+    flow_cases += [(f"adversarial fields {t}", adversarial_flow_np(t), t) for t in FLOW_TILES]
+    for what, (d_np, s_np), ftile in flow_cases:
+        d_c, s_c = torch.from_numpy(d_np).to(dev), torch.from_numpy(s_np).to(dev)
+        got = K.tile_ws_propagate(d_c, s_c, ftile, impl="cuda")
+        for form in ("jump", "stepping"):
+            require_equal(f"B2 tile_ws_propagate {what} ({form} twin)", got,
+                          K.tile_ws_propagate_torch(d_c, s_c, ftile, form))
 
     f = torch.where(mask, torch.tensor(np.float32(1e12), device=dev), torch.tensor(0.0, device=dev)).contiguous()
     n_b3 = 0
@@ -183,11 +210,23 @@ def phase_kernels(K, gen) -> None:
     old[0, 21], new[0, 21] = present[1], present[2]
     require_equal("B4 apply_remap", K.apply_remap(labels, old, new, tile, 64, impl="cuda"),
                   K.apply_remap_torch(labels, old, new, tile, 64))
+    # adversarial tables on the main tile and on small ones (rows of 32 and,
+    # unaligned, of 30 voxels)
+    for rtile, lab_np in ((tile, labels.cpu().numpy()), ((4, 8, 32), labels.cpu().numpy()),
+                          ((4, 8, 30), labels[:, :, :240].contiguous().cpu().numpy())):
+        for kind in REMAP_KINDS + ("mixed",):
+            lab_c, old_c, new_c = (torch.from_numpy(a).to(dev) for a in adversarial_remap_np(lab_np, rtile, kind))
+            require_equal(f"B4 apply_remap {kind} tables, tile {rtile}",
+                          K.apply_remap(lab_c, old_c, new_c, rtile, 64, impl="cuda"),
+                          K.apply_remap_torch(lab_c, old_c, new_c, rtile, 64))
     torch.cuda.synchronize()
     log("kernels", f"B1 and B1d (smooth mask, 8 adversarial tiles, noise at 3 densities on 4x5x32 and "
                    f"4x5x40 tiles), "
-                   f"B2 (jump + stepping twins), B3 ({n_b3} axis/n/radius/weight cases), "
-                   f"B4 (-1 slots, chained pair) equal their twins exactly")
+                   f"B2 (jump + stepping twins; descent field, edited field, adversarial fields on "
+                   f"{', '.join('x'.join(map(str, t)) for t in FLOW_TILES)} tiles), "
+                   f"B3 ({n_b3} axis/n/radius/weight cases), "
+                   f"B4 (-1 slots, chained pair; {len(REMAP_KINDS) + 1} adversarial table kinds on "
+                   f"16x16x128, 4x8x32, 4x8x30 tiles) equal their twins exactly")
 
 
 def bound_ms(name: str, args, kwargs) -> tuple:
@@ -206,11 +245,12 @@ def bound_ms(name: str, args, kwargs) -> tuple:
         # per step: min of the two neighbours, one float32 add, one min
         # (min(a + c, b + c) == min(a, b) + c exactly: rounding is monotone)
         t_ops = 3.0 * kwargs["radius"] * n / FP32_OPS_PER_S * 1e3
-    else:  # apply_remap: int32 compare + select per live slot and voxel
+    else:  # apply_remap: one hashed lookup per voxel of a tile with a live slot
         old, new = args[1], args[2]
         nbytes = n * 8 + old.numel() * 8
-        live_slots = ((old != new).int().flip(1).cumsum(1) > 0).sum(1)
-        t_ops = 2.0 * float(live_slots.sum()) * (n / old.shape[0]) / INT32_OPS_PER_S * 1e3
+        # hash (multiply, shift), compare the key, select: 4 int32 operations
+        live_tiles = int((old != new).any(1).sum())
+        t_ops = 4.0 * live_tiles * (n / old.shape[0]) / INT32_OPS_PER_S * 1e3
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -234,6 +274,30 @@ def replay(K, name, args, kwargs):
         kfn = lambda: K.apply_remap(*args, kwargs["tile"], kwargs["cap"], impl="cuda")
         tfn = lambda: K.apply_remap_torch(*args, kwargs["tile"], kwargs["cap"])
     return kfn, tfn
+
+
+def flow_worst(K, shape, main_ms: float) -> None:
+    """B2 at the main path's flow shape with every tile one adversarial tile
+    (each of the eight in turn); the slowest is held against the jump twin."""
+    from cluster_tools_tpu_torch.utils.synthetic import adversarial_flow_tiles_np
+
+    tile = K.DEFAULT_TILE
+    reps = [s // t for s, t in zip(shape, tile)]
+    times, worst = [], None
+    for name, d_np, s_np in adversarial_flow_tiles_np(tile):
+        d, s = (torch.from_numpy(x).cuda().repeat(*reps).contiguous() for x in (d_np, s_np))
+        t = cuda_ms(lambda: K.tile_ws_propagate(d, s, tile, impl="cuda"), 5)
+        times.append((t, name))
+        if worst is None or t > worst[0]:
+            worst = (t, name, d, s)
+        del d, s
+    t_worst, name, d, s = worst
+    require_equal(f"B2 on {shape} of '{name}' tiles (jump twin)", K.tile_ws_propagate(d, s, tile, impl="cuda"),
+                  K.tile_ws_propagate_torch(d, s, tile, "jump"))
+    log("flow-worst", f"B2 at {shape}, every tile one adversarial tile: "
+                      + ", ".join(f"{n} {t:.3f}" for t, n in times)
+                      + f" ms; worst '{name}' {t_worst:.3f} ms (equals the jump twin) against "
+                        f"the main path's {main_ms:.3f} ms")
 
 
 def partition_equal(cc: torch.Tensor, ref: torch.Tensor) -> bool:
@@ -386,13 +450,19 @@ def main() -> int:
             ms, plain = ms + t, plain + tp
             bounds.append(b)
             what = f"replay of tile_ccl launch {i}" if src != kname else f"launch {i}"
+            extra = ""
+            if kname == "apply_remap":
+                live = (kargs[1] != kargs[2]).sum(1).double()
+                extra = f"; live slots per tile: mean {float(live.mean()):.2f}, max {int(live.max())}"
             log("main-kernels", f"{kname} {what} shape {tuple(kargs[0].shape)} "
                                 f"{ {k: v for k, v in kkw.items() if k in ('axis', 'radius')} }: "
-                                f"{t:.3f} ms (twin {tp:.3f} ms, bound {b[0]:.3f} ms by {b[1]})")
+                                f"{t:.3f} ms (twin {tp:.3f} ms, bound {b[0]:.3f} ms by {b[1]}){extra}")
         rows.append(dict(name=kname, route="cuda", source=source, replaces=replaces,
                          launches=launches.get(kname, 0), max_abs_err=err, ms=ms, plain_ms=plain,
                          bound_ms=sum(b[0] for b in bounds), bound_by=max(bounds)[1], library_ms=None))
+    flow_shape = next(tuple(c[1][0].shape) for c in captured if c[0] == "tile_ws_propagate")
     del captured
+    flow_worst(K, flow_shape, next(r["ms"] for r in rows if r["name"] == "tile_ws_propagate"))
 
     # ---- tiled seeds: impl=cuda vs impl=torch ----
     small = synthetic_boundaries((1, 128, 256, 256), torch.Generator(device="cuda").manual_seed(args.seed + 1))

@@ -255,8 +255,15 @@ def tile_ws_propagate_stepping(dirs: torch.Tensor, sv: torch.Tensor, tile=DEFAUL
 
 def tile_ws_propagate_jump(dirs: torch.Tensor, sv: torch.Tensor, tile=DEFAULT_TILE) -> torch.Tensor:
     """Twin of B2, pointer jumping: the in-tile successor table composed to
-    closure; voxels whose target leaves the tile are pseudo-terminals
-    carrying their exit code."""
+    closure, then every voxel takes its root's value.
+
+    A root is a voxel that keeps its value under the stepping recurrence: a
+    terminal (code 0), a voxel whose target leaves the tile (an exit), or a
+    code outside 0..6 (never selected).  A terminal's or unknown code's
+    value is ``s`` if ``s > 0``, else ``-(g + 2)`` for an unseeded terminal,
+    else 0; an exit's is ``-(target + 2)`` whatever its ``s``.  Every other
+    voxel ends at its root's value, seeded or not (the fixed point of the
+    stepping recurrence on any acyclic field)."""
     shape = dirs.shape
     _, y, x = shape
     tz, ty, tx = tile
@@ -265,7 +272,8 @@ def tile_ws_propagate_jump(dirs: torch.Tensor, sv: torch.Tensor, tile=DEFAULT_TI
     offs = torch.tensor(
         np.concatenate([[[0, 0, 0]], np.asarray(WS_OFFS)]).astype(np.int32), device=dev
     )
-    d = dirs_t.long()
+    known = (dirs_t >= 0) & (dirs_t <= len(WS_OFFS))
+    d = torch.where(known, dirs_t, 0).long()
     oz, oy, ox = offs[:, 0][d], offs[:, 1][d], offs[:, 2][d]
     nt = dirs_t.shape[0]
     cz = torch.arange(tz, dtype=torch.int32, device=dev).reshape(1, tz, 1, 1)
@@ -277,23 +285,20 @@ def tile_ws_propagate_jump(dirs: torch.Tensor, sv: torch.Tensor, tile=DEFAULT_TI
     tgt_flat = (tzc * ty + tyc) * tx + txc
     terminal = dirs_t == 0
     exit_code = -(gidx + (oz * y + oy) * x + ox) - 2
-    pseudo_term = terminal | ~inb
-    nxt = torch.where(pseudo_term, self_flat, tgt_flat)
-    val = torch.where(
-        sv_t > 0,
-        sv_t,
-        torch.where(
-            terminal & (sv_t == 0), -gidx - 2, torch.where(~inb & ~terminal, exit_code, 0)
-        ),
+    root = ~known | terminal | ~inb
+    nxt = torch.where(root, self_flat, tgt_flat)
+    rootval = torch.where(
+        ~inb,
+        exit_code,
+        torch.where(sv_t > 0, sv_t, torch.where(terminal & (sv_t == 0), -gidx - 2, 0)),
     ).to(torch.int32)
     nxt = nxt.reshape(nt, -1).long()
-    val = val.reshape(nt, -1)
     while True:
         p2 = torch.gather(nxt, 1, nxt)
         if not bool((p2 != nxt).any()):
             break
         nxt = p2
-    out = torch.where(val != 0, val, torch.gather(val, 1, nxt))
+    out = torch.gather(rootval.reshape(nt, -1), 1, nxt)
     return from_tiles(out.reshape(nt, tz, ty, tx), shape, tile)
 
 
@@ -310,9 +315,13 @@ def tile_ws_propagate(dirs: torch.Tensor, sv: torch.Tensor, tile=DEFAULT_TILE, i
     """In-tile watershed label flow along a descent-direction field.
 
     ``dirs``: int32 codes (0 = terminal, 1..6 = ``WS_OFFS``); ``sv``: int32,
-    -1 masked out, 0 no seed, >0 seed id.  Output per voxel: seed label,
+    -1 masked out, 0 no seed, >0 seed id.  Output per voxel: the value of
+    its in-tile root (see :func:`tile_ws_propagate_jump`): a seed label,
     0 (invalid), ``-(t + 2)`` for the unseeded in-tile terminal ``t``, or
-    ``-(g + 2)`` for an exit whose target ``g`` lies in another tile.
+    ``-(g + 2)`` for an exit whose target ``g`` lies in another tile.  The
+    field must be acyclic, as the flow stage's are: on a cycle the
+    reference's stepping recurrence need not converge, the twins do not
+    return, and the kernel stores 0 where a walk does not end.
     """
     _check_tiled(dirs.shape, tile)
     if resolve_impl(impl, dirs) == "torch":

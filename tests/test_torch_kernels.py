@@ -26,7 +26,14 @@ from cluster_tools_tpu_torch.ops import kernels as K
 from cluster_tools_tpu_torch.ops import tile_ccl as tccl
 from cluster_tools_tpu_torch.ops import tile_ws as tws
 from cluster_tools_tpu_torch.utils.reference_io import from_reference
-from cluster_tools_tpu_torch.utils.synthetic import adversarial_tiles_np, synthetic_boundaries_np
+from cluster_tools_tpu_torch.utils.synthetic import (
+    REMAP_KINDS,
+    adversarial_flow_np,
+    adversarial_remap_np,
+    adversarial_tiles_np,
+    flow_edits_np,
+    synthetic_boundaries_np,
+)
 
 TILE = (16, 16, 128)
 SHAPE = (16, 32, 256)
@@ -122,6 +129,40 @@ def test_tile_ws_propagate_twin_matches_pallas_and_reference_twin(flow_inputs, f
     np.testing.assert_array_equal(got, ref_twin)
 
 
+@pytest.fixture(scope="module")
+def flow_repair(flow_inputs):
+    """The flow inputs with voxels the flow stage never makes: seeded and
+    invalid voxels pointing at an unseeded in-tile terminal, seeded,
+    invalid and unseeded exits, and codes outside 0..6."""
+    return flow_edits_np(*flow_inputs, TILE, seed=0)
+
+
+@pytest.mark.parametrize("formulation", ["jump", "stepping"])
+def test_tile_ws_propagate_twin_matches_pallas_off_the_flow_stage_domain(flow_inputs, flow_repair, formulation):
+    dirs, sv = flow_repair
+    edited = (dirs != flow_inputs[0]) | (sv != flow_inputs[1])
+    assert ((sv > 0) & (dirs != 0) & edited).sum() >= 8  # seeded non-terminals, in-tile and exits
+    assert ((sv < 0) & (dirs != 0)).sum() >= 8
+    assert ((dirs < 0) | (dirs > 6)).any()
+    want = np.asarray(tile_ws_propagate_pallas(jnp.asarray(dirs), jnp.asarray(sv), tile=TILE, interpret=True))
+    got = K.tile_ws_propagate_torch(_t(dirs), _t(sv), TILE, formulation).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+# small tiles keep the stepping loops short; 4x5x30 has unaligned rows and odd ty
+FLOW_TILES = [(4, 8, 32), (4, 5, 30), (8, 8, 64)]
+
+
+@pytest.mark.parametrize("tile", FLOW_TILES, ids=lambda t: "x".join(map(str, t)))
+@pytest.mark.parametrize("formulation", ["jump", "stepping"])
+def test_tile_ws_propagate_twin_matches_pallas_on_adversarial_fields(tile, formulation):
+    dirs, sv = adversarial_flow_np(tile)
+    want = np.asarray(tile_ws_propagate_pallas(jnp.asarray(dirs), jnp.asarray(sv), tile=tile, interpret=True))
+    got = K.tile_ws_propagate(_t(dirs), _t(sv), tile) if formulation == "jump" else (
+        K.tile_ws_propagate_torch(_t(dirs), _t(sv), tile, formulation))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 EDT_SHAPE = (16, 24, 256)
 
 
@@ -196,6 +237,26 @@ def test_apply_remap_twin_matches_pallas(remap_case):
     np.testing.assert_array_equal(got, want)
 
 
+REMAP_TILE = (4, 8, 32)
+
+
+@pytest.fixture(scope="module")
+def remap_labels():
+    """Tile-CCL labels over 12 small tiles (room for every table kind)."""
+    m = np.random.default_rng(12).random((8, 16, 96)) < 0.6
+    return np.asarray(tile_ccl_pallas(jnp.asarray(m), tile=REMAP_TILE, interpret=True))
+
+
+@pytest.mark.parametrize("kind", REMAP_KINDS + ("mixed",))
+def test_apply_remap_twin_matches_pallas_on_adversarial_tables(remap_labels, kind):
+    lab, old, new = adversarial_remap_np(remap_labels, REMAP_TILE, kind)
+    want = np.asarray(apply_remap_pallas(jnp.asarray(lab), jnp.asarray(old), jnp.asarray(new),
+                                         tile=REMAP_TILE, cap=64, interpret=True))
+    got = K.apply_remap(_t(lab), _t(old), _t(new), REMAP_TILE, 64).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got != lab).any()
+
+
 def test_gather_rungs_match_reference(masks):
     """The rungs B4 falls back to (the reference twins of B4)."""
     m = masks["noise"]
@@ -268,6 +329,23 @@ def test_cuda_tile_ws_propagate_matches_twin(cuda, flow_inputs):
 
 
 @pytest.mark.gpu
+def test_cuda_tile_ws_propagate_matches_pallas_off_the_flow_stage_domain(cuda, flow_repair):
+    dirs, sv = flow_repair
+    want = np.asarray(tile_ws_propagate_pallas(jnp.asarray(dirs), jnp.asarray(sv), tile=TILE, interpret=True))
+    got = K.tile_ws_propagate(_t(dirs).to(cuda), _t(sv).to(cuda), TILE, impl="cuda")
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.gpu
+def test_cuda_tile_ws_propagate_matches_twins_on_adversarial_fields(cuda):
+    for tile in FLOW_TILES + [TILE]:
+        dirs, sv = (_t(a).to(cuda) for a in adversarial_flow_np(tile))
+        got = K.tile_ws_propagate(dirs, sv, tile, impl="cuda")
+        assert torch.equal(got, K.tile_ws_propagate_torch(dirs, sv, tile, "jump")), tile
+        assert torch.equal(got, K.tile_ws_propagate_torch(dirs, sv, tile, "stepping")), tile
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("axis", [0, 1, 2])
 def test_cuda_edt_cascade_matches_twin(cuda, edt_input, axis):
     f = _t(edt_input).to(cuda)
@@ -293,6 +371,52 @@ def test_cuda_edt_cascade_matches_twin(cuda, edt_input, axis):
 def test_cuda_apply_remap_matches_twin(cuda, remap_case):
     lab, old, new = (_t(a).to(cuda) for a in remap_case)
     assert torch.equal(K.apply_remap(lab, old, new, TILE, 64, impl="cuda"), K.apply_remap_torch(lab, old, new, TILE, 64))
+
+
+@pytest.mark.gpu
+def test_cuda_apply_remap_matches_twin_on_adversarial_tables(cuda, remap_labels, remap_case):
+    for labels, tile in ((remap_labels, REMAP_TILE), (remap_case[0], TILE)):
+        for kind in REMAP_KINDS + ("mixed",):
+            lab, old, new = (_t(a).to(cuda) for a in adversarial_remap_np(labels, tile, kind))
+            got = K.apply_remap(lab, old, new, tile, 64, impl="cuda")
+            assert torch.equal(got, K.apply_remap_torch(lab, old, new, tile, 64)), (tile, kind)
+
+
+def _int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values wrapped to int32, as the kernels' int32 arithmetic wraps."""
+    return ((x + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["tile_ws_propagate", "apply_remap"])
+def test_cuda_row_kernels_address_volumes_of_2_31_voxels_or_more(cuda, kernel):
+    """B2 and B4 on a volume whose last z-slab of tiles lies past 2^31
+    voxels: the first and the last slab equal the twin run on that slab
+    alone (B2's exit and terminal codes shifted by the slab's global
+    offset)."""
+    shape = (2064, 1024, 1024)  # 2^31 + 2^24 voxels; z >= 2048 is past 2^31
+    per_slab = (shape[1] // TILE[1]) * (shape[2] // TILE[2])
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    slabs = (slice(0, TILE[0]), slice(shape[0] - TILE[0], shape[0]))
+    if kernel == "apply_remap":
+        lab = torch.randint(0, 50, shape, generator=gen, dtype=torch.int32, device=cuda)
+        n_tiles = per_slab * shape[0] // TILE[0]
+        old, new = (torch.randint(0, 50, (n_tiles, 64), generator=gen, dtype=torch.int32, device=cuda) for _ in range(2))
+        got = K.apply_remap(lab, old, new, TILE, 64, impl="cuda")
+        for i, sl in zip((0, n_tiles // per_slab - 1), slabs):
+            tab = slice(i * per_slab, (i + 1) * per_slab)
+            assert torch.equal(got[sl], K.apply_remap_torch(lab[sl], old[tab], new[tab], TILE, 64)), i
+    else:
+        # codes 0, +z, +y, +x only: every path climbs the flat index, so the
+        # field is acyclic; a quarter terminals, seeds 1..2, invalid -1
+        dirs = torch.randint(0, 4, shape, generator=gen, dtype=torch.int32, device=cuda).mul_(2)
+        sv = torch.randint(-1, 3, shape, generator=gen, dtype=torch.int32, device=cuda)
+        got = K.tile_ws_propagate(dirs, sv, TILE, impl="cuda")
+        for sl in slabs:
+            want = K.tile_ws_propagate_torch(dirs[sl], sv[sl], TILE).to(torch.int64)
+            base = sl.start * shape[1] * shape[2]
+            want = torch.where(want < -1, want - base, want)  # -(g + 2) codes
+            assert torch.equal(got[sl], _int32(want)), sl
 
 
 def test_cuda_route_refuses_cpu_tensors(masks):
