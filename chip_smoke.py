@@ -10,8 +10,11 @@ Phases, each one line of output, each raising on failure:
    ``nvcc`` per source, all at once);
 3. kernels: each kernel against its plain PyTorch twin on CUDA tensors,
    exact equality (B1 tiled CCL and B1d, its run-doubling variant, against
-   both CCL twins on a smooth mask and on adversarial tiles: all
-   foreground, checkerboard, isolated voxels, one-voxel-wide serpentines;
+   the CCL twins on a smooth mask, on adversarial tiles (all foreground,
+   checkerboard, isolated voxels, one-voxel-wide serpentines) and on noise,
+   at tiles with unaligned rows, with an axis of extent 1, with long
+   columns and with rows that span a warp; B1d against both formulations
+   of its twin, per-tile iteration counts included;
    B2 watershed flow against both flow twins on a descent field, on it
    edited with voxels the flow stage never makes, and on the adversarial
    fields of ``adversarial_flow_np`` at four tile shapes; B3 EDT cascade on
@@ -36,11 +39,16 @@ Phases, each one line of output, each raising on failure:
    launches in one run; each B4 launch prints its tables' mean and maximum
    live slots per tile.  B1d is not on the main path (as in the
    reference): it is replayed on B1's cc-stage input, held exactly against
-   both CCL twins, and its row reports 0 launches;
+   the CCL twins, prints its iterations per tile, and its row reports 0
+   launches;
 7. flow worst: B2 timed at the main path's flow shape with every tile one
    adversarial tile, each of the eight in turn, beside its main-path time;
    the slowest is held against the jump twin;
-8. tiled seeds: the whole step with ``seed_mode="tiled"`` at 128x256x256
+8. ccl worst: B1 and B1d timed at the cc stage's shape with every tile one
+   adversarial CCL tile, each of the eight in turn, with B1d's iterations;
+   each kernel's slowest kind is held against the other kernel and, on a
+   crop of whole tiles, against the unit-step twin;
+9. tiled seeds: the whole step with ``seed_mode="tiled"`` at 128x256x256
    (B1 and B4 also run in the seeds stage), ``impl="cuda"`` against
    ``impl="torch"`` bit for bit, with its own launch counts.
 
@@ -85,6 +93,9 @@ KERNELS = {
 MAIN_PATH_KERNELS = ("tile_ccl", "tile_ws_propagate", "edt_cascade", "apply_remap")
 # tiles of B2's adversarial fields: small, unaligned rows and odd ty, the main tile
 FLOW_TILES = ((4, 8, 32), (4, 5, 30), (8, 8, 64), (16, 16, 128))
+# CCL tiles beside the main one: an axis of extent 1 (no z pass; one voxel
+# a row), columns longer than B1d holds in registers, rows that span a warp
+CCL_TILES = ((1, 16, 128), (16, 16, 1), (40, 24, 16), (1, 4, 512))
 
 
 def log(phase: str, msg: str) -> None:
@@ -122,13 +133,22 @@ def require_equal(what: str, a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
+def check_b1d(K, what: str, mask: torch.Tensor, tile):
+    """B1d against both formulations of its twin (exact), labels and
+    per-tile iteration counts; returns both."""
+    b1d, iters = K.tile_ccl(mask, tile, impl="cuda", doubling=True, return_iterations=True)
+    for form in ("doubling", "runs"):
+        want, want_iters = K.tile_ccl_doubling_torch(mask, tile, form, return_iterations=True)
+        require_equal(f"B1d tile_ccl_doubling {what} ({form} twin)", b1d, want)
+        require_equal(f"B1d iterations per tile {what} ({form} twin)", iters, want_iters)
+    return b1d, iters
+
+
 def check_ccl(K, what: str, mask: torch.Tensor, tile) -> None:
-    """B1 and B1d against both CCL twins (exact)."""
+    """B1 and B1d against the CCL twins (exact)."""
     unit = K.tile_ccl_torch(mask, tile)
     require_equal(f"B1 tile_ccl {what}", K.tile_ccl(mask, tile, impl="cuda"), unit)
-    b1d = K.tile_ccl(mask, tile, impl="cuda", doubling=True)
-    require_equal(f"B1d tile_ccl_doubling {what} (doubling twin)", b1d, K.tile_ccl_doubling_torch(mask, tile))
-    require_equal(f"B1d tile_ccl_doubling {what} (unit-step twin)", b1d, unit)
+    require_equal(f"B1d tile_ccl_doubling {what} (unit-step twin)", check_b1d(K, what, mask, tile)[0], unit)
 
 
 def phase_kernels(K, gen) -> None:
@@ -148,9 +168,12 @@ def phase_kernels(K, gen) -> None:
     v = synthetic_boundaries(shape, gen, passes=4)
     mask = (v < v.median()).contiguous()
     check_ccl(K, "smooth mask", mask, tile)
-    check_ccl(K, "adversarial tiles", torch.from_numpy(adversarial_tiles_np(tile)).to(dev), tile)
-    # small tiles; rows of 40 voxels are not whole 32-bit words
-    for nshape, ntile in (((32, 40, 96), (4, 5, 32)), ((32, 40, 120), (4, 5, 40))):
+    for atile in (tile,) + CCL_TILES:
+        check_ccl(K, f"adversarial tiles {atile}", torch.from_numpy(adversarial_tiles_np(atile)).to(dev), atile)
+    # small tiles (rows of 40 voxels are not whole 32-bit words), and tiles
+    # with an axis of extent 1
+    for nshape, ntile in (((32, 40, 96), (4, 5, 32)), ((32, 40, 120), (4, 5, 40)),
+                          ((4, 64, 256), CCL_TILES[0]), ((64, 64, 4), CCL_TILES[1])):
         noise = torch.rand(nshape, generator=gen, device=dev)
         for p in (0.2, 0.5, 0.75):
             check_ccl(K, f"noise p={p}, tile {ntile}", (noise < p).contiguous(), ntile)
@@ -220,8 +243,10 @@ def phase_kernels(K, gen) -> None:
                           K.apply_remap(lab_c, old_c, new_c, rtile, 64, impl="cuda"),
                           K.apply_remap_torch(lab_c, old_c, new_c, rtile, 64))
     torch.cuda.synchronize()
-    log("kernels", f"B1 and B1d (smooth mask, 8 adversarial tiles, noise at 3 densities on 4x5x32 and "
-                   f"4x5x40 tiles), "
+    log("kernels", f"B1 and B1d (smooth mask, 8 adversarial tiles on 16x16x128, "
+                   f"{', '.join('x'.join(map(str, t)) for t in CCL_TILES)} tiles, noise at 3 densities on "
+                   f"4x5x32, 4x5x40, 1x16x128 and 16x16x1 tiles; B1d "
+                   f"against both twin formulations, iteration counts included), "
                    f"B2 (jump + stepping twins; descent field, edited field, adversarial fields on "
                    f"{', '.join('x'.join(map(str, t)) for t in FLOW_TILES)} tiles), "
                    f"B3 ({n_b3} axis/n/radius/weight cases), "
@@ -298,6 +323,45 @@ def flow_worst(K, shape, main_ms: float) -> None:
                       + ", ".join(f"{n} {t:.3f}" for t, n in times)
                       + f" ms; worst '{name}' {t_worst:.3f} ms (equals the jump twin) against "
                         f"the main path's {main_ms:.3f} ms")
+
+
+def ccl_worst(K, shape) -> None:
+    """B1 and B1d at the cc stage's shape with every tile one adversarial CCL
+    tile (each of the eight in turn).  Each kernel's slowest kind is held
+    against the other kernel at full size, and both kernels against the
+    unit-step twin on a crop of 2 x 4 x 2 whole tiles."""
+    from cluster_tools_tpu_torch.utils.synthetic import adversarial_ccl_tiles_np
+
+    tile = K.DEFAULT_TILE
+    reps = [s // t for s, t in zip(shape, tile)]
+    crop = tuple(slice(0, n * t) for n, t in zip((2, 4, 2), tile))
+    rows, worst = [], {}
+    for kind, m_np in adversarial_ccl_tiles_np(tile):
+        m = torch.from_numpy(m_np).cuda().repeat(*reps).contiguous()
+        t1 = cuda_ms(lambda: K.tile_ccl(m, tile, impl="cuda"), 5)
+        t1d = cuda_ms(lambda: K.tile_ccl(m, tile, impl="cuda", doubling=True), 5)
+        _, iters = K.tile_ccl(m, tile, impl="cuda", doubling=True, return_iterations=True)
+        rows.append((kind, t1, t1d, int(iters.max()), int(iters.min())))
+        for name, t in (("B1", t1), ("B1d", t1d)):
+            if name not in worst or t > worst[name][0]:
+                worst[name] = (t, kind, m_np)
+        del m
+    for name, (_, kind, m_np) in worst.items():
+        m = torch.from_numpy(m_np).cuda().repeat(*reps).contiguous()
+        require_equal(f"ccl-worst '{kind}' B1 against B1d", K.tile_ccl(m, tile, impl="cuda"),
+                      K.tile_ccl(m, tile, impl="cuda", doubling=True))
+        c = m[crop].contiguous()
+        unit = K.tile_ccl_torch(c, tile)
+        require_equal(f"ccl-worst '{kind}' crop, B1 (unit-step twin)", K.tile_ccl(c, tile, impl="cuda"), unit)
+        require_equal(f"ccl-worst '{kind}' crop, B1d (unit-step twin)",
+                      check_b1d(K, f"ccl-worst '{kind}' crop", c, tile)[0], unit)
+        del m
+    if any(hi != lo for *_, hi, lo in rows):
+        raise AssertionError(f"ccl-worst: tiles of one kind took different iteration counts: {rows}")
+    log("ccl-worst", f"B1 / B1d at {shape}, every tile one adversarial tile: "
+                     + "; ".join(f"{k} {a:.3f} / {b:.3f} ms, {it} iterations" for k, a, b, it, _ in rows)
+                     + f"; slowest B1 '{worst['B1'][1]}', B1d '{worst['B1d'][1]}': B1 == B1d there, and both "
+                       f"equal the unit-step twin on a 2x4x2-tile crop")
 
 
 def partition_equal(cc: torch.Tensor, ref: torch.Tensor) -> bool:
@@ -441,16 +505,19 @@ def main() -> int:
             kfn, tfn = replay(K, kname, kargs, kkw)
             out = kfn()
             err = max(err, require_equal(f"{kname} launch {i} on main-path inputs", out, tfn()))
+            extra = ""
             if kname == "tile_ccl_doubling":
                 require_equal(f"{kname} replay of tile_ccl launch {i} (unit-step twin)", out,
                               K.tile_ccl_torch(kargs[0], kkw["tile"]))
+                b1d, iters = check_b1d(K, f"replay of tile_ccl launch {i}", kargs[0], kkw["tile"])
+                require_equal(f"{kname} replay of tile_ccl launch {i} (with iterations)", out, b1d)
+                extra = f"; iterations per tile: mean {float(iters.double().mean()):.3f}, max {int(iters.max())}"
             del out
             t, tp = cuda_ms(kfn, 5), cuda_ms(tfn, 1)
             b = bound_ms(kname, kargs, kkw)
             ms, plain = ms + t, plain + tp
             bounds.append(b)
             what = f"replay of tile_ccl launch {i}" if src != kname else f"launch {i}"
-            extra = ""
             if kname == "apply_remap":
                 live = (kargs[1] != kargs[2]).sum(1).double()
                 extra = f"; live slots per tile: mean {float(live.mean()):.2f}, max {int(live.max())}"
@@ -461,8 +528,10 @@ def main() -> int:
                          launches=launches.get(kname, 0), max_abs_err=err, ms=ms, plain_ms=plain,
                          bound_ms=sum(b[0] for b in bounds), bound_by=max(bounds)[1], library_ms=None))
     flow_shape = next(tuple(c[1][0].shape) for c in captured if c[0] == "tile_ws_propagate")
+    cc_shape = next(tuple(c[1][0].shape) for c in captured if c[0] == "tile_ccl")
     del captured
     flow_worst(K, flow_shape, next(r["ms"] for r in rows if r["name"] == "tile_ws_propagate"))
+    ccl_worst(K, cc_shape)
 
     # ---- tiled seeds: impl=cuda vs impl=torch ----
     small = synthetic_boundaries((1, 128, 256, 256), torch.Generator(device="cuda").manual_seed(args.seed + 1))

@@ -110,7 +110,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
         "tile_ccl": ("ct_tile_ccl", [P, P, I, I, I, I, I, I, P]),
-        "tile_ccl_doubling": ("ct_tile_ccl_doubling", [P, P, I, I, I, I, I, I, P]),
+        "tile_ccl_doubling": ("ct_tile_ccl_doubling", [P, P, P, I, I, I, I, I, I, P]),
         "tile_ws_propagate": ("ct_tile_ws_propagate", [P, P, P, I, I, I, I, I, I, P]),
         "edt_cascade": ("ct_edt_cascade", [P, P, I, I, I, I, I, F, F, P]),
         "apply_remap": ("ct_apply_remap", [P, P, P, P, I, I, I, I, I, I, I, P]),

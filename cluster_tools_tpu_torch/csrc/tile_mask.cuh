@@ -1,10 +1,10 @@
-// Tile geometry and the foreground bit mask shared by the two in-tile CCL
-// kernels (B1 tile_ccl.cu, B1d tile_ccl_doubling.cu).
+// Tile geometry shared by the two in-tile CCL kernels (B1 tile_ccl.cu, B1d
+// tile_ccl_doubling.cu), and B1's foreground bit mask.
 //
 // A tile's voxels are numbered by their local index v = (lz * ty + ly) * tx
 // + lx.  Within one tile this order is the order of the global flat index,
 // so the minimum local index of a component maps to its minimum global one.
-// The tile's foreground is kept as a bit mask in shared memory (bit v of
+// B1 keeps the tile's foreground as a bit mask in shared memory (bit v of
 // word v / 32, one padding word after the last), filled by warp ballots.
 #pragma once
 
@@ -41,9 +41,9 @@ struct Geom {
   }
 };
 
-__device__ __forceinline__ Geom make_geom(int Y, int X, int tz, int ty, int tx, int gy, int gx,
+// tile t's geometry (z-major tile order)
+__device__ __forceinline__ Geom make_geom(int t, int Y, int X, int tz, int ty, int tx, int gy, int gx,
                                           int xbits, int ybits) {
-  const int t = blockIdx.x;
   Geom g;
   g.tz = tz;
   g.ty = ty;
@@ -57,6 +57,11 @@ __device__ __forceinline__ Geom make_geom(int Y, int X, int tz, int ty, int tx, 
   g.y0 = ((t / gx) % gy) * ty;
   g.x0 = (t % gx) * tx;
   return g;
+}
+
+__device__ __forceinline__ Geom make_geom(int Y, int X, int tz, int ty, int tx, int gy, int gx,
+                                          int xbits, int ybits) {
+  return make_geom(blockIdx.x, Y, X, tz, ty, tx, gy, gx, xbits, ybits);
 }
 
 // Host side: log2(tx) and log2(ty) when both are powers of two, else -1.
@@ -147,28 +152,6 @@ __device__ __forceinline__ int ones_below(const uint32_t* fg, int v, int cap) {
     if (ones < 32) break;
   }
   return min(n, cap);
-}
-
-// Number of set bits at v+1, v+2, ..., at most `cap` (v + cap < nv).
-__device__ __forceinline__ int ones_above(const uint32_t* fg, int v, int cap) {
-  int n = 0;
-  while (n < cap) {
-    const int s = v + 1 + n;  // bit s lands in bit 0 of the window
-    const int wi = s >> 5, off = s & 31;
-    uint32_t win = fg[wi] >> off;
-    if (off > 0) win |= fg[wi + 1] << (32 - off);
-    const int ones = __clz(__brev(~win));
-    n += ones;
-    if (ones < 32) break;
-  }
-  return min(n, cap);
-}
-
-// Number of set bits at v-S, v-2S, ..., at most `cap` (S may be negative).
-__device__ __forceinline__ int ones_strided(const uint32_t* fg, int v, int S, int cap) {
-  int n = 0;
-  while (n < cap && bit(fg, v - (n + 1) * S)) ++n;
-  return n;
 }
 
 }  // namespace tile_mask

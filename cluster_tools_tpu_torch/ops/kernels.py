@@ -149,61 +149,108 @@ def tile_ccl_torch(mask: torch.Tensor, tile=DEFAULT_TILE) -> torch.Tensor:
     return from_tiles(glob, (z, y, x), tile)
 
 
-def tile_ccl_doubling_torch(mask: torch.Tensor, tile=DEFAULT_TILE) -> torch.Tensor:
-    """Twin of B1d: the run-doubling recurrence step for step, batched over
-    tiles.  Per iteration, for each axis and direction, a label jumps
+def _doubling_sweep(lab: torch.Tensor, m: torch.Tensor, ax: int) -> torch.Tensor:
+    """The reference's sweep of one axis: in each direction a label jumps
     ``2^k`` along the axis where the whole segment between is foreground
-    (``conn_k[i] = conn_{k-1}[i] & conn_{k-1}[i - 2^{k-1}]``); iterations
-    stop when nothing changes."""
+    (``conn_k[i] = conn_{k-1}[i] & conn_{k-1}[i - 2^{k-1}]``)."""
+    n = lab.shape[ax]
+    for direction in (1, -1):
+        conn = m & _shift(m, direction, ax, False)
+        cur = lab
+        step = 1
+        while step < n:
+            cand = _shift(cur, direction * step, ax, BIG)
+            cur = torch.where(conn, torch.minimum(cur, cand), cur)
+            if step * 2 < n:
+                conn = conn & _shift(conn, direction * step, ax, False)
+            step *= 2
+        lab = torch.minimum(lab, torch.where(m, cur, BIG))
+    return lab
+
+
+def _runs_sweep(lab: torch.Tensor, m: torch.Tensor, ax: int) -> torch.Tensor:
+    """The same sweep as the kernel computes it: every foreground run along
+    the axis takes its minimum.  Run ids are a cumulative sum of run starts
+    along the lines (background maps to one spare slot holding ``BIG``)."""
+    lines, mm = lab.movedim(ax, -1), m.movedim(ax, -1)
+    starts = mm & ~_shift(mm, 1, mm.dim() - 1, False)
+    n = mm.numel()
+    rid = torch.where(mm.reshape(-1), torch.cumsum(starts.reshape(-1), 0) - 1, n)
+    mins = torch.full((n + 1,), BIG, dtype=lab.dtype, device=lab.device)
+    mins = mins.scatter_reduce(0, rid, lines.reshape(-1), "amin")
+    return mins[rid].reshape(mm.shape).movedim(-1, ax)
+
+
+CCL_DOUBLING_FORMULATIONS = {"doubling": _doubling_sweep, "runs": _runs_sweep}
+
+
+def tile_ccl_doubling_torch(mask: torch.Tensor, tile=DEFAULT_TILE, formulation: str = "doubling",
+                            return_iterations: bool = False):
+    """Twin of B1d, batched over tiles.  One iteration sweeps z, then y,
+    then x; iterations stop when nothing changes.  ``formulation``:
+    ``doubling``, the reference's guarded run doubling step for step, or
+    ``runs``, the kernel's per-axis run minima; the two give the same state
+    after every iteration.  With ``return_iterations`` also returns the
+    int32 count of iterations each tile (z-major) takes, the last one
+    included (the one that changes nothing)."""
+    if formulation not in CCL_DOUBLING_FORMULATIONS:
+        raise ValueError(f"formulation must be one of {tuple(CCL_DOUBLING_FORMULATIONS)}, got {formulation!r}")
+    sweep = CCL_DOUBLING_FORMULATIONS[formulation]
     z, y, x = mask.shape
     dev = mask.device
     m = to_tiles(mask.to(torch.bool), tile)
     gidx = to_tiles(torch.arange(z * y * x, dtype=torch.int32, device=dev).reshape(z, y, x), tile)
     lab = torch.where(m, gidx, BIG)
-
-    def axis_sweep(l, ax):
-        n = l.shape[ax]
-        for direction in (1, -1):
-            conn = m & _shift(m, direction, ax, False)
-            cur = l
-            step = 1
-            while step < n:
-                cand = _shift(cur, direction * step, ax, BIG)
-                cur = torch.where(conn, torch.minimum(cur, cand), cur)
-                if step * 2 < n:
-                    conn = conn & _shift(conn, direction * step, ax, False)
-                step *= 2
-            l = torch.minimum(l, torch.where(m, cur, BIG))
-        return l
-
+    iters = torch.ones(m.shape[0], dtype=torch.int32, device=dev)
+    it = 1
     while True:
         new = lab
         for ax in (1, 2, 3):
-            new = axis_sweep(new, ax)
-        if not bool((new != lab).any()):
-            return from_tiles(new, (z, y, x), tile)
+            new = sweep(new, m, ax)
+        moved = (new != lab).reshape(m.shape[0], -1).any(1)
+        if not bool(moved.any()):
+            break
+        it += 1
+        iters = torch.where(moved, it, iters)
         lab = new
+    out = from_tiles(lab, (z, y, x), tile)
+    return (out, iters) if return_iterations else out
 
 
-def tile_ccl(mask: torch.Tensor, tile=DEFAULT_TILE, impl: str = "auto", doubling: bool = False) -> torch.Tensor:
+def tile_ccl(mask: torch.Tensor, tile=DEFAULT_TILE, impl: str = "auto", doubling: bool = False,
+             return_iterations: bool = False):
     """Exact per-tile CCL of a 3-D bool mask; labels are global flat indices.
 
-    Shape must be divisible by ``tile``.  Foreground voxels get the minimum
-    global flat index of their within-tile component; background ``BIG``.
-    ``doubling`` selects the run-doubling kernel (B1d), the same function.
+    Shape must be divisible by ``tile`` and hold fewer than ``2**30``
+    voxels.  Foreground voxels get the minimum global flat index of their
+    within-tile component; background ``BIG``.  ``doubling`` selects the
+    run-doubling kernel (B1d), the same function; with it,
+    ``return_iterations`` also returns each tile's iteration count (see
+    :func:`tile_ccl_doubling_torch`).
     """
     _check_tiled(mask.shape, tile)
+    if mask.numel() >= BIG:
+        raise ValueError(f"volume {tuple(mask.shape)} has >= 2**30 voxels; shard it")
+    if return_iterations and not doubling:
+        raise ValueError("return_iterations needs doubling=True")
     if resolve_impl(impl, mask) == "torch":
-        return tile_ccl_doubling_torch(mask, tile) if doubling else tile_ccl_torch(mask, tile)
+        if doubling:
+            return tile_ccl_doubling_torch(mask, tile, return_iterations=return_iterations)
+        return tile_ccl_torch(mask, tile)
     name = "tile_ccl_doubling" if doubling else "tile_ccl"
     _record(name, (mask,), {"tile": tuple(tile)})
     _check(mask, (torch.bool, torch.uint8), f"{name} mask")
     out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
+    extra = ()
+    if doubling:
+        n_tiles = int(np.prod([s // t for s, t in zip(mask.shape, tile)]))
+        iters = torch.empty(n_tiles, dtype=torch.int32, device=mask.device) if return_iterations else None
+        extra = (None if iters is None else iters.data_ptr(),)
     _launch(
         name, mask.device, _cuda_lib(name), f"ct_{name}",
-        mask.data_ptr(), out.data_ptr(), *mask.shape, *tile,
+        mask.data_ptr(), out.data_ptr(), *extra, *mask.shape, *tile,
     )
-    return out
+    return (out, iters) if return_iterations else out
 
 
 # ---------------------------------------------------------------- B2 ----

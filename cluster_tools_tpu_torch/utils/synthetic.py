@@ -85,9 +85,25 @@ def adversarial_tiles_np(tile) -> np.ndarray:
     ]
     vol = np.zeros((2 * tz, 2 * ty, 2 * tx), bool)
     for k, p in enumerate(pats):
-        a, b, c = k // 4, (k // 2) % 2, k % 2
-        vol[a * tz:(a + 1) * tz, b * ty:(b + 1) * ty, c * tx:(c + 1) * tx] = p
+        vol[_eighth(k, tile)] = p
     return vol
+
+
+# the tiles of adversarial_tiles_np, in z-major order
+CCL_TILE_KINDS = ("all foreground", "checkerboard", "isolated", "serpentine", "serpentine mirrored",
+                  "serpentine cut", "random p=0.5", "empty")
+
+
+def adversarial_ccl_tiles_np(tile):
+    """:func:`adversarial_tiles_np` cut into its eight tiles:
+    ``[(kind, mask), ...]``."""
+    vol = adversarial_tiles_np(tile)
+    return [(kind, vol[_eighth(k, tile)].copy()) for k, kind in enumerate(CCL_TILE_KINDS)]
+
+
+def _eighth(k: int, tile) -> tuple:
+    """Slices of tile ``k`` (z-major) of a 2 x 2 x 2 block of ``tile``."""
+    return tuple(slice(i * t, (i + 1) * t) for i, t in zip((k // 4, (k // 2) % 2, k % 2), tile))
 
 
 def _tile_ids(shape, tile) -> np.ndarray:
@@ -303,8 +319,5 @@ def adversarial_flow_tiles_np(tile, seed: int = 0):
     ``[(kind, dirs, sv), ...]`` (codes are tile-local, so a cut tile keeps
     its exits and in-tile paths)."""
     dirs, sv = adversarial_flow_np(tile, seed)
-    out = []
-    for k, kind in enumerate(FLOW_TILE_KINDS):
-        sl = tuple(slice(i * t, (i + 1) * t) for i, t in zip((k // 4, (k // 2) % 2, k % 2), tile))
-        out.append((kind, dirs[sl].copy(), sv[sl].copy()))
-    return out
+    return [(kind, dirs[_eighth(k, tile)].copy(), sv[_eighth(k, tile)].copy())
+            for k, kind in enumerate(FLOW_TILE_KINDS)]

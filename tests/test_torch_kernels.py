@@ -103,14 +103,42 @@ def _ccl_case(masks, case):
     return np.random.default_rng(int(seed[4:])).random(SHAPE) < float(p[1:])
 
 
+@pytest.mark.parametrize("formulation", ["doubling", "runs"])
 @pytest.mark.parametrize("case", DOUBLING_CASES)
-def test_tile_ccl_doubling_twin_matches_pallas_doubling(masks, case):
+def test_tile_ccl_doubling_twin_matches_pallas_doubling(masks, case, formulation):
     m = _ccl_case(masks, case)
     want = np.asarray(tile_ccl_pallas(jnp.asarray(m), tile=TILE, interpret=True, doubling=True))
-    np.testing.assert_array_equal(K.tile_ccl_doubling_torch(_t(m), TILE).numpy(), want)
+    np.testing.assert_array_equal(K.tile_ccl_doubling_torch(_t(m), TILE, formulation).numpy(), want)
     got = K.tile_ccl(_t(m), TILE, doubling=True).numpy()
     np.testing.assert_array_equal(got, want)
     assert got.dtype == np.int32
+
+
+# small tiles: unaligned rows and odd ty (4x5x30), and an axis of extent 1
+SMALL_CCL_TILES = [(4, 5, 30), (4, 8, 32), (1, 16, 128)]
+
+
+@pytest.mark.parametrize("tile", SMALL_CCL_TILES, ids=lambda t: "x".join(map(str, t)))
+def test_tile_ccl_doubling_formulations_match_pallas_on_adversarial_tiles(tile):
+    m = adversarial_tiles_np(tile)
+    want = np.asarray(tile_ccl_pallas(jnp.asarray(m), tile=tile, interpret=True, doubling=True))
+    lab, iters = {}, {}
+    for form in ("doubling", "runs"):
+        lab[form], iters[form] = K.tile_ccl_doubling_torch(_t(m), tile, form, return_iterations=True)
+        np.testing.assert_array_equal(lab[form].numpy(), want)
+    # the same state after every iteration, so the same count a tile
+    assert torch.equal(iters["doubling"], iters["runs"])
+    assert iters["runs"].dtype == torch.int32 and iters["runs"].shape == (8,)
+    assert int(iters["runs"][0]) == 2 and int(iters["runs"][7]) == 1  # all foreground; empty
+    assert int(iters["runs"].max()) > 2  # the serpentines take many
+
+
+@pytest.mark.parametrize("doubling", [False, True])
+@pytest.mark.parametrize("impl", ["torch", "cuda"])
+def test_tile_ccl_refuses_2_30_voxels(doubling, impl):
+    mask = torch.empty((1024, 1024, 1024), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match=r"2\*\*30 voxels"):
+        K.tile_ccl(mask, TILE, impl=impl, doubling=doubling)
 
 
 def test_descent_directions_match(volume, flow_inputs):
@@ -315,11 +343,20 @@ def test_cuda_tile_ccl_matches_twin(cuda, masks):
 
 @pytest.mark.gpu
 def test_cuda_tile_ccl_doubling_matches_both_twins(cuda, masks):
-    for case, m in _gpu_ccl_masks(masks).items():
+    cases = [(case, m, TILE) for case, m in _gpu_ccl_masks(masks).items()]
+    # small tiles; an axis of extent 1 (the tile's z, or its rows); columns
+    # longer than the kernel holds in registers; rows that span a warp
+    tiles = SMALL_CCL_TILES + [(16, 16, 1), (40, 24, 16), (1, 4, 512)]
+    cases += [(f"adversarial {t}", adversarial_tiles_np(t), t) for t in tiles]
+    for case, m, tile in cases:
         m = _t(m).to(cuda)
-        got = K.tile_ccl(m, TILE, impl="cuda", doubling=True)
-        assert torch.equal(got, K.tile_ccl_doubling_torch(m, TILE)), case
-        assert torch.equal(got, K.tile_ccl_torch(m, TILE)), case
+        got, iters = K.tile_ccl(m, tile, impl="cuda", doubling=True, return_iterations=True)
+        for form in ("doubling", "runs"):
+            want, want_iters = K.tile_ccl_doubling_torch(m, tile, form, return_iterations=True)
+            assert torch.equal(got, want), (case, form)
+            assert torch.equal(iters, want_iters), (case, form)
+        assert torch.equal(got, K.tile_ccl_torch(m, tile)), case
+        assert torch.equal(K.tile_ccl(m, tile, impl="cuda", doubling=True), got), case
 
 
 @pytest.mark.gpu
