@@ -50,7 +50,20 @@ Phases, each one line of output, each raising on failure:
    crop of whole tiles, against the unit-step twin;
 9. tiled seeds: the whole step with ``seed_mode="tiled"`` at 128x256x256
    (B1 and B4 also run in the seeds stage), ``impl="cuda"`` against
-   ``impl="torch"`` bit for bit, with its own launch counts.
+   ``impl="torch"`` bit for bit, with its own launch counts;
+10. blockwise: BASELINE configs 1-3 through the port's workflows on the
+    main path's volume in ``memory://`` (block 128^3): connected components
+    (against ``scipy.ndimage.label``), single- and two-pass watershed (halo
+    32, ``CT_FILL_MODE=capacity``, ``CT_TIER_MODE=cond``; each against its
+    ``impl="torch"`` run bit for bit, every kernel launch of one run
+    replayed against its twin and timed), relabel of the two-pass output
+    (``1..K``, same partition), and the cc workflow at 256^3 through the
+    port's zarr on local disk against its ``memory://`` run.  Per workflow:
+    a warm-up and two timed runs (fresh ``tmp_folder`` each), the median
+    wall time, voxels/s and blocks/s, peak device memory, the executor's
+    summed load / h2d / kernel (synced) / d2h / store ms, kernel launches
+    and remap rungs.  The kernel rows gain ``blockwise_launches`` and
+    ``blockwise_ms`` (sums over one run's launches, replayed).
 
 Prints the kernels' JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero (and prints no result)
@@ -61,8 +74,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from collections import Counter
@@ -374,32 +390,178 @@ def partition_equal(cc: torch.Tensor, ref: torch.Tensor) -> bool:
     return pairs == torch.unique(a).numel() == torch.unique(b).numel()
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+def bw_run(K, tmp_root: str, tag: str, workflow_cls, block_shape, **params) -> dict:
+    """One run of a port workflow on the card (its default target), in a
+    fresh ``tmp_folder``: wall seconds (ended by a device sync), peak
+    device memory, kernel launches and remap rungs of that run, and the
+    executor's summed stage times from the tasks' success manifests."""
+    from cluster_tools_tpu_torch.runtime.task import build as run_dag
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
+    d = tempfile.mkdtemp(prefix=f"{tag}-", dir=tmp_root)
+    os.makedirs(os.path.join(d, "cfg"))
+    with open(os.path.join(d, "cfg", "global.config"), "w") as f:
+        json.dump({"block_shape": list(block_shape)}, f)
+    tmp = os.path.join(d, "tmp")
+    wf = workflow_cls(tmp_folder=tmp, config_dir=os.path.join(d, "cfg"), max_jobs=8,
+                      block_shape=list(block_shape), **params)
+    K.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok = run_dag([wf])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, rungs = dict(K.LAUNCHES), dict(K.RUNGS)
+    manifests = [json.load(open(os.path.join(tmp, f))) for f in sorted(os.listdir(tmp)) if f.endswith(".success.json")]
+    if not ok:
+        logs = "".join(open(os.path.join(tmp, f)).read()[-3000:] for f in sorted(os.listdir(tmp)) if f.endswith(".log"))
+        raise AssertionError(f"blockwise {tag}: the workflow failed; task logs:\n{logs}")
+    shutil.rmtree(d)
+    sweep = Counter()
+    for m in manifests:
+        sweep.update({k: v for k, v in m.get("sweep", {}).items() if k.endswith("_s")})
+    overflow = sorted(b for m in manifests for b in m.get("overflow_blocks", []))
+    return dict(wall_s=wall, peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches, rungs=rungs,
+                sweep=dict(sweep), overflow_blocks=overflow)
 
-    from cluster_tools_tpu_torch import build
-    from cluster_tools_tpu_torch.ops import kernels as K
+
+def bw_timed(K, tmp_root: str, tag: str, workflow_cls, block_shape, voxels: int, n_blocks: int, **params) -> dict:
+    """A warm-up and two timed runs; prints the workflow's line and returns
+    the second timed run's record with ``wall_s`` the median of the two."""
+    bw_run(K, tmp_root, tag, workflow_cls, block_shape, **params)
+    runs = [bw_run(K, tmp_root, tag, workflow_cls, block_shape, **params) for _ in range(2)]
+    rec = dict(runs[-1], wall_s=float(np.median([r["wall_s"] for r in runs])))
+    sw = rec["sweep"]
+    log("blockwise", f"{tag}: {voxels} voxels, {n_blocks} blocks; wall "
+                     + "/".join(f"{r['wall_s']:.3f}" for r in runs) + f" s, median {rec['wall_s']:.3f} s = "
+                     f"{voxels / rec['wall_s']:.4g} voxels/s, {n_blocks / rec['wall_s']:.4g} blocks/s; "
+                     f"peak {rec['peak_gb']:.2f} GB; executor load {sw.get('load_s', 0) * 1e3:.1f}, "
+                     f"h2d {sw.get('h2d_s', 0) * 1e3:.1f}, kernel {sw.get('kernel_s', 0) * 1e3:.1f} (synced), "
+                     f"d2h {sw.get('d2h_s', 0) * 1e3:.1f}, store {sw.get('store_s', 0) * 1e3:.1f} ms; "
+                     f"launches {rec['launches']}; rungs {rec['rungs']}; overflow blocks {rec['overflow_blocks']}")
+    return rec
+
+
+def bw_replay(K, tmp_root: str, tag: str, workflow_cls, block_shape, **params) -> dict:
+    """Every kernel launch of one run of a workflow replayed on the inputs
+    it was given: equal to its twin, and timed as the "main-kernels" replay
+    is.  Returns ``{kernel: (launches, ms summed, bound ms summed)}``."""
+    with K.capture_inputs() as captured:
+        bw_run(K, tmp_root, tag, workflow_cls, block_shape, **params)
+    out = {}
+    for i, (kname, kargs, kkw) in enumerate(captured):
+        kfn, tfn = replay(K, kname, kargs, kkw)
+        require_equal(f"blockwise {tag}: {kname} launch {i}", kfn(), tfn())
+        n, ms, bound = out.get(kname, (0, 0.0, 0.0))
+        out[kname] = (n + 1, ms + cuda_ms(kfn, 3), bound + bound_ms(kname, kargs, kkw)[0])
+    captured.clear()
+    log("blockwise-kernels", f"{tag}: every launch of one run equals its twin; "
+        + "; ".join(f"{k} {n} launches, {ms:.3f} ms (bound {b:.3f} ms)" for k, (n, ms, b) in sorted(out.items())))
+    return out
+
+
+def phase_blockwise(K, vol: torch.Tensor, ref: np.ndarray, rows: list, block=(128, 128, 128)) -> None:
+    """BASELINE configs 1-3 through the port's workflows on the card, on the
+    main path's volume in ``memory://``: cc (block 128^3) against
+    ``scipy.ndimage.label``; single- and two-pass watershed (block 128^3,
+    halo 32) against their ``impl="torch"`` runs, bit for bit, every kernel
+    launch replayed against its twin; relabel of the two-pass output; the cc
+    workflow at 256^3 through the port's zarr on local disk against its
+    ``memory://`` run (half the volume's extent per axis: 256^3).  Adds ``blockwise_launches`` / ``blockwise_ms`` to
+    the kernel rows."""
+    from cluster_tools_tpu_torch.io.containers import MemoryContainer, open_container
+    from cluster_tools_tpu_torch.tasks.connected_components import ConnectedComponentsWorkflow
+    from cluster_tools_tpu_torch.tasks.relabel import RelabelWorkflow
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedWorkflow
+
+    t_phase = time.perf_counter()
+    os.environ["CT_FILL_MODE"], os.environ["CT_TIER_MODE"] = "capacity", "cond"
+    mem = "memory://blockwise"
+    f = open_container(mem)
+    b_np = vol.reshape(vol.shape[-3:]).cpu().numpy()
+    shape = b_np.shape
+    voxels = int(np.prod(shape))
+    n_blocks = int(np.prod([-(-s // b) for s, b in zip(shape, block)]))
+    f.require_dataset("boundaries", shape=shape, chunks=block, dtype="float32")[...] = b_np
+    mask = (b_np < np.float32(0.45)).astype(np.uint8)
+    f.require_dataset("mask", shape=shape, chunks=block, dtype="uint8")[...] = mask
+    del b_np
+    io = dict(input_path=mem, output_path=mem)
+    ws_cfg = dict(halo=[32, 32, 32], threshold=0.45, dt_max_distance=32.0, min_seed_distance=2.0)
+    bw_rows = {}
+    with tempfile.TemporaryDirectory(prefix="blockwise-") as tmp_root:
+        # config 1: connected components
+        cc = bw_timed(K, tmp_root, "cc", ConnectedComponentsWorkflow, block, voxels, n_blocks,
+                      input_key="mask", output_key="cc", connectivity=1, **io)
+        got = torch.from_numpy(f["cc"][...].astype(np.int64)).cuda()
+        if not partition_equal(got, torch.from_numpy(ref.astype(np.int64)).cuda()):
+            raise AssertionError("blockwise cc: labels are not scipy.ndimage.label's partition")
+        n_cc = int(got.max())
+        del got
+        bw_rows["cc"] = cc["launches"]
+        # configs 2 and 3: single- and two-pass watershed, each against its twins
+        for tag, two_pass in (("ws", False), ("ws2", True)):
+            rec = bw_timed(K, tmp_root, tag, WatershedWorkflow, block, voxels, n_blocks, input_key="boundaries",
+                           output_key=tag, two_pass=two_pass, **ws_cfg, **io)
+            missing = [k for k in MAIN_PATH_KERNELS if rec["launches"].get(k, 0) == 0]
+            if missing:
+                raise AssertionError(f"blockwise {tag}: the workflow launched no {missing}")
+            t0 = time.perf_counter()
+            twin = bw_run(K, tmp_root, tag + "-torch", WatershedWorkflow, block, input_key="boundaries",
+                          output_key=tag + "_torch", two_pass=two_pass, impl="torch", **ws_cfg, **io)
+            if sum(twin["launches"].values()):
+                raise AssertionError(f"blockwise {tag}: impl='torch' launched kernels: {twin['launches']}")
+            if not np.array_equal(f[tag][...], f[tag + "_torch"][...]):
+                raise AssertionError(f"blockwise {tag}: impl='torch' output differs from the kernels'")
+            replayed = bw_replay(K, tmp_root, tag, WatershedWorkflow, block, input_key="boundaries",
+                                 output_key=tag, two_pass=two_pass, **ws_cfg, **io)
+            log("blockwise", f"{tag}: impl=torch run ({time.perf_counter() - t0:.1f} s with the replay) equals "
+                             f"the kernels' output bit for bit; overflow blocks {rec['overflow_blocks']}")
+            bw_rows[tag] = replayed
+        # relabel the two-pass output to 1..K
+        bw_timed(K, tmp_root, "relabel", RelabelWorkflow, block, voxels, n_blocks, input_key="ws2",
+                 output_key="ws2_relabel", **io)
+        a = torch.from_numpy(f["ws2"][...].astype(np.int64)).cuda()
+        r = torch.from_numpy(f["ws2_relabel"][...].astype(np.int64)).cuda()
+        k = int(torch.unique(a).numel()) - int(bool((a == 0).any()))
+        if not partition_equal(r, a) or int(r.max()) != k or int(torch.unique(r[r > 0]).numel()) != k:
+            raise AssertionError("blockwise relabel: labels are not 1..K with the two-pass partition")
+        del a, r
+        # the file path: cc on half the extent through the port's zarr (zlib) on local disk
+        half = tuple(s // 2 for s in shape)
+        sub = tuple(slice(0, h) for h in half)
+        disk = os.path.join(tmp_root, "cc256.zarr")
+        open_container(disk).require_dataset("mask", shape=half, chunks=block, dtype="uint8")[...] = mask[sub]
+        f.require_dataset("mask256", shape=half, chunks=block, dtype="uint8")[...] = mask[sub]
+        t0 = time.perf_counter()
+        bw_run(K, tmp_root, "cc256-disk", ConnectedComponentsWorkflow, block, input_path=disk, input_key="mask",
+               output_path=disk, output_key="cc")
+        t_disk = time.perf_counter() - t0
+        bw_run(K, tmp_root, "cc256-memory", ConnectedComponentsWorkflow, block, input_path=mem,
+               input_key="mask256", output_path=mem, output_key="cc256")
+        on_disk = open_container(disk)["cc"]
+        meta = json.load(open(os.path.join(disk, "cc", ".zarray")))
+        if meta["compressor"] != {"id": "zlib", "level": 1} or not np.array_equal(on_disk[...], f["cc256"][...]):
+            raise AssertionError("blockwise cc256: the on-disk zarr run differs from the memory:// run")
+        log("blockwise", f"cc at {half} through the port's zarr on local disk (zlib level 1, {t_disk:.2f} s) "
+                         f"equals its memory:// run")
+    del MemoryContainer._registry[mem]
+    for row in rows:
+        name = row["name"]
+        row["blockwise_launches"] = {t: (v.get(name, (0,))[0] if t != "cc" else v.get(name, 0))
+                                     for t, v in bw_rows.items()}
+        row["blockwise_ms"] = {t: v.get(name, (0, 0.0))[1] for t, v in bw_rows.items() if t != "cc"}
+    log("blockwise", f"cc {n_cc} components = scipy partition; relabel 1..{k}; phase "
+                     f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def main_phases(K, args, gen):
+    """Phases 3-9 (kernels, main path, its twins and replays, worst
+    cases, tiled seeds); returns the kernel rows, the main path's volume
+    and scipy's labels of its foreground."""
     from cluster_tools_tpu_torch.parallel.split_pipeline import make_ws_ccl_split
     from cluster_tools_tpu_torch.utils.synthetic import synthetic_boundaries
 
-    t_start = time.perf_counter()
-    name = torch.cuda.get_device_name(0)
-    smi = nvidia_smi()
-    log("card", f"{name} | nvidia-smi: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
-
-    t0 = time.perf_counter()
-    secs = build.build_all()
-    log("build", "kernels " + ", ".join(
-        f"{k} ({ident}) {secs[k]:.1f}s" for k, (ident, _, _) in KERNELS.items()
-    ) + f"; wall {time.perf_counter() - t0:.1f}s")
-
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
     phase_kernels(K, gen)
 
     # ---- main path at full width ----
@@ -548,6 +710,36 @@ def main() -> int:
     log("tiled-seeds", f"(1,128,256,256) {cfg_t}: impl=cuda == impl=torch on ws, cc, n_fg, overflow "
                        f"({int(torch.unique(out_c[0]).numel()) - 1} ws segments); "
                        f"launches {launches_t}; rungs {rungs_t}")
+
+    return rows, vol, ref
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+
+    from cluster_tools_tpu_torch import build
+    from cluster_tools_tpu_torch.ops import kernels as K
+
+    t_start = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    log("card", f"{name} | nvidia-smi: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    secs = build.build_all()
+    log("build", "kernels " + ", ".join(
+        f"{k} ({ident}) {secs[k]:.1f}s" for k, (ident, _, _) in KERNELS.items()
+    ) + f"; wall {time.perf_counter() - t0:.1f}s")
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    rows, vol, ref = main_phases(K, args, gen)
+    phase_blockwise(K, vol, ref, rows)
 
     log("done", f"{time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))

@@ -3,7 +3,9 @@
 Port of ``cluster_tools_tpu/ops/ccl.py``: shift helpers and the
 hook + compress fixpoint (Playne & Hawick style) that
 ``tile_local_labels`` runs inside every tile — the plain twin of the
-tiled CCL kernel.  Labels are int32 flat-index representatives (the
+tiled CCL kernel — and that the blockwise connected-components task runs
+per block; its keyed variant (components of equal-valued regions); and
+:func:`finalize_labels`.  Labels are int32 flat-index representatives (the
 component's minimum flat index); background holds ``N`` (the item's voxel
 count).
 """
@@ -115,3 +117,48 @@ def label_components(mask, connectivity: int = 1, device=None) -> torch.Tensor:
     m = as_tensor(mask, dev, torch.bool)
     return label_components_batched(m.unsqueeze(0), connectivity)[0]
 
+
+def label_components_keyed_tensor(keys: torch.Tensor, connectivity: int = 1) -> torch.Tensor:
+    """:func:`label_components_keyed` on a tensor, on its own device."""
+    shape = keys.shape
+    n = int(np.prod(shape))
+    sentinel = n
+    dev = keys.device
+    mask = keys != 0
+    idx = torch.arange(n, dtype=torch.int32, device=dev).reshape(shape)
+    offsets = _neighbor_offsets(len(shape), connectivity)
+
+    def neighbor_min(lab3):
+        m = lab3
+        for off in offsets:
+            for o in (off, tuple(-x for x in off)):
+                cand = _shift_nd(lab3, o, sentinel)
+                same = _shift_nd(keys, o, 0) == keys
+                m = torch.minimum(m, torch.where(same, cand, sentinel))
+        return torch.where(mask, m, sentinel)
+
+    flat = torch.where(mask, idx, sentinel).reshape(1, n)
+    while True:
+        nmin = neighbor_min(flat.reshape(shape)).reshape(1, n)
+        improved = nmin < flat
+        root = flat.clamp(0, n - 1).long()
+        upd = torch.where(improved, nmin, sentinel)
+        hooked = flat.scatter_reduce(1, root, upd, "amin", include_self=True)
+        hooked = torch.where(flat == sentinel, sentinel, hooked)
+        new = _compress(torch.minimum(hooked, torch.minimum(flat, nmin)), sentinel)
+        if not bool((new != flat).any()):
+            return new.reshape(shape)
+        flat = new
+
+
+def label_components_keyed(keys, connectivity: int = 1, device=None) -> torch.Tensor:
+    """Label connected components of equal-valued regions: voxels connect
+    only where their integer ``keys`` are equal and non-zero (0 is
+    background).  Same encoding as :func:`label_components`."""
+    return label_components_keyed_tensor(as_tensor(keys, resolve_device(device)), connectivity)
+
+
+def finalize_labels(raw: torch.Tensor) -> torch.Tensor:
+    """Sentinel/flat-index labels -> ``flat_index + 1``, background 0."""
+    n = raw.numel()
+    return torch.where(raw == n, 0, raw + 1).to(torch.int32)

@@ -635,16 +635,20 @@ def _seed_ccl(maxima, seed_cap, *, mode, impl, tile, pair_cap, edge_cap, table_c
 
 def _dt_seeds_core(boundaries, mask, *, threshold, min_seed_distance, sampling,
                    dt_max_distance, impl, tile, pair_cap, edge_cap, table_cap, seed_cap,
-                   seed_mode, tier):
-    """Seed phase: threshold -> capped EDT (B3) -> maxima plateaus -> seed
-    CCL.  Returns ``(seeds, valid, overflow)`` at the input shape."""
+                   seed_mode, tier, sigma_seeds=0.0):
+    """Seed phase: threshold -> capped EDT (B3) -> optional smoothing ->
+    maxima plateaus -> seed CCL.  Returns ``(seeds, valid, overflow)`` at
+    the input shape."""
     from .edt import distance_transform_squared_tensor
+    from .filters import gaussian_smooth_tensor
     from .watershed import local_maxima_tensor
 
     dev = boundaries.device
     valid = torch.ones(boundaries.shape, dtype=torch.bool, device=dev) if mask is None else mask.to(torch.bool)
     fg = (boundaries < torch.tensor(threshold, dtype=torch.float32, device=dev)) & valid
     dist = distance_transform_squared_tensor(fg, sampling=sampling, max_distance=dt_max_distance, impl=impl)
+    if sigma_seeds > 0:
+        dist = gaussian_smooth_tensor(dist, sigma_seeds, sampling=sampling)
     msd2 = torch.tensor(np.float32(min_seed_distance * min_seed_distance), device=dev)
     maxima = local_maxima_tensor(dist, 1) & fg & (dist >= msd2)
     del dist
@@ -657,28 +661,22 @@ def _dt_seeds_core(boundaries, mask, *, threshold, min_seed_distance, sampling,
     return seeds, valid, seed_overflow
 
 
-def dt_watershed_tiled(boundaries, threshold: float = 0.25, min_seed_distance: float = 0.0,
-                       sampling=None, mask=None, dt_max_distance: Optional[float] = None,
-                       impl: str = "auto", tile=None, pair_cap=None, edge_cap=None,
-                       exit_cap=None, fill_cap=None, table_cap: int = DEFAULT_TABLE_CAP,
-                       seed_cap=None, adj_cap=None, fill_rounds=None,
-                       fill_mode: Optional[str] = None, seed_mode: Optional[str] = None,
-                       tier_mode: Optional[str] = None, device=None):
-    """Distance-transform watershed on the two-level machinery: threshold
-    -> capped EDT -> seeds = CCL of DT maxima plateaus -> seeded watershed.
-    Returns ``(labels, overflow)``; labels are ``seed_rep + 1``, 0 outside
-    mask / unreached.  (``sigma_seeds`` smoothing is not ported yet.)"""
-    dev = resolve_device(device)
-    b = as_tensor(boundaries, dev, torch.float32)
-    m = None if mask is None else as_tensor(mask, dev, torch.bool)
+def _dt_watershed_core(b, ext, m, *, threshold, sigma_seeds, min_seed_distance, sampling,
+                       dt_max_distance, impl, tile, pair_cap, edge_cap, exit_cap, fill_cap,
+                       table_cap, seed_cap, adj_cap, fill_rounds, fill_mode, seed_mode, tier_mode):
+    """The DT watershed on tensors: internal seeds, external seeds (if
+    any) at ``+N`` over them, then the seeded flood."""
     impl = resolve_impl(impl, b)
     tier = resolve_tier_mode(tier_mode)
     seeds, valid, seed_overflow = _dt_seeds_core(
-        b, m, threshold=threshold, min_seed_distance=min_seed_distance, sampling=sampling,
-        dt_max_distance=dt_max_distance, impl=impl, tile=tile, pair_cap=pair_cap,
-        edge_cap=edge_cap, table_cap=table_cap, seed_cap=seed_cap,
+        b, m, threshold=threshold, sigma_seeds=sigma_seeds, min_seed_distance=min_seed_distance,
+        sampling=sampling, dt_max_distance=dt_max_distance, impl=impl, tile=tile,
+        pair_cap=pair_cap, edge_cap=edge_cap, table_cap=table_cap, seed_cap=seed_cap,
         seed_mode=resolve_seed_mode(seed_mode), tier=tier,
     )
+    if ext is not None:
+        # external seeds dominate; internal ids live in 1..N, external in N+1..
+        seeds = torch.where(ext > 0, ext + b.numel(), seeds)
     labels, ws_overflow = seeded_watershed_tiled_tensor(
         b, seeds, valid, impl=impl, tile=tile, exit_cap=exit_cap, fill_cap=fill_cap,
         table_cap=table_cap, adj_cap=adj_cap, fill_rounds=fill_rounds,
@@ -686,3 +684,48 @@ def dt_watershed_tiled(boundaries, threshold: float = 0.25, min_seed_distance: f
     )
     return labels, seed_overflow or ws_overflow
 
+
+def dt_watershed_tiled(boundaries, threshold: float = 0.25, sigma_seeds: float = 0.0,
+                       min_seed_distance: float = 0.0, sampling=None, mask=None,
+                       dt_max_distance: Optional[float] = None, impl: str = "auto", tile=None,
+                       pair_cap=None, edge_cap=None, exit_cap=None, fill_cap=None,
+                       table_cap: int = DEFAULT_TABLE_CAP, seed_cap=None, adj_cap=None,
+                       fill_rounds=None, fill_mode: Optional[str] = None,
+                       seed_mode: Optional[str] = None, tier_mode: Optional[str] = None, device=None):
+    """Distance-transform watershed on the two-level machinery: threshold
+    -> capped EDT -> optional smoothing (``sigma_seeds``) -> seeds = CCL of
+    DT maxima plateaus -> seeded watershed.  Returns ``(labels,
+    overflow)``; labels are ``seed_rep + 1``, 0 outside mask / unreached."""
+    dev = resolve_device(device)
+    return _dt_watershed_core(
+        as_tensor(boundaries, dev, torch.float32), None, None if mask is None else as_tensor(mask, dev, torch.bool),
+        threshold=threshold, sigma_seeds=sigma_seeds, min_seed_distance=min_seed_distance,
+        sampling=sampling, dt_max_distance=dt_max_distance, impl=impl, tile=tile, pair_cap=pair_cap,
+        edge_cap=edge_cap, exit_cap=exit_cap, fill_cap=fill_cap, table_cap=table_cap,
+        seed_cap=seed_cap, adj_cap=adj_cap, fill_rounds=fill_rounds, fill_mode=fill_mode,
+        seed_mode=seed_mode, tier_mode=tier_mode,
+    )
+
+
+def dt_watershed_seeded_tiled(boundaries, ext_seeds, threshold: float = 0.25, sigma_seeds: float = 0.0,
+                              min_seed_distance: float = 0.0, sampling=None, mask=None,
+                              dt_max_distance: Optional[float] = None, impl: str = "auto", tile=None,
+                              pair_cap=None, edge_cap=None, exit_cap=None, fill_cap=None,
+                              table_cap: int = DEFAULT_TABLE_CAP, seed_cap=None, adj_cap=None,
+                              fill_rounds=None, fill_mode: Optional[str] = None,
+                              seed_mode: Optional[str] = None, tier_mode: Optional[str] = None, device=None):
+    """Two-pass-mode DT watershed on the tiled machinery: ``ext_seeds``
+    (int32, dense ``1..K``, 0 = none) are neighbour labels from pass one;
+    internal DT seeds are planted where no external seed sits.  Output
+    values above ``N`` (the voxel count) are external ids (``+N``), ``1..N``
+    new internal fragments.  Returns ``(labels, overflow)``."""
+    dev = resolve_device(device)
+    return _dt_watershed_core(
+        as_tensor(boundaries, dev, torch.float32), as_tensor(ext_seeds, dev, torch.int32),
+        None if mask is None else as_tensor(mask, dev, torch.bool),
+        threshold=threshold, sigma_seeds=sigma_seeds, min_seed_distance=min_seed_distance,
+        sampling=sampling, dt_max_distance=dt_max_distance, impl=impl, tile=tile, pair_cap=pair_cap,
+        edge_cap=edge_cap, exit_cap=exit_cap, fill_cap=fill_cap, table_cap=table_cap,
+        seed_cap=seed_cap, adj_cap=adj_cap, fill_rounds=fill_rounds, fill_mode=fill_mode,
+        seed_mode=seed_mode, tier_mode=tier_mode,
+    )

@@ -3,11 +3,13 @@
 Port of ``cluster_tools_tpu/ops/unionfind.py::union_find``: repeat
 scatter-min hooking of each pair's larger root onto its smaller root, then
 full path compression, until stable.  Each label ends at its component's
-minimum label.
+minimum label.  :func:`union_find_host` is the host path with the same
+contract (scipy's sparse connected components).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..device import as_tensor, resolve_device
@@ -49,3 +51,27 @@ def union_find(pairs, n_labels: int, device=None) -> torch.Tensor:
     Invalid pairs may be encoded as ``(i, i)`` self-loops."""
     dev = resolve_device(device)
     return union_find_tensor(as_tensor(pairs, dev, torch.int32), n_labels)
+
+
+def union_find_host(pairs: np.ndarray, n_labels: int) -> np.ndarray:
+    """Host path of :func:`union_find`: each label mapped to the minimum
+    label of its component (int64), by scipy's sparse connected components.
+    (The reference takes its native C++ union-find when built, else this;
+    both compute the same function.)"""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    pairs = np.asarray(pairs)
+    if pairs.size == 0:
+        return np.arange(n_labels, dtype=np.int64)
+    g = coo_matrix((np.ones(len(pairs), dtype=np.uint8), (pairs[:, 0], pairs[:, 1])),
+                   shape=(n_labels, n_labels))
+    _, comp = connected_components(g, directed=False)
+    # sorted by component, then label: each component's first entry is its minimum
+    order = np.argsort(comp, kind="stable")
+    comp_sorted = comp[order]
+    first = np.ones(len(order), dtype=bool)
+    first[1:] = comp_sorted[1:] != comp_sorted[:-1]
+    comp_min = np.zeros(comp.max() + 1, dtype=np.int64)
+    comp_min[comp_sorted[first]] = order[first]
+    return comp_min[comp]

@@ -1,0 +1,2 @@
+"""Blockwise tasks and workflows of the port: watershed (single- and
+two-pass), connected components, relabel, write and copy."""
