@@ -63,7 +63,16 @@ Phases, each one line of output, each raising on failure:
     wall time, voxels/s and blocks/s, peak device memory, the executor's
     summed load / h2d / kernel (synced) / d2h / store ms, kernel launches
     and remap rungs.  The kernel rows gain ``blockwise_launches`` and
-    ``blockwise_ms`` (sums over one run's launches, replayed).
+    ``blockwise_ms`` (sums over one run's launches, replayed);
+11. multicut: BASELINE config 4 (``phase_multicut``): the fused RAG and the
+    torch-rung GAEC on the first 256^3 of the main path's watershed labels
+    against the numpy oracle; ``MulticutSegmentationWorkflow`` and
+    ``AgglomerativeClusteringWorkflow`` on the 512^3 single-pass watershed
+    output of phase 10 (per-task times; the merged graph against the numpy
+    oracle, the segmentation against the assignment table); the default
+    workflow (watershed, Kernighan-Lin) on the first 128^3, and the
+    agglomerating watershed on the first 256^3 against its
+    ``impl="torch"`` run.  The kernel rows gain ``multicut_launches``.
 
 Prints the kernels' JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero (and prints no result)
@@ -105,6 +114,11 @@ KERNELS = {
     "edt_cascade": ("B3", "cluster_tools_tpu_torch/csrc/edt_cascade.cu", "cluster_tools_tpu/ops/pallas_kernels.py:332"),
     "apply_remap": ("B4", "cluster_tools_tpu_torch/csrc/apply_remap.cu", "cluster_tools_tpu/ops/pallas_kernels.py:384"),
 }
+# the config-4 shape: the fused RAG + parallel GAEC on this crop of the main
+# path's watershed labels; the agglomerating watershed on the same crop
+CONFIG4_CROP = 256
+# the default multicut workflow (Kernighan-Lin global solve) with its watershed
+MC_DEFAULT_CROP = 128
 # the kernels the main path must launch (B1d is a variant nothing selects)
 MAIN_PATH_KERNELS = ("tile_ccl", "tile_ws_propagate", "edt_cascade", "apply_remap")
 # tiles of B2's adversarial fields: small, unaligned rows and odd ty, the main tile
@@ -460,7 +474,7 @@ def bw_replay(K, tmp_root: str, tag: str, workflow_cls, block_shape, **params) -
     return out
 
 
-def phase_blockwise(K, vol: torch.Tensor, ref: np.ndarray, rows: list, block=(128, 128, 128)) -> None:
+def phase_blockwise(K, vol: torch.Tensor, ref: np.ndarray, rows: list, block=(128, 128, 128)) -> str:
     """BASELINE configs 1-3 through the port's workflows on the card, on the
     main path's volume in ``memory://``: cc (block 128^3) against
     ``scipy.ndimage.label``; single- and two-pass watershed (block 128^3,
@@ -468,7 +482,9 @@ def phase_blockwise(K, vol: torch.Tensor, ref: np.ndarray, rows: list, block=(12
     launch replayed against its twin; relabel of the two-pass output; the cc
     workflow at 256^3 through the port's zarr on local disk against its
     ``memory://`` run (half the volume's extent per axis: 256^3).  Adds ``blockwise_launches`` / ``blockwise_ms`` to
-    the kernel rows."""
+    the kernel rows.  Returns the ``memory://`` container's path, which
+    keeps the boundaries and the single-pass watershed output ("ws") for
+    the "multicut" phase."""
     from cluster_tools_tpu_torch.io.containers import MemoryContainer, open_container
     from cluster_tools_tpu_torch.tasks.connected_components import ConnectedComponentsWorkflow
     from cluster_tools_tpu_torch.tasks.relabel import RelabelWorkflow
@@ -545,7 +561,6 @@ def phase_blockwise(K, vol: torch.Tensor, ref: np.ndarray, rows: list, block=(12
             raise AssertionError("blockwise cc256: the on-disk zarr run differs from the memory:// run")
         log("blockwise", f"cc at {half} through the port's zarr on local disk (zlib level 1, {t_disk:.2f} s) "
                          f"equals its memory:// run")
-    del MemoryContainer._registry[mem]
     for row in rows:
         name = row["name"]
         row["blockwise_launches"] = {t: (v.get(name, (0,))[0] if t != "cc" else v.get(name, 0))
@@ -553,12 +568,252 @@ def phase_blockwise(K, vol: torch.Tensor, ref: np.ndarray, rows: list, block=(12
         row["blockwise_ms"] = {t: v.get(name, (0, 0.0))[1] for t, v in bw_rows.items() if t != "cc"}
     log("blockwise", f"cc {n_cc} components = scipy partition; relabel 1..{k}; phase "
                      f"{time.perf_counter() - t_phase:.1f} s")
+    return mem
+
+
+def oracle_graph(ds, shape, block):
+    """The merged RAG of a label dataset by the plain numpy oracle: per
+    block ``_block_rag_host`` on the block with its +1 upper halo, then one
+    lexsort over all blocks' rows with the sizes summed, and the nodes from
+    per-block ``np.unique``; ``(nodes, uv, sizes)``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cluster_tools_tpu_torch.ops.rag import _block_rag_host
+
+    grid = [range(0, s, b) for s, b in zip(shape, block)]
+
+    def one(begin):
+        inner = tuple(min(b, s - o) for o, b, s in zip(begin, block, shape))
+        seg = ds[tuple(slice(o, min(o + b + 1, s)) for o, b, s in zip(begin, block, shape))]
+        uv, sizes, _ = _block_rag_host(seg, None, inner)
+        return uv, sizes, np.unique(seg[tuple(slice(0, i) for i in inner)])
+
+    with ThreadPoolExecutor(8) as pool:
+        parts = list(pool.map(one, [(z, y, x) for z in grid[0] for y in grid[1] for x in grid[2]]))
+    uv = np.concatenate([p[0] for p in parts])
+    sizes = np.concatenate([p[1] for p in parts])
+    order = np.lexsort((uv[:, 1], uv[:, 0]))
+    uv, sizes = uv[order], sizes[order]
+    first = np.ones(len(uv), bool)
+    first[1:] = (uv[1:] != uv[:-1]).any(1)
+    nodes = np.unique(np.concatenate([p[2] for p in parts]))
+    return nodes[nodes != 0], uv[first], np.add.reduceat(sizes, np.flatnonzero(first))
+
+
+def wf_run(K, tmp_folder: str, cfg_dir: str, workflow_cls, **params) -> dict:
+    """One build of a workflow on the card in ``tmp_folder`` (kept, so a
+    later workflow can reuse its finished tasks): wall seconds (ended by a
+    device sync), peak device memory, kernel launches, and each task's
+    success manifest by task name."""
+    from cluster_tools_tpu_torch.runtime.task import build as run_dag
+
+    before = set(os.listdir(tmp_folder)) if os.path.isdir(tmp_folder) else set()
+    wf = workflow_cls(tmp_folder=tmp_folder, config_dir=cfg_dir, max_jobs=8, **params)
+    K.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok = run_dag([wf])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not ok:
+        logs = "".join(open(os.path.join(tmp_folder, f)).read()[-3000:] for f in sorted(os.listdir(tmp_folder))
+                       if f.endswith(".log"))
+        raise AssertionError(f"multicut: {workflow_cls.__name__} failed; task logs:\n{logs}")
+    tasks = {}
+    for f in sorted(set(os.listdir(tmp_folder)) - before):
+        if f.endswith(".success.json"):
+            tasks[f.split(".")[0]] = json.load(open(os.path.join(tmp_folder, f)))
+    return dict(wall_s=wall, peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=dict(K.LAUNCHES),
+                tasks=tasks)
+
+
+MC_TASKS = ("initial_sub_graphs", "merge_sub_graphs", "map_edge_ids", "block_edge_features", "merge_edge_features",
+            "probs_to_costs", "solve_subproblems", "reduce_problem", "solve_global", "write")
+
+
+def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: list, block=(128, 128, 128)) -> None:
+    """BASELINE config 4 on the card.
+
+    1. The bench's config-4 shape: ``block_rag_fused`` + ``gaec_parallel``
+       (torch rung) on the first ``CONFIG4_CROP``^3 of the main path's
+       watershed labels, cold and warm (best of 3), extraction apart from
+       solve, against the numpy oracle (``_block_rag_host`` + the numpy
+       rung): edges and counts equal, and the torch rung's labels on the
+       card equal its labels on the CPU and the numpy rung's, or else its
+       energy is within 2% of the numpy rung's.
+    2. ``MulticutSegmentationWorkflow`` on the "blockwise" phase's 512^3
+       single-pass watershed (``skip_ws``, ``n_scales=1``,
+       ``agglomerator="gaec_parallel"``, block 128^3): per-task wall times,
+       graph size, energy, rounds, peak memory; the merged graph equals the
+       numpy oracle's, ``seg > 0`` equals ``ws > 0`` and ``seg`` is the
+       assignment table applied to ``ws``.  Then
+       ``AgglomerativeClusteringWorkflow`` in the same ``tmp_folder``
+       (graph and features reused).
+    3. The default workflow (Kernighan-Lin global solve, its own
+       watershed: B1-B4 launch) on the first ``MC_DEFAULT_CROP``^3 (block
+       64^3); and the single-pass watershed with
+       ``agglomerate_threshold=0.5`` on the first ``CONFIG4_CROP``^3
+       (block 128^3) against its ``impl="torch"`` run, bit for bit.
+    Adds ``multicut_launches`` (the kernels' launches in 3's watershed) to
+    the kernel rows.
+    """
+    from cluster_tools_tpu_torch.io.containers import MemoryContainer, open_container
+    from cluster_tools_tpu_torch.ops.contraction import gaec_parallel, solver_delta, solver_snapshot
+    from cluster_tools_tpu_torch.ops.multicut import multicut_energy
+    from cluster_tools_tpu_torch.ops.rag import _block_rag_host, block_rag_fused
+    from cluster_tools_tpu_torch.tasks.graph import load_global_graph
+    from cluster_tools_tpu_torch.tasks.multicut import assignments_path
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedWorkflow
+    from cluster_tools_tpu_torch.workflows import AgglomerativeClusteringWorkflow, MulticutSegmentationWorkflow
+
+    t_phase = time.perf_counter()
+    n = CONFIG4_CROP
+    bnd = vol[0, :n, :n, :n].cpu().numpy()
+
+    # ---- 1. the config-4 shape: fused RAG + parallel GAEC ----
+    def fused_once():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nodes, edges, costs, sizes, _ = block_rag_fused(ws_crop, bnd, device="cuda")
+        t1 = time.perf_counter()
+        snap = solver_snapshot()
+        labels = gaec_parallel(len(nodes), edges, costs, impl="torch", device="cuda")
+        t2 = time.perf_counter()
+        return t1 - t0, t2 - t1, (nodes, edges, costs, sizes, labels, solver_delta(snap)["solver_rounds"])
+
+    cold_ex, cold_solve, _ = fused_once()
+    warm = [fused_once() for _ in range(3)]
+    warm_ex, warm_solve = min(w[0] for w in warm), min(w[1] for w in warm)
+    nodes, edges, costs, sizes, lab_cuda, rounds = warm[-1][2]
+    t0 = time.perf_counter()
+    uv_h, sz_h, _ = _block_rag_host(ws_crop, bnd, ws_crop.shape)
+    host_ex = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lab_np = gaec_parallel(len(nodes), edges, costs, impl="numpy")
+    host_solve = time.perf_counter() - t0
+    if not (np.array_equal(nodes[edges].astype(np.uint64), uv_h) and np.array_equal(sizes, sz_h)):
+        raise AssertionError("config 4: the fused RAG's edges or counts differ from the numpy oracle's")
+    lab_cpu = gaec_parallel(len(nodes), edges, costs, impl="torch", device="cpu")
+    diff_cpu, diff_np = int((lab_cuda != lab_cpu).sum()), int((lab_cuda != lab_np).sum())
+    e_cuda, e_np = multicut_energy(edges, costs, lab_cuda), multicut_energy(edges, costs, lab_np)
+    if (diff_cpu or diff_np) and not e_cuda <= e_np + 0.02 * abs(e_np):
+        raise AssertionError(f"config 4: torch-rung labels differ (CPU {diff_cpu}, numpy {diff_np} nodes) and "
+                             f"its energy {e_cuda} is not within 2% of the numpy rung's {e_np}")
+    log("multicut", f"config-4 shape: fused RAG + gaec_parallel (torch rung) on the main path's ws labels "
+                    f"{ws_crop.shape}: {len(nodes)} nodes, {len(edges)} edges; cold {cold_ex + cold_solve:.3f} s "
+                    f"(extract {cold_ex:.3f} + solve {cold_solve:.3f}); warm best of 3 "
+                    f"{warm_ex + warm_solve:.3f} s (extract {warm_ex:.3f} + solve {warm_solve:.3f}, {rounds} rounds); "
+                    f"numpy oracle "
+                    f"extract {host_ex:.3f} + numpy rung {host_solve:.3f} s; edges and counts = oracle; labels "
+                    f"differ from the CPU torch rung at {diff_cpu} and from the numpy rung at {diff_np} nodes; "
+                    f"energy {e_cuda:.6g} (numpy rung {e_np:.6g}); {len(np.unique(lab_cuda))} segments")
+
+    # ---- 2. the multicut and agglomerative workflows at 512^3 ----
+    f = open_container(mem)
+    shape = f["ws"].shape
+    with tempfile.TemporaryDirectory(prefix="multicut-") as root:
+        cfg_dir = os.path.join(root, "cfg")
+        os.makedirs(cfg_dir)
+        with open(os.path.join(cfg_dir, "global.config"), "w") as fh:
+            json.dump({"block_shape": list(block)}, fh)
+        tmp = os.path.join(root, "tmp")
+        io = dict(input_path=mem, input_key="boundaries", ws_path=mem, ws_key="ws", skip_ws=True,
+                  output_path=mem, block_shape=list(block))
+        rec = wf_run(K, tmp, cfg_dir, MulticutSegmentationWorkflow, output_key="mc_seg", n_scales=1,
+                     agglomerator="gaec_parallel", **io)
+        t = rec["tasks"]
+        missing = [k for k in MC_TASKS if k not in t]
+        if missing:
+            raise AssertionError(f"multicut: no success manifest for {missing}")
+        rounds = t["solve_subproblems"]["solver"]["rounds"] + t["solve_global"]["solver"]["rounds"]
+        log("multicut", f"MulticutSegmentationWorkflow {shape}, block {block}, skip_ws, n_scales 1, gaec_parallel: "
+                        f"wall {rec['wall_s']:.3f} s; tasks "
+                        + ", ".join(f"{k} {t[k]['runtime_s']:.3f}" for k in MC_TASKS)
+                        + f" s; {t['merge_sub_graphs']['n_nodes']} nodes, {t['merge_sub_graphs']['n_edges']} edges, "
+                        f"{t['solve_global']['n_segments']} segments, energy {t['solve_global']['energy']:.6g}, "
+                        f"rounds {rounds} (subproblems {t['solve_subproblems']['solver']['rounds']} in "
+                        f"{t['solve_subproblems']['solver']['solver_calls']} solve of {t['solve_subproblems']['n_subproblems']} "
+                        f"blocks, global "
+                        f"{t['solve_global']['solver']['rounds']}); peak {rec['peak_gb']:.2f} GB")
+        t0 = time.perf_counter()
+        nodes_g, uv_g, _, sizes_g = load_global_graph(tmp)
+        nodes_o, uv_o, sizes_o = oracle_graph(f["ws"], shape, block)
+        for what, a, b in (("nodes", nodes_g, nodes_o), ("uv", uv_g, uv_o), ("sizes", sizes_g, sizes_o)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"multicut: the merged graph's {what} differ from the numpy oracle's")
+        t_oracle = time.perf_counter() - t0
+        a = np.load(assignments_path(tmp))
+        keys = torch.from_numpy(a["keys"].view(np.int64)).cuda()
+        values = torch.from_numpy(a["values"].view(np.int64)).cuda()
+        ws = torch.from_numpy(f["ws"][...].view(np.int64)).cuda()
+        seg = torch.from_numpy(f["mc_seg"][...].view(np.int64)).cuda()
+        if not torch.equal(seg > 0, ws > 0):
+            raise AssertionError("multicut: seg > 0 differs from ws > 0")
+        idx = torch.searchsorted(keys, ws).clamp_max(keys.numel() - 1)
+        want = torch.where((keys[idx] == ws) & (ws != 0), values[idx], 0)
+        if not torch.equal(seg, want):
+            raise AssertionError("multicut: seg is not the assignment table applied to ws")
+        del ws, seg, want, idx
+        log("multicut", f"merged graph = the numpy oracle's (nodes, uv, sizes; {t_oracle:.1f} s); seg > 0 = ws > 0; "
+                        f"seg = the assignment table applied to ws")
+        rec = wf_run(K, tmp, cfg_dir, AgglomerativeClusteringWorkflow, output_key="ac_seg", **io)
+        ac = rec["tasks"]["agglomerative_clustering"]
+        log("multicut", f"AgglomerativeClusteringWorkflow in the same tmp_folder (graph and features reused): wall "
+                        f"{rec['wall_s']:.3f} s, solve {ac['runtime_s']:.3f} s, {ac['n_clusters']} clusters of "
+                        f"{ac['n_nodes']} nodes, rounds {ac['solver']['rounds']}, write "
+                        f"{rec['tasks']['write']['runtime_s']:.3f} s")
+
+        # ---- 3. the default solver, and the in-block agglomeration, on crops ----
+        c = MC_DEFAULT_CROP
+        sub = tuple(slice(0, c) for _ in range(3))
+        f.require_dataset("boundaries_crop", shape=(c,) * 3, chunks=(c // 2,) * 3,
+                          dtype="float32")[...] = f["boundaries"][sub]
+        ws_cfg = dict(halo=[32, 32, 32], threshold=0.45, min_seed_distance=2.0)
+        rec = wf_run(K, os.path.join(root, "default"), cfg_dir, MulticutSegmentationWorkflow,
+                     input_path=mem, input_key="boundaries_crop", ws_path=mem, ws_key="ws_crop", output_path=mem,
+                     output_key="mc_crop", block_shape=[c // 2] * 3, **ws_cfg)
+        launches = rec["launches"]
+        missing = [k for k in MAIN_PATH_KERNELS if launches.get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"multicut: the default workflow's watershed launched no {missing}")
+        seg, ws = f["mc_crop"][...], f["ws_crop"][...]
+        if not np.array_equal(seg > 0, ws > 0):
+            raise AssertionError("multicut (default): seg > 0 differs from ws > 0")
+        t = rec["tasks"]
+        log("multicut", f"default MulticutSegmentationWorkflow (watershed, Kernighan-Lin global solve) on {(c,) * 3}, "
+                        f"block {(c // 2,) * 3}: wall {rec['wall_s']:.3f} s (watershed {t['watershed']['runtime_s']:.3f}, "
+                        f"solve_global {t['solve_global']['runtime_s']:.3f} s); "
+                        f"{t['merge_sub_graphs']['n_nodes']} fragments -> {t['solve_global']['n_segments']} segments; "
+                        f"launches {launches}")
+        for row in rows:
+            row["multicut_launches"] = launches.get(row["name"], 0)
+
+        half = tuple(slice(0, n) for _ in range(3))
+        f.require_dataset("boundaries_half", shape=(n,) * 3, chunks=block, dtype="float32")[...] = \
+            f["boundaries"][half]
+        agg = dict(input_path=mem, input_key="boundaries_half", output_path=mem, block_shape=list(block),
+                   agglomerate_threshold=0.5, dt_max_distance=32.0, **ws_cfg)
+        recs = {impl: wf_run(K, os.path.join(root, f"agg-{impl}"), cfg_dir, WatershedWorkflow, output_key=f"agg_{impl}",
+                             impl=impl, **agg) for impl in ("auto", "torch")}
+        if sum(recs["torch"]["launches"].values()):
+            raise AssertionError(f"multicut: impl='torch' launched kernels: {recs['torch']['launches']}")
+        a, b = f["agg_auto"][...], f["agg_torch"][...]
+        if not np.array_equal(a, b):
+            raise AssertionError("multicut: the agglomerating watershed's impl='torch' output differs from the kernels'")
+        log("multicut", f"single-pass watershed with agglomerate_threshold=0.5 on {(n,) * 3}, block {block}: "
+                        f"{recs['auto']['wall_s']:.3f} s (impl=torch {recs['torch']['wall_s']:.3f} s), "
+                        f"{len(np.unique(a)) - int((a == 0).any())} segments; equals its impl='torch' run bit for bit; "
+                        f"launches {recs['auto']['launches']}")
+    del MemoryContainer._registry[mem]
+    log("multicut", f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def main_phases(K, args, gen):
     """Phases 3-9 (kernels, main path, its twins and replays, worst
-    cases, tiled seeds); returns the kernel rows, the main path's volume
-    and scipy's labels of its foreground."""
+    cases, tiled seeds); returns the kernel rows, the main path's volume,
+    scipy's labels of its foreground and the main path's watershed labels
+    on the first ``CONFIG4_CROP``^3."""
     from cluster_tools_tpu_torch.parallel.split_pipeline import make_ws_ccl_split
     from cluster_tools_tpu_torch.utils.synthetic import synthetic_boundaries
 
@@ -651,6 +906,7 @@ def main_phases(K, args, gen):
         raise AssertionError(f"impl='torch' launched kernels: {dict(K.LAUNCHES)}")
     log("main-twins", f"{MAIN_SHAPE} impl=torch == impl=cuda on ws, cc, n_fg, overflow "
                       f"({twin_s * 1e3:.1f} ms, no kernel launched)")
+    ws_crop = ws[0, :CONFIG4_CROP, :CONFIG4_CROP, :CONFIG4_CROP].cpu().numpy()
     del ws, cc, out_t
 
     # ---- every main-path launch on its own inputs ----
@@ -711,7 +967,7 @@ def main_phases(K, args, gen):
                        f"({int(torch.unique(out_c[0]).numel()) - 1} ws segments); "
                        f"launches {launches_t}; rungs {rungs_t}")
 
-    return rows, vol, ref
+    return rows, vol, ref, ws_crop
 
 
 def main() -> int:
@@ -738,8 +994,9 @@ def main() -> int:
     ) + f"; wall {time.perf_counter() - t0:.1f}s")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    rows, vol, ref = main_phases(K, args, gen)
-    phase_blockwise(K, vol, ref, rows)
+    rows, vol, ref, ws_crop = main_phases(K, args, gen)
+    mem = phase_blockwise(K, vol, ref, rows)
+    phase_multicut(K, vol, ws_crop, mem, rows)
 
     log("done", f"{time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))

@@ -1,2 +1,3 @@
 """Blockwise tasks and workflows of the port: watershed (single- and
-two-pass), connected components, relabel, write and copy."""
+two-pass), connected components, relabel, write and copy, and the graph,
+features, costs, multicut and agglomerative-clustering tasks."""

@@ -14,6 +14,10 @@ tiled watershed (``ops/tile_ws.py``: kernels B1-B4 on the card with
 ``auto``/``cuda``, their twins with ``torch``); ``legacy``, 2-D mode and
 connectivity above 1 run ``ops/watershed.py``.  The reference's
 ``pallas``/``xla`` mean ``auto`` here.
+
+``agglomerate_threshold`` (single-pass only) merges each block's fragments
+by in-block average linkage over the block's RAG before the labels are
+stored (:meth:`_WsTaskBase._agglomerate_block`).
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ class _WsTaskBase(BaseTask):
             "min_seed_distance": 0.0,
             "sampling": None,
             "size_filter": 0,
-            # in-block fragment agglomeration (needs the RAG: ROADMAP item 7)
+            # in-block average-linkage merge of the fragments (single-pass)
             "agglomerate_threshold": None,
             "two_d": False,
             "connectivity": 1,
@@ -73,10 +77,6 @@ class _WsTaskBase(BaseTask):
 
     def _setup(self):
         cfg = self.get_config()
-        if cfg.get("agglomerate_threshold") is not None:
-            raise NotImplementedError(
-                "agglomerate_threshold (in-block agglomeration over the RAG) is not ported: ROADMAP Queue A item 7"
-            )
         inp = handoff.resolve_dataset(cfg["input_path"], cfg["input_key"])
         shape = inp.shape
         block_shape = tuple(cfg["block_shape"])
@@ -118,6 +118,32 @@ class _WsTaskBase(BaseTask):
             dt_max_distance=float(dt_max),
         )
 
+    def _agglomerate_block(self, lab: np.ndarray, bnd: np.ndarray, threshold: float) -> np.ndarray:
+        """In-block average-linkage merge of the fragments (reference:
+        ``_WsTaskBase._agglomerate_block``): fragments whose contact's
+        size-weighted mean boundary value is below ``threshold`` fuse.  Runs
+        on the padded-outer labels, so the halo takes part; the RAG is
+        extracted on the task's device, the linkage is the host heap.
+        Fragments without an edge keep distinct ids."""
+        from ..ops.agglomeration import average_agglomeration
+        from ..ops.rag import block_rag
+
+        lab = np.ascontiguousarray(lab)
+        uv, sizes, feats = block_rag(lab.astype(np.uint64), bnd, device=self.device)
+        if len(uv) == 0:
+            return lab
+        nodes = np.unique(uv).astype(np.int64)
+        remap = np.zeros(int(nodes.max()) + 1, np.int64)
+        remap[nodes] = np.arange(len(nodes))
+        merged = average_agglomeration(len(nodes), remap[uv.astype(np.int64)], feats[:, 0], sizes, threshold)
+        all_labels = np.unique(lab[lab > 0]).astype(np.int64)
+        table = np.zeros(int(all_labels.max()) + 1, lab.dtype)
+        table[nodes] = (merged + 1).astype(lab.dtype)
+        iso = np.setdiff1d(all_labels, nodes, assume_unique=True)
+        k = int(merged.max()) + 1 if len(merged) else 0
+        table[iso] = (np.arange(len(iso)) + k + 1).astype(lab.dtype)
+        return table[lab]
+
     def _store_labels(self, out, block, raw, n_outer):
         """Crop the inner region from the padded-outer labels and globalize."""
         inner = raw[block.inner_in_outer_bb]
@@ -158,10 +184,20 @@ class WatershedBase(_WsTaskBase):
         two_d = bool(cfg.get("two_d", False))
         size_filter = int(cfg.get("size_filter") or 0)
         impl = self._impl(cfg)
+        agg_thr = cfg.get("agglomerate_threshold")
+        if agg_thr is not None and parity is not None:
+            # pass one of the checkerboard seeds pass two, which cannot merge
+            raise NotImplementedError("agglomerate_threshold is not supported with pass_parity "
+                                      "(two-pass checkerboard)")
+        # boundary blocks kept from load to store for the agglomeration
+        # (unique keys; dict ops are atomic across the IO threads)
+        bnd_stash = {}
 
         def load(block):
             # pad with 1.0 (pure boundary) so basins don't leak off-volume
             data = pad_block_to(inp[block.outer_bb].astype(np.float32), outer, constant_values=1.0)
+            if agg_thr is not None:
+                bnd_stash[block.block_id] = data
             m = pad_block_to(mask_ds[block.outer_bb] > 0, outer) if mask_ds is not None else np.ones(outer, bool)
             return data, m
 
@@ -186,11 +222,17 @@ class WatershedBase(_WsTaskBase):
         def store(block, raw):
             lab, ovf = raw
             self._note_overflow(block, ovf, overflow_blocks)
+            if agg_thr is not None:
+                # peek, don't pop: a store retry must find the stash
+                lab = self._agglomerate_block(np.asarray(lab), bnd_stash[block.block_id], float(agg_thr))
             self._store_labels(out, block, lab, n_outer)
 
+        def block_done(block):
+            bnd_stash.pop(block.block_id, None)
+            self.log_block_success(block.block_id)
+
         sweep = BlockwiseExecutor.for_task(self.target, cfg, self.max_jobs).map_blocks(
-            kernel, blocks_all, load, store,
-            on_block_done=lambda b: self.log_block_success(b.block_id),
+            kernel, blocks_all, load, store, on_block_done=block_done,
             done_block_ids=done, validate_fn=validate_labels, failures_path=self.failures_path,
             task_name=self.uid, **sweep_config(cfg),
         )
@@ -220,6 +262,9 @@ class TwoPassWatershedBase(_WsTaskBase):
         cfg, inp, out, mask_ds, shape, block_shape, halo, blocking, block_ids = self._setup()
         if all(h == 0 for h in halo):
             raise ValueError("two-pass watershed requires a nonzero halo")
+        if cfg.get("agglomerate_threshold") is not None:
+            # pass-two labels carry immutable external seed ids from pass one
+            raise NotImplementedError("agglomerate_threshold is not supported with the two-pass watershed")
         if cfg.get("two_d"):
             raise NotImplementedError("two_d=True is not supported for the two-pass watershed; use the "
                                       "single-pass watershed for per-slice segmentation")
@@ -319,10 +364,8 @@ class WatershedWorkflow(WorkflowBase):
         two_pass = bool(p.pop("two_pass", False))
         if two_pass and p.get("two_d"):
             raise NotImplementedError("two_d=True is not supported with two_pass=True")
-        if p.get("agglomerate_threshold") is not None:
-            raise NotImplementedError(
-                "agglomerate_threshold (in-block agglomeration over the RAG) is not ported: ROADMAP Queue A item 7"
-            )
+        if two_pass and p.get("agglomerate_threshold") is not None:
+            raise NotImplementedError("agglomerate_threshold is not supported with two_pass=True")
         common = dict(tmp_folder=self.tmp_folder, config_dir=self.config_dir, max_jobs=self.max_jobs)
         if not two_pass:
             return [get_task_cls(ws_mod, "Watershed", self.target)(**common, dependencies=self.dependencies, **p)]

@@ -199,9 +199,10 @@ REFUSED = [
     ("cc", {"block_deadline_s": 5.0}, {}, "item 11"),
     ("ws", {"sweep_mode": "sharded"}, {}, "item 9"),
     ("ws", {}, {"impl": "host"}, "item 11"),
-    ("ws", {}, {"agglomerate_threshold": 0.3}, "item 7"),
+    # the in-block agglomeration is single-pass only, as in the reference
+    ("ws", {}, {"agglomerate_threshold": 0.3, "pass_parity": 0}, "pass_parity"),
     ("ws2", {}, {"impl": "host"}, "item 11"),
-    ("ws2", {}, {"agglomerate_threshold": 0.3}, "item 7"),
+    ("ws2", {}, {"agglomerate_threshold": 0.3}, "two_pass"),
 ]
 
 
