@@ -72,7 +72,24 @@ Phases, each one line of output, each raising on failure:
     oracle, the segmentation against the assignment table); the default
     workflow (watershed, Kernighan-Lin) on the first 128^3, and the
     agglomerating watershed on the first 256^3 against its
-    ``impl="torch"`` run.  The kernel rows gain ``multicut_launches``.
+    ``impl="torch"`` run.  The kernel rows gain ``multicut_launches``;
+12. inference (``phase_inference``): ``InferenceWorkflow`` with the
+    full-width U-Net (base 16, depth 2, GroupNorm, bfloat16; seeded weights
+    saved with the port's ``save_checkpoint`` and read back from the npz) on
+    the main path's 512^3 volume (block 128^3, halo 8: 64 blocks of 144^3),
+    then ``IlastikPredictionWorkflow`` (block 128^3, halo 12) with a seeded
+    linear classifier on the default feature bank and with a seeded forest
+    (16 trees of depth 8) on all six ilastik feature ids.  Per workflow a
+    warm-up and two timed runs with the "blockwise" columns; the U-Net's
+    FLOP count and bound and one block's synced forward; gates: the
+    U-Net's output finite in [0, 1], two blocks (interior, far corner)
+    equal to the port's CPU forward of the same npz within 2e-2, a float32
+    model on one block equal to its CPU forward within 2e-4 (TF32 off),
+    the probabilities summing to 1 within 1e-5, one block of each
+    classifier equal to its CPU run within 2e-3 (the forest on voxels clear
+    of its split thresholds), and the forest's descent on the card's
+    features equal to its CPU descent within 1e-6.  The kernel rows gain
+    ``inference_launches`` (0: this path runs no hand kernel).
 
 Prints the kernels' JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero (and prints no result)
@@ -439,14 +456,16 @@ def bw_run(K, tmp_root: str, tag: str, workflow_cls, block_shape, **params) -> d
                 sweep=dict(sweep), overflow_blocks=overflow)
 
 
-def bw_timed(K, tmp_root: str, tag: str, workflow_cls, block_shape, voxels: int, n_blocks: int, **params) -> dict:
-    """A warm-up and two timed runs; prints the workflow's line and returns
-    the second timed run's record with ``wall_s`` the median of the two."""
+def bw_timed(K, tmp_root: str, tag: str, workflow_cls, block_shape, voxels: int, n_blocks: int,
+             phase: str = "blockwise", **params) -> dict:
+    """A warm-up and two timed runs; prints the workflow's line (under
+    ``phase``) and returns the second timed run's record with ``wall_s``
+    the median of the two."""
     bw_run(K, tmp_root, tag, workflow_cls, block_shape, **params)
     runs = [bw_run(K, tmp_root, tag, workflow_cls, block_shape, **params) for _ in range(2)]
     rec = dict(runs[-1], wall_s=float(np.median([r["wall_s"] for r in runs])))
     sw = rec["sweep"]
-    log("blockwise", f"{tag}: {voxels} voxels, {n_blocks} blocks; wall "
+    log(phase, f"{tag}: {voxels} voxels, {n_blocks} blocks; wall "
                      + "/".join(f"{r['wall_s']:.3f}" for r in runs) + f" s, median {rec['wall_s']:.3f} s = "
                      f"{voxels / rec['wall_s']:.4g} voxels/s, {n_blocks / rec['wall_s']:.4g} blocks/s; "
                      f"peak {rec['peak_gb']:.2f} GB; executor load {sw.get('load_s', 0) * 1e3:.1f}, "
@@ -809,6 +828,233 @@ def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: li
     log("multicut", f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# the H100 SXM data sheet's dense bfloat16 tensor rate (the FLOP bound of the U-Net)
+BF16_FLOPS_PER_S = 989e12
+# one interior block and the far corner of the 4x4x4 grid of 128^3 blocks
+INFERENCE_BLOCKS = (21, 63)
+
+
+def conv_flops(model, x) -> int:
+    """Multiply-add FLOPs (2 a MAC) of the convolutions of one forward of
+    ``model`` on ``x``, counted from the shapes each convolution sees."""
+    from cluster_tools_tpu_torch.models.unet import Conv
+
+    total = [0]
+
+    def hook(m, inp, out):
+        k3 = m.weight.shape[2] * m.weight.shape[3] * m.weight.shape[4]
+        if m.transpose:
+            total[0] += 2 * inp[0].numel() * m.weight.shape[1] * k3
+        else:
+            total[0] += 2 * out.numel() * m.weight.shape[1] * k3
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, Conv)]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def synthetic_forest(feats: torch.Tensor, columns, rng, n_trees: int = 16, depth: int = 8, n_classes: int = 2):
+    """Complete trees of ``depth`` in breadth-first layout splitting on
+    ``columns``, each threshold a feature value of a random voxel of
+    ``feats`` (``[n, F]``); leaves point at themselves, with feature and
+    threshold 0 (as the JAX package's vigra import leaves them) and random
+    class distributions: the ``rf_*`` arrays of an ilastik checkpoint."""
+    n = 2 ** (depth + 1) - 1
+    inner = 2 ** depth - 1
+    children = np.stack([2 * np.arange(n) + 1, 2 * np.arange(n) + 2], -1)
+    children[inner:] = np.arange(inner, n)[:, None]
+    feature = rng.choice(np.asarray(columns), (n_trees, n)).astype(np.int32)
+    sample = feats[torch.from_numpy(rng.integers(0, feats.shape[0], (n_trees, n))).to(feats.device)].cpu().numpy()
+    threshold = np.take_along_axis(sample, feature[..., None].astype(np.int64), -1)[..., 0].astype(np.float32)
+    feature[:, inner:] = 0
+    threshold[:, inner:] = 0.0
+    probs = rng.random((n_trees, n, n_classes)).astype(np.float32)
+    return dict(rf_feature=feature, rf_threshold=threshold,
+                rf_children=np.broadcast_to(children, (n_trees, n, 2)).astype(np.int32).copy(),
+                rf_leaf_probs=probs / probs.sum(-1, keepdims=True), rf_depth=np.int32(depth))
+
+
+def split_margin(feature, threshold, children, X, depth: int) -> torch.Tensor:
+    """Per sample of ``X`` (``[n, F]``), the least ``|feature - threshold|``
+    over the splits its descent meets in every tree (the descent of
+    ``forest_predict_proba``; a leaf points at itself and splits nothing)."""
+    T, n = feature.shape[0], X.shape[0]
+    feat, child = feature.long(), children.reshape(T, -1).long()
+    xt = X.t()
+    idx = torch.zeros((T, n), dtype=torch.long, device=X.device)
+    margin = torch.full((T, n), float("inf"), device=X.device)
+    for _ in range(depth):
+        x = torch.gather(xt, 0, torch.gather(feat, 1, idx))
+        t = torch.gather(threshold, 1, idx)
+        leaf = torch.gather(child, 1, idx * 2) == idx
+        margin = torch.where(leaf, margin, torch.minimum(margin, (x - t).abs()))
+        idx = torch.gather(child, 1, idx * 2 + (x >= t).long())
+    return margin.min(dim=0).values
+
+
+def phase_inference(K, vol: torch.Tensor, rows: list, seed: int, block=(128, 128, 128)) -> None:
+    """Phase 12: the prediction workflows on the card (see the module
+    docstring).  Adds ``inference_launches`` to the kernel rows."""
+    from cluster_tools_tpu_torch.io.containers import MemoryContainer, open_container
+    from cluster_tools_tpu_torch.models import UNet3D
+    from cluster_tools_tpu_torch.tasks import ilastik as il
+    from cluster_tools_tpu_torch.tasks.inference import InferenceWorkflow, load_checkpoint, normalize, save_checkpoint
+    from cluster_tools_tpu_torch.utils.volume_utils import Blocking, pad_block_to
+
+    t_phase = time.perf_counter()
+    mem = "memory://inference"
+    f = open_container(mem)
+    raw = vol.reshape(vol.shape[-3:]).cpu().numpy()
+    shape = raw.shape
+    voxels = int(np.prod(shape))
+    n_blocks = int(np.prod([-(-s // b) for s, b in zip(shape, block)]))
+    f.require_dataset("raw", shape=shape, chunks=block, dtype="float32")[...] = raw
+    blocking = Blocking(shape, block)
+    launches = Counter()
+    with tempfile.TemporaryDirectory(prefix="inference-") as tmp_root:
+        # ---- the U-Net ----
+        halo = (8, 8, 8)
+        model = UNet3D()
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        mult = 2 ** model.depth
+        outer = tuple(-(-(b + 2 * h) // mult) * mult for b, h in zip(block, halo))
+        ckpt = os.path.join(tmp_root, "unet.npz")
+        save_checkpoint(ckpt, model)
+        rec = bw_timed(K, tmp_root, "unet", InferenceWorkflow, block, voxels, n_blocks, phase="inference",
+                       input_path=mem, input_key="raw", output_path=mem, output_key="pred", checkpoint_path=ckpt,
+                       model={"name": "unet3d"}, halo=list(halo))
+        launches.update(rec["launches"])
+        pred = f["pred"]
+        if pred.shape != (1,) + shape:
+            raise AssertionError(f"inference: output shape {pred.shape}")
+        p = torch.from_numpy(pred[...]).cuda()
+        lo, hi, finite = float(p.min()), float(p.max()), bool(torch.isfinite(p).all())
+        del p
+        if not finite or lo < 0.0 or hi > 1.0:
+            raise AssertionError(f"inference: output not finite in [0, 1] (finite {finite}, min {lo}, max {hi})")
+        cpu_model = UNet3D()
+        load_checkpoint(ckpt, cpu_model)
+        card_model = UNet3D()
+        load_checkpoint(ckpt, card_model)
+        card_model.cuda().eval()
+        errs = {}
+        xs = {}
+        for bid in INFERENCE_BLOCKS:
+            b = blocking.get_block(bid, halo)
+            xs[bid] = torch.from_numpy(pad_block_to(normalize(raw[b.outer_bb]), outer))[None, None]
+            with torch.no_grad():
+                want = torch.sigmoid(cpu_model(xs[bid]))[0].numpy()[(slice(None),) + b.inner_in_outer_bb]
+            errs[bid] = float(np.abs(pred[(slice(None),) + b.bb] - want).max())
+            if not errs[bid] <= 2e-2:
+                raise AssertionError(f"inference: block {bid} differs from the CPU forward by {errs[bid]}")
+        x = xs[INFERENCE_BLOCKS[0]].cuda()
+        flops = conv_flops(card_model, x)
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: card_model(x), 5)
+        bound_block = flops / BF16_FLOPS_PER_S * 1e3
+        # float32 on one block, TF32 off for the convolutions
+        m32_cpu = UNet3D(dtype=torch.float32)
+        load_checkpoint(ckpt, m32_cpu)
+        m32 = UNet3D(dtype=torch.float32)
+        load_checkpoint(ckpt, m32)
+        m32.cuda().eval()
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            got32 = m32(x).cpu().numpy()
+            want32 = m32_cpu(xs[INFERENCE_BLOCKS[0]]).numpy()
+        err32 = float(np.abs(got32 - want32).max())
+        if not np.allclose(got32, want32, atol=2e-4, rtol=2e-4):
+            raise AssertionError(f"inference: the float32 block differs from its CPU forward by {err32}")
+        del card_model, m32, x
+        log("inference", f"unet: {flops} FLOP a {outer} block ({flops / np.prod(outer):.5g} a voxel), "
+                         f"{flops * n_blocks:.4g} in the {n_blocks} blocks; bound {bound_block:.3f} ms a block, "
+                         f"{bound_block * n_blocks:.2f} ms in all at {BF16_FLOPS_PER_S:.3g} FLOP/s; one block's "
+                         f"forward {fwd_ms:.2f} ms (synced; bound/time {bound_block / fwd_ms:.1%}); output in "
+                         f"[{lo:.4f}, {hi:.4f}]; blocks {INFERENCE_BLOCKS} vs CPU max err "
+                         + ", ".join(f"{e:.3g}" for e in errs.values())
+                         + f" (atol 2e-2); float32 block vs CPU max err {err32:.3g} (atol 2e-4, TF32 off)")
+        del pred
+
+        # ---- ilastik: linear classifier and forest ----
+        rng = np.random.default_rng(seed)
+        ihalo = (12, 12, 12)
+        iouter = tuple(b + 2 * h for b, h in zip(block, ihalo))
+        linear = os.path.join(tmp_root, "linear.npz")
+        n_feat = il.n_features()
+        np.savez(linear, W=rng.normal(0, 1, (n_feat, 2)).astype(np.float32),
+                 b=rng.normal(0, 0.1, 2).astype(np.float32), sigmas=np.array(il.DEFAULT_SIGMAS))
+        selections = (("GaussianSmoothing", 0.7), ("LaplacianOfGaussian", 1.6), ("GaussianGradientMagnitude", 1.6),
+                      ("DifferenceOfGaussians", 3.5), ("HessianOfGaussianEigenvalues", 1.6),
+                      ("StructureTensorEigenvalues", 1.6))
+        b0 = blocking.get_block(INFERENCE_BLOCKS[0], ihalo)
+        xb = torch.from_numpy(pad_block_to(raw[b0.outer_bb], iouter, mode="edge"))
+        feats_card = il.ilp_feature_bank(xb.cuda(), selections)
+        feat_err = float((feats_card.cpu() - il.ilp_feature_bank(xb, selections)).abs().max())
+        if not feat_err <= 2e-4:
+            raise AssertionError(f"ilastik: the card's features differ from the CPU's by {feat_err}")
+        flat = feats_card.reshape(-1, feats_card.shape[-1])
+        # split only on columns whose spread is ten times the clear margin
+        # below (the structure tensor's smaller eigenvalues are ~1e-5 here)
+        spread = flat.std(0).cpu().numpy()
+        columns = [c for c in range(flat.shape[1]) if spread[c] > 2e-3]
+        if len(columns) < 6:
+            raise AssertionError(f"ilastik: only columns {columns} of {flat.shape[1]} have a spread > 2e-3")
+        forest_arrays = synthetic_forest(flat, columns, rng)
+        forest = os.path.join(tmp_root, "forest.npz")
+        np.savez(forest, W=np.zeros((0, 0), np.float32), b=np.zeros(0, np.float32), sigmas=np.zeros(0, np.float32),
+                 ilp_features=np.array([f"{fid}:{s}" for fid, s in selections]), **forest_arrays)
+        clf_card = il.load_classifier(forest, torch.device("cuda"))
+        clf_cpu = il.load_classifier(forest, torch.device("cpu"))
+        rf = [clf_card["forest"][k] for k in ("feature", "threshold", "children", "leaf_probs")]
+        rf_cpu = [clf_cpu["forest"][k] for k in ("feature", "threshold", "children", "leaf_probs")]
+        depth = clf_card["forest"]["depth"]
+        descent_err = float((il.forest_predict_proba(*rf, flat, depth).cpu()
+                             - il.forest_predict_proba(*rf_cpu, flat.cpu(), depth)).abs().max())
+        if not descent_err <= 1e-6:
+            raise AssertionError(f"ilastik: the forest's descent on the card differs from the CPU's by {descent_err}")
+        # a voxel is clear when each split on its path through each tree
+        # compares a feature 2e-4 (the features' tolerance) or more away
+        # from the threshold
+        clear = (split_margin(*rf[:3], flat, depth) > 2e-4).cpu().numpy()
+        del feats_card, flat
+        clear = clear.reshape(iouter)[b0.inner_in_outer_bb]
+        for tag, ckpt_i in (("ilastik-linear", linear), ("ilastik-forest", forest)):
+            key = tag.replace("-", "_")
+            rec = bw_timed(K, tmp_root, tag, il.IlastikPredictionWorkflow, block, voxels, n_blocks,
+                           phase="inference", input_path=mem, input_key="raw", output_path=mem, output_key=key,
+                           checkpoint_path=ckpt_i)
+            launches.update(rec["launches"])
+            probs = f[key]
+            s_err = float((torch.from_numpy(probs[...]).cuda().sum(0) - 1.0).abs().max())
+            if not s_err <= 1e-5:
+                raise AssertionError(f"{tag}: probabilities sum to 1 only within {s_err}")
+            with torch.no_grad():
+                want = il.predict_block(il.load_classifier(ckpt_i, torch.device("cpu")), xb).numpy()
+            got = probs[(slice(None),) + b0.bb]
+            want = want[(slice(None),) + b0.inner_in_outer_bb]
+            sel = clear if tag == "ilastik-forest" else np.ones(clear.shape, bool)
+            err = float(np.abs(got - want)[:, sel].max())
+            if not err <= 2e-3:
+                raise AssertionError(f"{tag}: block {INFERENCE_BLOCKS[0]} differs from its CPU run by {err}")
+            log("inference", f"{tag}: sums to 1 within {s_err:.3g}; block {INFERENCE_BLOCKS[0]} vs CPU max err "
+                             f"{err:.3g} (atol 2e-3) on {int(sel.sum())} of {sel.size} voxels"
+                             + (f" (clear of the thresholds); forest {forest_arrays['rf_feature'].shape[0]} trees "
+                                f"of depth {depth} on columns {columns}; descent on the card's features vs CPU "
+                                f"{descent_err:.3g} (atol 1e-6); the card's {len(selections)}-id features vs CPU "
+                                f"{feat_err:.3g} (atol 2e-4)" if tag == "ilastik-forest" else ""))
+            del probs
+    for row in rows:
+        row["inference_launches"] = launches.get(row["name"], 0)
+    if sum(launches.values()):
+        raise AssertionError(f"inference: the prediction workflows launched hand kernels: {dict(launches)}")
+    del MemoryContainer._registry[mem]
+    log("inference", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main_phases(K, args, gen):
     """Phases 3-9 (kernels, main path, its twins and replays, worst
     cases, tiled seeds); returns the kernel rows, the main path's volume,
@@ -997,6 +1243,7 @@ def main() -> int:
     rows, vol, ref, ws_crop = main_phases(K, args, gen)
     mem = phase_blockwise(K, vol, ref, rows)
     phase_multicut(K, vol, ws_crop, mem, rows)
+    phase_inference(K, vol, rows, args.seed)
 
     log("done", f"{time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))

@@ -1,3 +1,5 @@
 """Blockwise tasks and workflows of the port: watershed (single- and
-two-pass), connected components, relabel, write and copy, and the graph,
-features, costs, multicut and agglomerative-clustering tasks."""
+two-pass), connected components, relabel, write and copy, the graph,
+features, costs, multicut and agglomerative-clustering tasks, and the
+prediction tasks: CNN inference (``inference``) and ilastik
+pixel-classification prediction (``ilastik``)."""

@@ -71,3 +71,28 @@ def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("module", ["models/__init__.py", "models/unet.py", "models/flax_import.py",
+                                    "models/torch_import.py", "tasks/inference.py", "tasks/ilastik.py"])
+def test_prediction_modules_are_checked(module):
+    """The prediction slice's modules are among the files held above."""
+    assert ROOT / "cluster_tools_tpu_torch" / module in PORT_FILES
+
+
+def test_prediction_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    import numpy as np
+
+    from cluster_tools_tpu_torch.ops.filters import gradient_magnitude, hessian_eigenvalues
+    from cluster_tools_tpu_torch.tasks.ilastik import IlastikPredictionWorkflow
+    from cluster_tools_tpu_torch.tasks.inference import InferenceWorkflow
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    vol = np.zeros((8, 8, 8), np.float32)
+    for wf in (InferenceWorkflow, IlastikPredictionWorkflow):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            wf(tmp_folder=str(tmp_path / "tmp"), config_dir=str(tmp_path))
+    for fn in (gradient_magnitude, hessian_eigenvalues):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(vol, 1.0)
+        assert fn(vol, 1.0, device="cpu").device.type == "cpu"
