@@ -63,8 +63,20 @@ Phases, each one line of output, each raising on failure:
     wall time, voxels/s and blocks/s, peak device memory, the executor's
     summed load / h2d / kernel (synced) / d2h / store ms, kernel launches
     and remap rungs.  The kernel rows gain ``blockwise_launches`` and
-    ``blockwise_ms`` (sums over one run's launches, replayed);
-11. multicut: BASELINE config 4 (``phase_multicut``): the fused RAG and the
+    ``blockwise_ms`` (sums over one run's launches, replayed).  The tasks'
+    default ``sweep_mode="auto"`` runs these sweeps sharded, 8 blocks a
+    call;
+11. sweeps (``phase_sweeps``): the executor's sweep plane on the same
+    volume (64 blocks, batch 8): the single- and two-pass watershed and cc
+    with ``sweep_mode="per_block"`` beside phase 10's runs, which must
+    have run sharded with the lane-batched kernels (rung ``batched``);
+    every file equal bit for bit; per mode the wall (median of two after a
+    warm-up), blocks/s, calls to the device, summed kernel s, peak GB and
+    the fixed cost a block; then a ragged tail (``sharded_batch=12``: one
+    ragged batch, 8 padding lanes) and one ragged sweep run twice through
+    the device page pool (the second sends fewer bytes to the card), each
+    equal to the per-block file.  The kernel rows gain ``sweep_launches``;
+12. multicut: BASELINE config 4 (``phase_multicut``): the fused RAG and the
     torch-rung GAEC on the first 256^3 of the main path's watershed labels
     against the numpy oracle; ``MulticutSegmentationWorkflow`` and
     ``AgglomerativeClusteringWorkflow`` on the 512^3 single-pass watershed
@@ -73,7 +85,7 @@ Phases, each one line of output, each raising on failure:
     workflow (watershed, Kernighan-Lin) on the first 128^3, and the
     agglomerating watershed on the first 256^3 against its
     ``impl="torch"`` run.  The kernel rows gain ``multicut_launches``;
-12. inference (``phase_inference``): ``InferenceWorkflow`` with the
+13. inference (``phase_inference``): ``InferenceWorkflow`` with the
     full-width U-Net (base 16, depth 2, GroupNorm, bfloat16; seeded weights
     saved with the port's ``save_checkpoint`` and read back from the npz) on
     the main path's 512^3 volume (block 128^3, halo 8: 64 blocks of 144^3),
@@ -421,17 +433,19 @@ def partition_equal(cc: torch.Tensor, ref: torch.Tensor) -> bool:
     return pairs == torch.unique(a).numel() == torch.unique(b).numel()
 
 
-def bw_run(K, tmp_root: str, tag: str, workflow_cls, block_shape, **params) -> dict:
+def bw_run(K, tmp_root: str, tag: str, workflow_cls, block_shape, global_config=None, **params) -> dict:
     """One run of a port workflow on the card (its default target), in a
     fresh ``tmp_folder``: wall seconds (ended by a device sync), peak
-    device memory, kernel launches and remap rungs of that run, and the
-    executor's summed stage times from the tasks' success manifests."""
+    device memory, kernel launches and remap rungs of that run, the
+    executor's summed stage times and its sweep summaries (one a task)
+    from the tasks' success manifests.  ``global_config`` adds keys to the
+    workflow's global config (``sweep_mode``, ``sharded_batch``, ...)."""
     from cluster_tools_tpu_torch.runtime.task import build as run_dag
 
     d = tempfile.mkdtemp(prefix=f"{tag}-", dir=tmp_root)
     os.makedirs(os.path.join(d, "cfg"))
     with open(os.path.join(d, "cfg", "global.config"), "w") as f:
-        json.dump({"block_shape": list(block_shape)}, f)
+        json.dump(dict({"block_shape": list(block_shape)}, **(global_config or {})), f)
     tmp = os.path.join(d, "tmp")
     wf = workflow_cls(tmp_folder=tmp, config_dir=os.path.join(d, "cfg"), max_jobs=8,
                       block_shape=list(block_shape), **params)
@@ -453,16 +467,16 @@ def bw_run(K, tmp_root: str, tag: str, workflow_cls, block_shape, **params) -> d
         sweep.update({k: v for k, v in m.get("sweep", {}).items() if k.endswith("_s")})
     overflow = sorted(b for m in manifests for b in m.get("overflow_blocks", []))
     return dict(wall_s=wall, peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches, rungs=rungs,
-                sweep=dict(sweep), overflow_blocks=overflow)
+                sweep=dict(sweep), overflow_blocks=overflow, sweeps=[m["sweep"] for m in manifests if "sweep" in m])
 
 
 def bw_timed(K, tmp_root: str, tag: str, workflow_cls, block_shape, voxels: int, n_blocks: int,
-             phase: str = "blockwise", **params) -> dict:
+             phase: str = "blockwise", global_config=None, **params) -> dict:
     """A warm-up and two timed runs; prints the workflow's line (under
     ``phase``) and returns the second timed run's record with ``wall_s``
     the median of the two."""
-    bw_run(K, tmp_root, tag, workflow_cls, block_shape, **params)
-    runs = [bw_run(K, tmp_root, tag, workflow_cls, block_shape, **params) for _ in range(2)]
+    bw_run(K, tmp_root, tag, workflow_cls, block_shape, global_config, **params)
+    runs = [bw_run(K, tmp_root, tag, workflow_cls, block_shape, global_config, **params) for _ in range(2)]
     rec = dict(runs[-1], wall_s=float(np.median([r["wall_s"] for r in runs])))
     sw = rec["sweep"]
     log(phase, f"{tag}: {voxels} voxels, {n_blocks} blocks; wall "
@@ -503,7 +517,8 @@ def phase_blockwise(K, vol: torch.Tensor, ref: np.ndarray, rows: list, block=(12
     ``memory://`` run (half the volume's extent per axis: 256^3).  Adds ``blockwise_launches`` / ``blockwise_ms`` to
     the kernel rows.  Returns the ``memory://`` container's path, which
     keeps the boundaries and the single-pass watershed output ("ws") for
-    the "multicut" phase."""
+    the "multicut" phase, and the timed records of the cc, ws and ws2 runs
+    (the tasks' default ``sweep_mode="auto"``) for the "sweeps" phase."""
     from cluster_tools_tpu_torch.io.containers import MemoryContainer, open_container
     from cluster_tools_tpu_torch.tasks.connected_components import ConnectedComponentsWorkflow
     from cluster_tools_tpu_torch.tasks.relabel import RelabelWorkflow
@@ -534,10 +549,12 @@ def phase_blockwise(K, vol: torch.Tensor, ref: np.ndarray, rows: list, block=(12
         n_cc = int(got.max())
         del got
         bw_rows["cc"] = cc["launches"]
+        auto = {"cc": cc}
         # configs 2 and 3: single- and two-pass watershed, each against its twins
         for tag, two_pass in (("ws", False), ("ws2", True)):
             rec = bw_timed(K, tmp_root, tag, WatershedWorkflow, block, voxels, n_blocks, input_key="boundaries",
                            output_key=tag, two_pass=two_pass, **ws_cfg, **io)
+            auto[tag] = rec
             missing = [k for k in MAIN_PATH_KERNELS if rec["launches"].get(k, 0) == 0]
             if missing:
                 raise AssertionError(f"blockwise {tag}: the workflow launched no {missing}")
@@ -587,7 +604,113 @@ def phase_blockwise(K, vol: torch.Tensor, ref: np.ndarray, rows: list, block=(12
         row["blockwise_ms"] = {t: v.get(name, (0, 0.0))[1] for t, v in bw_rows.items() if t != "cc"}
     log("blockwise", f"cc {n_cc} components = scipy partition; relabel 1..{k}; phase "
                      f"{time.perf_counter() - t_phase:.1f} s")
-    return mem
+    return mem, auto
+
+
+def sweep_stats(rec: dict) -> dict:
+    """One run's sweep summaries folded over its tasks."""
+    sw = rec["sweeps"]
+    return dict(modes=sorted({x["sweep_mode"] for x in sw}),
+                rungs=sorted({r for x in sw for r in x.get("batch_rungs", [])}),
+                n_dispatches=sum(x["n_dispatches"] for x in sw),
+                ragged_batches=sum(x["ragged_batches"] for x in sw),
+                lanes_padded=sum(x["lanes_padded"] for x in sw),
+                h2d_bytes=sum(x["h2d_bytes"] for x in sw),
+                device_pool_hits=sum(x["device_pool_hits"] for x in sw),
+                device_pool_misses=sum(x["device_pool_misses"] for x in sw),
+                kernel_s=sum(x["kernel_s"] for x in sw))
+
+
+def phase_sweeps(K, mem: str, auto: dict, main_s_per_voxel: float, rows: list, block=(128, 128, 128)) -> None:
+    """The executor's sweep plane at full size: the "blockwise" phase's
+    volume (512^3, block 128^3, 64 blocks, batch 8).  The single-pass
+    watershed, the two-pass watershed and cc run with
+    ``sweep_mode="per_block"`` beside the "blockwise" phase's runs, whose
+    tasks' default ``"auto"`` must have resolved to ``sharded`` with the
+    ``batched`` rung; the output files must be equal bit for bit.  Per mode:
+    the wall (median of two after a warm-up), blocks/s, the calls to the
+    device, the summed kernel seconds, peak memory and the fixed cost a
+    block (wall a block minus the main path's per-voxel time over the
+    block's outer voxels).  Then the ragged tail (``sharded_batch=12``: 64 =
+    5 x 12 + 4) and the device page pool (one ragged sweep twice with
+    ``device_pool="on"``: the second must send fewer bytes to the card),
+    each equal to the per-block file.  The kernel rows gain
+    ``sweep_launches`` (one batched run of each workflow)."""
+    from cluster_tools_tpu_torch.io.containers import open_container
+    from cluster_tools_tpu_torch.parallel import device_pool
+    from cluster_tools_tpu_torch.tasks.connected_components import ConnectedComponentsWorkflow
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedWorkflow
+
+    t_phase = time.perf_counter()
+    os.environ["CT_FILL_MODE"], os.environ["CT_TIER_MODE"] = "capacity", "cond"
+    f = open_container(mem)
+    shape = f["boundaries"].shape
+    voxels = int(np.prod(shape))
+    n_blocks = int(np.prod([-(-s // b) for s, b in zip(shape, block)]))
+    io = dict(input_path=mem, output_path=mem)
+    ws_cfg = dict(halo=[32, 32, 32], threshold=0.45, dt_max_distance=32.0, min_seed_distance=2.0)
+    cases = {
+        "ws": (WatershedWorkflow, dict(input_key="boundaries", two_pass=False, **ws_cfg), 32),
+        "ws2": (WatershedWorkflow, dict(input_key="boundaries", two_pass=True, **ws_cfg), 32),
+        "cc": (ConnectedComponentsWorkflow, dict(input_key="mask", connectivity=1), 0),
+    }
+    with tempfile.TemporaryDirectory(prefix="sweeps-") as tmp_root:
+        for tag, (cls, params, halo) in cases.items():
+            st = sweep_stats(auto[tag])
+            if st["modes"] != ["sharded"] or st["rungs"] != ["batched"]:
+                raise AssertionError(f"sweeps {tag}: sweep_mode='auto' ran {st['modes']} with rungs {st['rungs']}, "
+                                     "expected sharded with the batched rung")
+            pb = bw_timed(K, tmp_root, f"{tag}-per_block", cls, block, voxels, n_blocks, phase="sweeps",
+                          global_config={"sweep_mode": "per_block"}, output_key=f"{tag}_pb", **params, **io)
+            st_pb = sweep_stats(pb)
+            if st_pb["modes"] != ["per_block"]:
+                raise AssertionError(f"sweeps {tag}: per_block ran {st_pb['modes']}")
+            if not np.array_equal(f[tag][...], f[f"{tag}_pb"][...]):
+                raise AssertionError(f"sweeps {tag}: the sharded (auto) file differs from the per-block file")
+            outer = int(np.prod([b + 2 * halo for b in block]))
+            for mode, rec, stt in (("per_block", pb, st_pb), ("auto", auto[tag], st)):
+                fixed_ms = (rec["wall_s"] / n_blocks - main_s_per_voxel * outer) * 1e3
+                log("sweeps", f"{tag} {mode}: wall {rec['wall_s']:.3f} s, {n_blocks / rec['wall_s']:.4g} blocks/s, "
+                              f"{stt['n_dispatches']} calls to the device, kernel {stt['kernel_s']:.3f} s (synced), "
+                              f"peak {rec['peak_gb']:.2f} GB, fixed cost {fixed_ms:.1f} ms a block "
+                              f"({rec['wall_s'] / n_blocks * 1e3:.1f} ms a block less "
+                              f"{main_s_per_voxel * outer * 1e3:.1f} ms for {outer} voxels at the main path's "
+                              f"rate); rungs {stt['rungs']}")
+            log("sweeps", f"{tag}: auto -> sharded, rung batched, equal to per_block bit for bit; kernel launches "
+                          f"of one batched run {auto[tag]['launches']} (per block {pb['launches']})")
+        # the ragged tail: 64 = 5 x 12 + 4 blocks
+        ws_case = cases["ws"][1]
+        rag = bw_run(K, tmp_root, "ws-ragged", WatershedWorkflow, block, {"sharded_batch": 12},
+                     output_key="ws_ragged", **ws_case, **io)
+        st = sweep_stats(rag)
+        if st["ragged_batches"] < 1 or st["lanes_padded"] != 8 or st["rungs"] != ["batched"]:
+            raise AssertionError(f"sweeps ragged: {st}")
+        if not np.array_equal(f["ws_ragged"][...], f["ws_pb"][...]):
+            raise AssertionError("sweeps ragged: the file differs from the per-block file")
+        log("sweeps", f"ws sharded_batch=12: wall {rag['wall_s']:.3f} s, {st['n_dispatches']} calls, "
+                      f"{st['ragged_batches']} ragged batch(es), {st['lanes_padded']} padding lanes; equal to "
+                      "per_block bit for bit")
+        # the device page pool: the same ragged sweep twice
+        device_pool.reset()
+        gc = {"sharded_batch": 12, "device_pool": "on", "device_pool_bytes": 1 << 30}
+        pool_runs = []
+        for i in range(2):
+            r = bw_run(K, tmp_root, f"ws-pool{i}", WatershedWorkflow, block, gc, output_key=f"ws_pool{i}",
+                       **ws_case, **io)
+            if not np.array_equal(f[f"ws_pool{i}"][...], f["ws_pb"][...]):
+                raise AssertionError(f"sweeps device pool run {i}: the file differs from the per-block file")
+            pool_runs.append(sweep_stats(r))
+            log("sweeps", f"ws device_pool=on run {i + 1}: wall {r['wall_s']:.3f} s, h2d_bytes "
+                          f"{pool_runs[-1]['h2d_bytes']}, device_pool_hits {pool_runs[-1]['device_pool_hits']}, "
+                          f"misses {pool_runs[-1]['device_pool_misses']}; equal to per_block bit for bit")
+        if not pool_runs[1]["h2d_bytes"] < pool_runs[0]["h2d_bytes"]:
+            raise AssertionError(f"sweeps device pool: the warm run sent {pool_runs[1]['h2d_bytes']} bytes, "
+                                 f"the cold run {pool_runs[0]['h2d_bytes']}")
+        device_pool.reset()
+        torch.cuda.empty_cache()
+    for row in rows:
+        row["sweep_launches"] = {t: auto[t]["launches"].get(row["name"], 0) for t in cases}
+    log("sweeps", f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def oracle_graph(ds, shape, block):
@@ -1058,8 +1181,8 @@ def phase_inference(K, vol: torch.Tensor, rows: list, seed: int, block=(128, 128
 def main_phases(K, args, gen):
     """Phases 3-9 (kernels, main path, its twins and replays, worst
     cases, tiled seeds); returns the kernel rows, the main path's volume,
-    scipy's labels of its foreground and the main path's watershed labels
-    on the first ``CONFIG4_CROP``^3."""
+    scipy's labels of its foreground, the main path's watershed labels
+    on the first ``CONFIG4_CROP``^3 and its seconds a voxel."""
     from cluster_tools_tpu_torch.parallel.split_pipeline import make_ws_ccl_split
     from cluster_tools_tpu_torch.utils.synthetic import synthetic_boundaries
 
@@ -1213,7 +1336,9 @@ def main_phases(K, args, gen):
                        f"({int(torch.unique(out_c[0]).numel()) - 1} ws segments); "
                        f"launches {launches_t}; rungs {rungs_t}")
 
-    return rows, vol, ref, ws_crop
+    # the main path's seconds a voxel of its halo'd volume (z grows by 2 x 32)
+    main_s_per_voxel = total_s / ((MAIN_SHAPE[1] + 2 * cfg["halo"]) * MAIN_SHAPE[2] * MAIN_SHAPE[3])
+    return rows, vol, ref, ws_crop, main_s_per_voxel
 
 
 def main() -> int:
@@ -1240,8 +1365,9 @@ def main() -> int:
     ) + f"; wall {time.perf_counter() - t0:.1f}s")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    rows, vol, ref, ws_crop = main_phases(K, args, gen)
-    mem = phase_blockwise(K, vol, ref, rows)
+    rows, vol, ref, ws_crop, main_s_per_voxel = main_phases(K, args, gen)
+    mem, auto = phase_blockwise(K, vol, ref, rows)
+    phase_sweeps(K, mem, auto, main_s_per_voxel, rows)
     phase_multicut(K, vol, ws_crop, mem, rows)
     phase_inference(K, vol, rows, args.seed)
 

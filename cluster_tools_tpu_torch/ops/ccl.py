@@ -118,28 +118,34 @@ def label_components(mask, connectivity: int = 1, device=None) -> torch.Tensor:
     return label_components_batched(m.unsqueeze(0), connectivity)[0]
 
 
-def label_components_keyed_tensor(keys: torch.Tensor, connectivity: int = 1) -> torch.Tensor:
-    """:func:`label_components_keyed` on a tensor, on its own device."""
-    shape = keys.shape
+def label_components_keyed_tensor(keys: torch.Tensor, connectivity: int = 1, lead: int = 0) -> torch.Tensor:
+    """:func:`label_components_keyed` on a tensor, on its own device.
+    ``lead=1``: ``keys`` is a ``(B, *spatial)`` stack, each item labelled on
+    its own (flat indices into the item)."""
+    if lead not in (0, 1):
+        raise ValueError("lead must be 0 or 1")
+    stack = keys if lead else keys.unsqueeze(0)
+    b = stack.shape[0]
+    shape = stack.shape[1:]
     n = int(np.prod(shape))
     sentinel = n
     dev = keys.device
-    mask = keys != 0
+    mask = stack != 0
     idx = torch.arange(n, dtype=torch.int32, device=dev).reshape(shape)
     offsets = _neighbor_offsets(len(shape), connectivity)
 
-    def neighbor_min(lab3):
-        m = lab3
+    def neighbor_min(lab):
+        m = lab
         for off in offsets:
             for o in (off, tuple(-x for x in off)):
-                cand = _shift_nd(lab3, o, sentinel)
-                same = _shift_nd(keys, o, 0) == keys
+                cand = _shift_nd(lab, o, sentinel, axis0=1)
+                same = _shift_nd(stack, o, 0, axis0=1) == stack
                 m = torch.minimum(m, torch.where(same, cand, sentinel))
         return torch.where(mask, m, sentinel)
 
-    flat = torch.where(mask, idx, sentinel).reshape(1, n)
+    flat = torch.where(mask, idx, sentinel).reshape(b, n)
     while True:
-        nmin = neighbor_min(flat.reshape(shape)).reshape(1, n)
+        nmin = neighbor_min(flat.reshape(stack.shape)).reshape(b, n)
         improved = nmin < flat
         root = flat.clamp(0, n - 1).long()
         upd = torch.where(improved, nmin, sentinel)
@@ -147,7 +153,7 @@ def label_components_keyed_tensor(keys: torch.Tensor, connectivity: int = 1) -> 
         hooked = torch.where(flat == sentinel, sentinel, hooked)
         new = _compress(torch.minimum(hooked, torch.minimum(flat, nmin)), sentinel)
         if not bool((new != flat).any()):
-            return new.reshape(shape)
+            return new.reshape(keys.shape)
         flat = new
 
 

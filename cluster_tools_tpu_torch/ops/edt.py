@@ -61,21 +61,36 @@ def _radii(shape, sampling, max_distance) -> Tuple[int, ...]:
     return tuple(int(np.ceil(float(max_distance) / s)) for s in sampling)
 
 
+def _lane_view(f: torch.Tensor, axis: int):
+    """A 3-D view of a ``[B, z, y, x]`` stack in which the lines along
+    spatial ``axis`` stay inside their lane, and that axis in the view:
+    ``[B, z, y*x]`` for z, ``[B*z, y, x]`` for y and x."""
+    b, z, y, x = f.shape
+    if axis == 0:
+        return f.reshape(b, z, y * x), 1
+    return f.reshape(b * z, y, x), axis
+
+
 def dt_squared(mask: torch.Tensor, sampling: Tuple[float, ...], radii: Tuple[int, ...],
-               impl: str = "auto") -> torch.Tensor:
+               impl: str = "auto", lead: int = 0) -> torch.Tensor:
     """Squared EDT of ``mask`` with per-axis radii (the reference's
-    ``_dt_squared_impl``), on the mask's own device."""
+    ``_dt_squared_impl``), on the mask's own device.  ``lead=1``: ``mask``
+    is a ``[B, z, y, x]`` stack of 3-D lanes, each transformed on its own
+    (on the card, one B3 launch per axis over lane-safe views)."""
     impl = resolve_impl(impl, mask)
     big = torch.tensor(_BIG, device=mask.device)
     f = torch.where(mask, big, torch.tensor(np.float32(0.0), device=mask.device)).contiguous()
-    if impl == "cuda" and mask.dim() == 3:
+    vol = f.shape[lead:]
+    if impl == "cuda" and len(vol) == 3 and lead in (0, 1):
         for axis in range(3):
-            r = min(radii[axis], f.shape[axis] - 1)
+            r = min(radii[axis], vol[axis] - 1)
             if r > 0:
-                f = edt_cascade(f, axis, r, float(sampling[axis]) ** 2, float(_BIG), impl="cuda")
+                view, ax = (f, axis) if lead == 0 else _lane_view(f, axis)
+                f = edt_cascade(view, ax, r, float(sampling[axis]) ** 2, float(_BIG),
+                                impl="cuda").reshape(f.shape)
         return torch.minimum(f, big)
-    for axis in range(mask.dim()):
-        f = _edt_1d_axis(f, axis, float(sampling[axis]) ** 2, radii[axis])
+    for axis in range(len(vol)):
+        f = _edt_1d_axis(f, lead + axis, float(sampling[axis]) ** 2, radii[axis])
     return torch.minimum(f, big)
 
 
@@ -93,10 +108,12 @@ def edt_axis_pass(f, axis: int, w: float, radius: int, impl: str = "auto", devic
 
 def distance_transform_squared_tensor(mask: torch.Tensor, sampling=None,
                                       max_distance: Optional[float] = None,
-                                      impl: str = "auto") -> torch.Tensor:
-    """:func:`distance_transform_squared` on a tensor, on its own device."""
-    sampling = _norm_sampling(mask.dim(), sampling)
-    return dt_squared(mask.to(torch.bool), sampling, _radii(mask.shape, sampling, max_distance), impl)
+                                      impl: str = "auto", lead: int = 0) -> torch.Tensor:
+    """:func:`distance_transform_squared` on a tensor, on its own device
+    (``lead`` leading axes are lanes, see :func:`dt_squared`)."""
+    vol = mask.shape[lead:]
+    sampling = _norm_sampling(len(vol), sampling)
+    return dt_squared(mask.to(torch.bool), sampling, _radii(vol, sampling, max_distance), impl, lead)
 
 
 def distance_transform_squared(mask, sampling: Optional[Sequence[float]] = None,

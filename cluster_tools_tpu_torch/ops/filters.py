@@ -35,16 +35,17 @@ def _gaussian_kernel(sigma: float, truncate: float = 3.0) -> np.ndarray:
 
 
 def gaussian_smooth_tensor(x: torch.Tensor, sigma: float,
-                           sampling: Optional[Tuple[float, ...]] = None) -> torch.Tensor:
-    """:func:`gaussian_smooth` on a tensor, on its own device."""
+                           sampling: Optional[Tuple[float, ...]] = None, lead: int = 0) -> torch.Tensor:
+    """:func:`gaussian_smooth` on a tensor, on its own device; ``lead``
+    leading axes are lanes, each smoothed on its own."""
     xf = x.to(torch.float32)
     if sigma <= 0:
         return xf
     if sampling is None:
-        sampling = (1.0,) * x.dim()
+        sampling = (1.0,) * (x.dim() - lead)
 
     def blur(v):
-        for axis in range(v.dim()):
+        for axis in range(v.dim() - lead):
             s_ax = float(sigma) / float(sampling[axis])
             if s_ax <= 1e-3:
                 continue
@@ -52,7 +53,7 @@ def gaussian_smooth_tensor(x: torch.Tensor, sigma: float,
             radius = len(k) // 2
             acc = torch.zeros_like(v)
             for j, w in enumerate(k):
-                acc = acc + float(w) * _shift(v, j - radius, axis, 0.0)
+                acc = acc + float(w) * _shift(v, j - radius, lead + axis, 0.0)
             v = acc
         return v
 

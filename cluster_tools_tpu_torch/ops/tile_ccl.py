@@ -81,33 +81,6 @@ def _scatter_set(base: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> t
     return buf[:n]
 
 
-def _scatter_min(base: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """``base.at[idx].min(vals, mode="drop")``."""
-    n = base.shape[0]
-    idx = idx.reshape(-1).long()
-    idx = torch.where((idx < 0) | (idx >= n), n, idx)
-    buf = torch.cat([base, base.new_zeros(1)])
-    buf = buf.scatter_reduce(0, idx, vals.reshape(-1).to(base.dtype), "amin", include_self=True)
-    return buf[:n]
-
-
-def _lexsort(*keys: torch.Tensor) -> torch.Tensor:
-    """Stable lexicographic sort order over int32 keys (first key most
-    significant) — ``lax.sort(..., num_keys=len(keys))``.  Two keys pack
-    into one int64; a third is sorted first (stable passes compose)."""
-    if len(keys) == 1:
-        return torch.sort(keys[0], stable=True).indices
-    perm = None
-    if len(keys) == 3:
-        perm = torch.sort(keys[2], stable=True).indices
-        keys = tuple(k[perm] for k in keys[:2])
-    elif len(keys) != 2:
-        raise ValueError("at most three sort keys")
-    packed = (keys[0].long() << 32) + (keys[1].long() + (1 << 31))
-    order = torch.sort(packed, stable=True).indices
-    return order if perm is None else perm[order]
-
-
 def _compact(flags: torch.Tensor, values, cap: int, fill: int):
     """Pack ``values[i][flags]`` into ``cap``-sized arrays (cumsum+scatter).
 
@@ -127,6 +100,103 @@ def _compact(flags: torch.Tensor, values, cap: int, fill: int):
     return tuple(out), n_kept.to(torch.int32)
 
 
+# ---------------------------------------------------------------- rows ----
+# The lane-batched forms below work on ``[B, ...]`` tensors: one row per
+# lane, every sort, scan, compaction and scatter along the row, so each
+# row computes exactly what the single-lane function computes for that
+# lane alone (labels lane-local; capacities, overflow flags and round
+# counts per row).  The single-lane functions are the rows with B = 1.
+
+
+def _zeros_i32(b: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((b,), dtype=torch.int32, device=like.device)
+
+
+def _iota_rows(b: int, n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int32, device=like.device).expand(b, n)
+
+
+def _cumsum_rows(x: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(x.to(torch.int32), 1, dtype=torch.int32)
+
+
+def _take_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``src[r][idx[r]]`` per row: ``src`` ``[B, n]``, ``idx`` ``[B, ...]``."""
+    b = src.shape[0]
+    return torch.gather(src, 1, idx.reshape(b, -1).long()).reshape(idx.shape)
+
+
+def _scatter_set_rows(base: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """:func:`_scatter_set` per row (out-of-range indices drop)."""
+    b, n = base.shape
+    idx = idx.reshape(b, -1).long()
+    idx = torch.where((idx < 0) | (idx >= n), n, idx)
+    buf = torch.cat([base, base.new_zeros((b, 1))], 1)
+    buf.scatter_(1, idx, vals.reshape(b, -1).to(base.dtype))
+    return buf[:, :n]
+
+
+def _scatter_min_rows(base: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``base.at[idx].min(vals, mode="drop")`` per row."""
+    b, n = base.shape
+    idx = idx.reshape(b, -1).long()
+    idx = torch.where((idx < 0) | (idx >= n), n, idx)
+    buf = torch.cat([base, base.new_zeros((b, 1))], 1)
+    buf = buf.scatter_reduce(1, idx, vals.reshape(b, -1).to(base.dtype), "amin", include_self=True)
+    return buf[:, :n]
+
+
+def _lexsort_rows(*keys: torch.Tensor) -> torch.Tensor:
+    """Stable lexicographic sort order per row of ``[B, M]`` int32 keys
+    (first key most significant) — ``lax.sort(..., num_keys=len(keys))``.
+    Two keys pack into one int64; a third is sorted first (stable passes
+    compose)."""
+    if len(keys) == 1:
+        return torch.sort(keys[0], dim=1, stable=True).indices
+    perm = None
+    if len(keys) == 3:
+        perm = torch.sort(keys[2], dim=1, stable=True).indices
+        keys = tuple(torch.gather(k, 1, perm) for k in keys[:2])
+    elif len(keys) != 2:
+        raise ValueError("at most three sort keys")
+    packed = (keys[0].long() << 32) + (keys[1].long() + (1 << 31))
+    order = torch.sort(packed, dim=1, stable=True).indices
+    return order if perm is None else torch.gather(perm, 1, order)
+
+
+def _gather_rows(order: torch.Tensor, *xs: torch.Tensor):
+    return tuple(torch.gather(x, 1, order) for x in xs)
+
+
+def _compact_rows(flags: torch.Tensor, values, cap: int, fill: int):
+    """:func:`_compact` per row: ``flags`` ``[B, ...]`` and each value of
+    the same shape; returns ``([B, cap] per value, n_kept [B] int32)``."""
+    b = flags.shape[0]
+    flat = flags.reshape(b, -1)
+    pos = _cumsum_rows(flat) - 1
+    dest = torch.where(flat, pos, cap)
+    dest = torch.where(dest >= cap, cap, dest).long()
+    out = []
+    for v in values:
+        buf = torch.full((b, cap + 1), fill, dtype=v.dtype, device=v.device)
+        buf.scatter_(1, dest, v.reshape(b, -1))
+        out.append(buf[:, :cap])
+    n_kept = (pos[:, -1] + 1) if flat.shape[1] > 0 else _zeros_i32(b, flags)
+    return tuple(out), n_kept.to(torch.int32)
+
+
+def _lane_offsets(b: int, n: int, device) -> torch.Tensor:
+    """``[B, 1, 1, 1]`` offsets ``lane * n`` of a lane stack's flat index."""
+    return (torch.arange(b, dtype=torch.int32, device=device) * n).reshape(b, 1, 1, 1)
+
+
+def lane_chunks(b: int, n_lane: int):
+    """Lane ranges whose stacked flat indices stay below ``BIG`` (the
+    kernels' sentinel): ``[(lo, hi), ...]`` covering ``range(b)``."""
+    per = max(1, (BIG - 1) // max(1, n_lane))
+    return [(lo, min(b, lo + per)) for lo in range(0, b, per)]
+
+
 def resolve_tier_mode(mode: Optional[str] = None) -> str:
     """Capacity-tier mode: ``cond`` (both tiers, picked per input),
     ``big`` (full capacity only) or ``small`` (1/16 tier only, truncation
@@ -140,18 +210,23 @@ def resolve_tier_mode(mode: Optional[str] = None) -> str:
 
 def run_capacity_tiered(arrays, n_total, big_cap, core, n_padded, max_rounds,
                         tier, trunc_fold=None):
-    """Run ``core(*arrays, cap, max_rounds)`` at 1/16 capacity when the
-    live entry count allows (see the reference's docstring); the first
-    ``n_padded`` outputs are padded back to big-tier sizes with ``BIG``."""
-    small_n = min(big_cap, max(3 * 16384, arrays[0].shape[0] // 16))
+    """Run ``core(*arrays, cap, max_rounds)`` on ``[B, M]`` rows at 1/16
+    capacity when the live entry count allows (see the reference's
+    docstring); the first ``n_padded`` outputs are padded back to big-tier
+    sizes with ``BIG``.  ``n_total`` is per row; under ``cond`` the tier is
+    one decision for all rows (the small tier when every row fits).  The
+    tiers give equal outputs wherever neither truncates, as the reference's
+    ``vmap`` of ``lax.cond`` (a select) requires."""
+    b = arrays[0].shape[0]
+    small_n = min(big_cap, max(3 * 16384, arrays[0].shape[1] // 16))
 
     def _small(args):
-        compacted, _ = _compact(args[0] < BIG, args, small_n, BIG)
+        compacted, _ = _compact_rows(args[0] < BIG, args, small_n, BIG)
         out = core(*compacted, small_n, max_rounds)
         padded = []
         for x in out[:n_padded]:
-            extra = (x.shape[0] // small_n) * big_cap - x.shape[0]
-            padded.append(torch.cat([x, torch.full((extra,), BIG, dtype=x.dtype, device=x.device)]))
+            extra = (x.shape[1] // small_n) * big_cap - x.shape[1]
+            padded.append(torch.cat([x, torch.full((b, extra), BIG, dtype=x.dtype, device=x.device)], 1))
         return tuple(padded) + tuple(out[n_padded:])
 
     def _big(args):
@@ -164,7 +239,7 @@ def run_capacity_tiered(arrays, n_total, big_cap, core, n_padded, max_rounds,
         trunc = (n_total > small_n).to(torch.int32)
         last = trunc_fold(out[-1], trunc) if trunc_fold is not None else torch.maximum(out[-1], trunc)
         return tuple(out[:-1]) + (last,)
-    if int(n_total) <= small_n:
+    if int(n_total.max()) <= small_n:
         return _small(tuple(arrays))
     return _big(tuple(arrays))
 
@@ -176,19 +251,43 @@ def _stride_slice(x: torch.Tensor, start: int, stop: int, step: int, axis: int) 
 
 
 def _face_pairs_axis(labels: torch.Tensor, tile, axis: int, pair_cap: int):
-    """Label pairs across tile boundaries along ``axis``, run-deduped."""
+    """Label pairs across tile boundaries along spatial ``axis`` of a
+    ``[B, z, y, x]`` stack, run-deduped; ``([B, pair_cap] x2, kept [B])``."""
+    b = labels.shape[0]
     t = tile[axis]
-    n = labels.shape[axis]
+    n = labels.shape[axis + 1]
     if n // t <= 1:
-        empty = torch.full((pair_cap,), BIG, dtype=torch.int32, device=labels.device)
-        return (empty, empty), _i32(0, labels)
-    a = _stride_slice(labels, t - 1, n - 1, t, axis)
-    b = _stride_slice(labels, t, n, t, axis)
-    valid = (a < BIG) & (b < BIG)
+        empty = torch.full((b, pair_cap), BIG, dtype=torch.int32, device=labels.device)
+        return (empty, empty), _zeros_i32(b, labels)
+    a = _stride_slice(labels, t - 1, n - 1, t, axis + 1)
+    bb = _stride_slice(labels, t, n, t, axis + 1)
+    valid = (a < BIG) & (bb < BIG)
     # run-dedup along the largest non-sliced axis
-    dedup_axis = 2 if axis != 2 else 1
-    keep = valid & ((a != _shift1(a, dedup_axis, -1)) | (b != _shift1(b, dedup_axis, -1)))
-    return _compact(keep, (a, b), pair_cap, BIG)
+    dedup_axis = (2 if axis != 2 else 1) + 1
+    keep = valid & ((a != _shift1(a, dedup_axis, -1)) | (bb != _shift1(bb, dedup_axis, -1)))
+    return _compact_rows(keep, (a, bb), pair_cap, BIG)
+
+
+def merge_face_pairs_lanes(labels, tile, pair_cap=DEFAULT_PAIR_CAP, edge_cap=DEFAULT_EDGE_CAP,
+                           max_rounds: int = 64, tier: str = "cond"):
+    """:func:`merge_face_pairs` over a ``[B, z, y, x]`` stack of lane-local
+    labels; every output has a leading lane axis (overflow ``[B]`` bool)."""
+    b = labels.shape[0]
+    pair_lists = []
+    overflow = _zeros_i32(b, labels)
+    n_total = _zeros_i32(b, labels)
+    for axis in range(3):
+        (pa, pb), kept = _face_pairs_axis(labels, tile, axis, pair_cap)
+        pair_lists.append((pa, pb))
+        overflow = torch.maximum(overflow, (kept > pair_cap).to(torch.int32))
+        n_total = n_total + torch.clamp(kept, max=pair_cap)
+    a = torch.cat([p[0] for p in pair_lists], 1)
+    bb = torch.cat([p[1] for p in pair_lists], 1)
+    ea, eb, root_a, root_b, n_edges, core_ovf = run_capacity_tiered(
+        (a, bb), n_total, edge_cap, _merge_core, 4, max_rounds, tier
+    )
+    overflow = torch.maximum(overflow, core_ovf)
+    return ea, eb, root_a, root_b, n_edges, overflow > 0
 
 
 def merge_face_pairs(labels, tile, pair_cap=DEFAULT_PAIR_CAP, edge_cap=DEFAULT_EDGE_CAP,
@@ -198,64 +297,54 @@ def merge_face_pairs(labels, tile, pair_cap=DEFAULT_PAIR_CAP, edge_cap=DEFAULT_E
     Returns ``(ea, eb, root_a, root_b, n_edges, overflow)`` as the
     reference does (``BIG``-padded endpoints and their merged roots).
     """
-    pair_lists = []
-    overflow = _i32(0, labels)
-    n_total = _i32(0, labels)
-    for axis in range(3):
-        (pa, pb), kept = _face_pairs_axis(labels, tile, axis, pair_cap)
-        pair_lists.append((pa, pb))
-        overflow = torch.maximum(overflow, (kept > pair_cap).to(torch.int32))
-        n_total = n_total + torch.clamp(kept, max=pair_cap)
-    a = torch.cat([p[0] for p in pair_lists])
-    b = torch.cat([p[1] for p in pair_lists])
-    ea, eb, root_a, root_b, n_edges, core_ovf = run_capacity_tiered(
-        (a, b), n_total, edge_cap, _merge_core, 4, max_rounds, tier
-    )
-    overflow = torch.maximum(overflow, core_ovf)
-    return ea, eb, root_a, root_b, n_edges, overflow > 0
+    out = merge_face_pairs_lanes(labels.unsqueeze(0), tile, pair_cap, edge_cap, max_rounds, tier)
+    return tuple(o[0] for o in out[:5]) + (bool(out[5][0]),)
 
 
 def _merge_core(a, b, edge_cap, max_rounds):
-    """Dedup + dense-id union-find over one capacity tier; outputs sized
-    ``edge_cap`` (``BIG``-padded), overflow as int32."""
-    overflow = _i32(0, a)
-    order = _lexsort(a, b)
-    a, b = a[order], b[order]
-    dup = (a == _shift1(a, 0, -1)) & (b == _shift1(b, 0, -1))
+    """Dedup + dense-id union-find over one capacity tier, per row; outputs
+    ``[B, edge_cap]`` (``BIG``-padded), overflow ``[B]`` int32."""
+    rows = a.shape[0]
+    order = _lexsort_rows(a, b)
+    a, b = _gather_rows(order, a, b)
+    dup = (a == _shift1(a, 1, -1)) & (b == _shift1(b, 1, -1))
     keep = (~dup) & (a < BIG)
-    (ea, eb), n_edges = _compact(keep, (a, b), edge_cap, BIG)
-    overflow = torch.maximum(overflow, (n_edges > edge_cap).to(torch.int32))
+    (ea, eb), n_edges = _compact_rows(keep, (a, b), edge_cap, BIG)
+    overflow = (n_edges > edge_cap).to(torch.int32)
 
     # dense ids over the endpoint labels: the union-find table is edge-sized
     m2 = 2 * edge_cap
-    vals = torch.cat([ea, eb])
-    svals, sslots = torch.sort(vals, stable=True)
-    is_new = svals != _shift1(svals, 0, -1)
-    rank = _cumsum_i32(is_new) - 1
-    uniq = _scatter_set(torch.full((m2,), BIG, dtype=torch.int32, device=a.device), rank, svals)
-    dense = torch.zeros((m2,), dtype=torch.int32, device=a.device)
-    dense[sslots] = rank
-    da, db = dense[:edge_cap].long(), dense[edge_cap:].long()
+    vals = torch.cat([ea, eb], 1)
+    svals, sslots = torch.sort(vals, dim=1, stable=True)
+    is_new = svals != _shift1(svals, 1, -1)
+    rank = _cumsum_rows(is_new) - 1
+    uniq = _scatter_set_rows(torch.full((rows, m2), BIG, dtype=torch.int32, device=a.device), rank, svals)
+    dense = torch.zeros((rows, m2), dtype=torch.int32, device=a.device)
+    dense.scatter_(1, sslots, rank)
+    da, db = dense[:, :edge_cap].long(), dense[:, edge_cap:].long()
 
-    parent = torch.arange(m2, dtype=torch.int32, device=a.device)
-    changed, it = True, 0
-    while changed and it < max_rounds:
-        ra = parent[da]
-        rb = parent[db]
+    parent = _iota_rows(rows, m2, a).clone()
+    changed = torch.ones((rows,), dtype=torch.bool, device=a.device)
+    it = 0
+    while it < max_rounds and bool(changed.any()):
+        ra = torch.gather(parent, 1, da)
+        rb = torch.gather(parent, 1, db)
         lo = torch.minimum(ra, rb)
         hi = torch.maximum(ra, rb)
-        parent = parent.scatter_reduce(0, hi.long(), lo, "amin", include_self=True)
-        parent = parent.scatter_reduce(0, da, lo, "amin", include_self=True)
-        parent = parent.scatter_reduce(0, db, lo, "amin", include_self=True)
+        parent = parent.scatter_reduce(1, hi.long(), lo, "amin", include_self=True)
+        parent = parent.scatter_reduce(1, da, lo, "amin", include_self=True)
+        parent = parent.scatter_reduce(1, db, lo, "amin", include_self=True)
         # full path compression: the table is small, so doubling is cheap
-        parent = parent[parent.long()]
-        parent = parent[parent.long()]
-        changed = bool((ra != rb).any())
+        parent = torch.gather(parent, 1, parent.long())
+        parent = torch.gather(parent, 1, parent.long())
+        # a converged row's endpoints all point at their roots: later
+        # rounds leave its answer as it is
+        changed = (ra != rb).any(1)
         it += 1
     # a max_rounds exit leaves edges with differing roots: report, never hide
-    overflow = torch.maximum(overflow, _i32(int(changed), a))
-    root_a = _take(uniq, parent[da])
-    root_b = _take(uniq, parent[db])
+    overflow = torch.maximum(overflow, changed.to(torch.int32))
+    root_a = _take_rows(uniq, torch.gather(parent, 1, da))
+    root_b = _take_rows(uniq, torch.gather(parent, 1, db))
     root_a = torch.where(ea < BIG, root_a, BIG)
     root_b = torch.where(eb < BIG, root_b, BIG)
     return ea, eb, root_a, root_b, n_edges, overflow
@@ -271,58 +360,66 @@ def _tile_id_of(v: torch.Tensor, shape, tile) -> torch.Tensor:
     return ((vz // tz) * gy + (vy // ty)) * gx + (vx // tx)
 
 
-def build_remap_tables(tile_ids, old_vals, new_vals, n_tiles: int,
-                       table_cap: int = DEFAULT_TABLE_CAP, tier: str = "cond"):
-    """Per-tile (old_label -> new_label) tables for kernel B4.
-
-    ``tile_ids`` gives each entry's tile (``BIG`` drops it); duplicates of
-    (tile, old) collapse to one slot.  Returns ``(old_tbl, new_tbl,
-    overflow)`` with ``(n_tiles, table_cap)`` tables, unused slots -1.
-    """
-    n_in = tile_ids.shape[0]
+def build_remap_tables_lanes(tile_ids, old_vals, new_vals, n_tiles: int,
+                             table_cap: int = DEFAULT_TABLE_CAP, tier: str = "cond"):
+    """Per-tile (old_label -> new_label) tables for kernel B4, per row of
+    ``[B, M]`` entries.  ``tile_ids`` gives each entry's tile (``BIG``
+    drops it); duplicates of (tile, old) collapse to one slot.  Returns
+    ``(old_tbl, new_tbl, overflow)``: ``[B, n_tiles, table_cap]`` tables,
+    unused slots -1, overflow ``[B]`` bool."""
+    n_in = tile_ids.shape[1]
     small_n = max(16384, n_in // 16)
     if small_n < n_in and tier != "big":
-        n_live = int((tile_ids < BIG).sum())
+        n_live = (tile_ids < BIG).sum(1)
 
         def _small(args):
-            compacted, _ = _compact(args[0] < BIG, args, small_n, BIG)
+            compacted, _ = _compact_rows(args[0] < BIG, args, small_n, BIG)
             return _remap_tables_core(*compacted, n_tiles, table_cap)
 
         if tier == "small":
             old_tbl, new_tbl, overflow = _small((tile_ids, old_vals, new_vals))
             return old_tbl, new_tbl, overflow | (n_live > small_n)
-        if n_live <= small_n:
+        if int(n_live.max()) <= small_n:
             return _small((tile_ids, old_vals, new_vals))
     return _remap_tables_core(tile_ids, old_vals, new_vals, n_tiles, table_cap)
 
 
 def _remap_tables_core(tile_ids, old_vals, new_vals, n_tiles, table_cap):
-    order = _lexsort(tile_ids, old_vals)
-    tid, v, r = tile_ids[order], old_vals[order], new_vals[order]
-    dup = (tid == _shift1(tid, 0, -1)) & (v == _shift1(v, 0, -1))
+    rows = tile_ids.shape[0]
+    order = _lexsort_rows(tile_ids, old_vals)
+    tid, v, r = _gather_rows(order, tile_ids, old_vals, new_vals)
+    dup = (tid == _shift1(tid, 1, -1)) & (v == _shift1(v, 1, -1))
     valid = (tid < BIG) & (~dup)
     # within-tile slot rank counting only valid entries
-    cnt = _cumsum_i32(valid)
-    is_first = (tid != _shift1(tid, 0, -1)) & (tid < BIG)
-    base = torch.cummax(torch.where(is_first, cnt - valid.to(torch.int32), -1), 0).values
+    cnt = _cumsum_rows(valid)
+    is_first = (tid != _shift1(tid, 1, -1)) & (tid < BIG)
+    base = torch.cummax(torch.where(is_first, cnt - valid.to(torch.int32), -1), 1).values
     slot = torch.where(valid, cnt - 1 - base, table_cap)
-    overflow = bool((valid & (slot >= table_cap)).any())
+    overflow = (valid & (slot >= table_cap)).any(1)
     dest = torch.where(valid & (slot < table_cap), tid * table_cap + slot, n_tiles * table_cap)
     size = n_tiles * table_cap
-    old_tbl = _scatter_set(torch.full((size,), -1, dtype=torch.int32, device=v.device), dest, v)
-    new_tbl = _scatter_set(torch.full((size,), -1, dtype=torch.int32, device=v.device), dest, r)
-    return old_tbl.reshape(n_tiles, table_cap), new_tbl.reshape(n_tiles, table_cap), overflow
+    old_tbl = _scatter_set_rows(torch.full((rows, size), -1, dtype=torch.int32, device=v.device), dest, v)
+    new_tbl = _scatter_set_rows(torch.full((rows, size), -1, dtype=torch.int32, device=v.device), dest, r)
+    return old_tbl.reshape(rows, n_tiles, table_cap), new_tbl.reshape(rows, n_tiles, table_cap), overflow
+
+
+def resolve_labels_gather_lanes(labels, ea, eb, root_a, root_b) -> torch.Tensor:
+    """:func:`resolve_labels_gather` per lane of a ``[B, ...]`` stack."""
+    rows = labels.shape[0]
+    n = labels[0].numel()
+    P = _iota_rows(rows, n + 1, labels)
+    P = _scatter_set_rows(P, torch.clamp(ea, max=n), torch.clamp(root_a, max=n))
+    P = _scatter_set_rows(P, torch.clamp(eb, max=n), torch.clamp(root_b, max=n))
+    flat = labels.reshape(rows, -1)
+    out = _take_rows(P, torch.clamp(flat, max=n))
+    return torch.where(flat >= BIG, BIG, out).reshape(labels.shape)
 
 
 def resolve_labels_gather(labels, ea, eb, root_a, root_b) -> torch.Tensor:
     """Gather rung: scatter roots into a parent table, one full gather."""
-    n = labels.numel()
-    P = torch.arange(n + 1, dtype=torch.int32, device=labels.device)
-    P = _scatter_set(P, torch.clamp(ea, max=n), torch.clamp(root_a, max=n))
-    P = _scatter_set(P, torch.clamp(eb, max=n), torch.clamp(root_b, max=n))
-    flat = labels.reshape(-1)
-    out = _take(P, torch.clamp(flat, max=n))
-    return torch.where(flat >= BIG, BIG, out).reshape(labels.shape)
+    return resolve_labels_gather_lanes(
+        labels.unsqueeze(0), ea.unsqueeze(0), eb.unsqueeze(0), root_a.unsqueeze(0), root_b.unsqueeze(0)
+    )[0]
 
 
 def label_components_sparse_tensor(mask: torch.Tensor, cap: Optional[int] = None):
@@ -377,56 +474,73 @@ def label_components_sparse(mask, cap: Optional[int] = None, device=None):
     return label_components_sparse_tensor(as_tensor(mask, dev, torch.bool), cap)
 
 
-def label_components_tiled_tensor(mask: torch.Tensor, connectivity: int = 1, impl: str = "auto",
-                                  tile=None, pair_cap=None, edge_cap=None,
-                                  table_cap: int = DEFAULT_TABLE_CAP, tier: str = "cond",
-                                  site: str = "ccl"):
-    """:func:`label_components_tiled` on a tensor, on its own device;
-    ``site`` names the remap site in ``kernels.RUNGS``."""
-    if mask.dim() != 3:
-        raise ValueError("label_components_tiled expects a 3-D mask")
+def label_components_tiled_lanes(mask: torch.Tensor, connectivity: int = 1, impl: str = "auto",
+                                 tile=None, pair_cap=None, edge_cap=None,
+                                 table_cap: int = DEFAULT_TABLE_CAP, tier: str = "cond",
+                                 site: str = "ccl"):
+    """:func:`label_components_tiled_tensor` over a ``[B, z, y, x]`` stack
+    of lanes: each lane's labels and overflow flag exactly as that lane
+    alone would give them.  Kernels B1 and B4 run once over the stack
+    (lanes laid end to end along z, each padded to whole tiles, so no tile
+    straddles two lanes); everything between them runs per row.  Returns
+    ``(labels [B, z, y, x] int32, overflow [B] bool tensor)``."""
+    if mask.dim() != 4:
+        raise ValueError("label_components_tiled_lanes expects a [B, z, y, x] stack")
     if connectivity != 1:
         raise ValueError("tiled CCL supports connectivity=1 only")
     impl = resolve_impl(impl, mask)
-    z, y, x = mask.shape
-    tile = _tile_for(mask.shape) if tile is None else tuple(tile)
+    lanes, z, y, x = mask.shape
+    tile = _tile_for((z, y, x)) if tile is None else tuple(tile)
     tz, ty, tx = tile
     zp, yp, xp = _round_up(z, tz), _round_up(y, ty), _round_up(x, tx)
-    if zp * yp * xp >= BIG:
+    n_pad = zp * yp * xp
+    if n_pad >= BIG:
         raise ValueError(
             f"padded volume {(zp, yp, xp)} has >= 2**30 voxels; flat-index labels "
             "would collide with the background sentinel"
         )
+    chunks = lane_chunks(lanes, n_pad)
+    if len(chunks) > 1:
+        parts = [label_components_tiled_lanes(mask[lo:hi], connectivity, impl, tile, pair_cap, edge_cap,
+                                              table_cap, tier, site) for lo, hi in chunks]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
     padded = (zp, yp, xp) != (z, y, x)
     if pair_cap is None:
-        pair_cap = _auto_cap(zp * yp * xp, DEFAULT_PAIR_CAP, 32)
+        pair_cap = _auto_cap(n_pad, DEFAULT_PAIR_CAP, 32)
     if edge_cap is None:
-        edge_cap = _auto_cap(zp * yp * xp, DEFAULT_EDGE_CAP, 128)
+        edge_cap = _auto_cap(n_pad, DEFAULT_EDGE_CAP, 128)
     m = mask.to(torch.bool)
     if padded:
         m = torch.nn.functional.pad(m, (0, xp - x, 0, yp - y, 0, zp - z))
     m = m.contiguous()
 
-    labels = tile_ccl(m, tile=tile, impl=impl)
-    ea, eb, root_a, root_b, n_edges, overflow = merge_face_pairs(
+    stacked = tile_ccl(m.reshape(lanes * zp, yp, xp), tile=tile, impl=impl).reshape(lanes, zp, yp, xp)
+    # the kernel's labels are flat indices into the stack: back to the lane's
+    labels = torch.where(stacked < BIG, stacked - _lane_offsets(lanes, n_pad, m.device), BIG)
+    ea, eb, root_a, root_b, n_edges, overflow = merge_face_pairs_lanes(
         labels, tile, pair_cap=pair_cap, edge_cap=edge_cap, tier=tier
     )
     n_tiles = (zp // tz) * (yp // ty) * (xp // tx)
-    v = torch.cat([ea, eb])
-    r = torch.cat([root_a, root_b])
+    v = torch.cat([ea, eb], 1)
+    r = torch.cat([root_a, root_b], 1)
     changed = (v < BIG) & (r != v)
     tids = torch.where(changed, _tile_id_of(v, (zp, yp, xp), tile), BIG)
-    old_tbl, new_tbl, tbl_overflow = build_remap_tables(tids, v, r, n_tiles, table_cap=table_cap, tier=tier)
-    if tbl_overflow:
+    old_tbl, new_tbl, tbl_overflow = build_remap_tables_lanes(tids, v, r, n_tiles, table_cap=table_cap, tier=tier)
+    if bool(tbl_overflow.any()):
+        # a lane whose table overflows takes the gather rung; both rungs
+        # give the same labels, so the whole stack takes it
         RUNGS[f"{site}:gather"] += 1
-        resolved = resolve_labels_gather(labels, ea, eb, root_a, root_b)
+        resolved = resolve_labels_gather_lanes(labels, ea, eb, root_a, root_b)
     else:
         RUNGS[f"{site}:table"] += 1
-        resolved = apply_remap(labels, old_tbl, new_tbl, tile=tile, cap=table_cap, impl=impl)
+        resolved = apply_remap(
+            labels.reshape(lanes * zp, yp, xp).contiguous(), old_tbl.reshape(lanes * n_tiles, table_cap),
+            new_tbl.reshape(lanes * n_tiles, table_cap), tile=tile, cap=table_cap, impl=impl,
+        ).reshape(lanes, zp, yp, xp)
 
     n_orig = z * y * x
     if padded:
-        resolved = resolved[:z, :y, :x]
+        resolved = resolved[:, :z, :y, :x]
         # padded-flat representative -> original-flat representative
         vz = resolved // (yp * xp)
         vy = (resolved // xp) % yp
@@ -435,7 +549,22 @@ def label_components_tiled_tensor(mask: torch.Tensor, connectivity: int = 1, imp
         out = torch.where(resolved >= BIG, n_orig, orig)
     else:
         out = torch.where(resolved >= BIG, n_orig, resolved)
-    return out.to(torch.int32).contiguous(), bool(overflow)
+    return out.to(torch.int32).contiguous(), overflow
+
+
+def label_components_tiled_tensor(mask: torch.Tensor, connectivity: int = 1, impl: str = "auto",
+                                  tile=None, pair_cap=None, edge_cap=None,
+                                  table_cap: int = DEFAULT_TABLE_CAP, tier: str = "cond",
+                                  site: str = "ccl"):
+    """:func:`label_components_tiled` on a tensor, on its own device;
+    ``site`` names the remap site in ``kernels.RUNGS``."""
+    if mask.dim() != 3:
+        raise ValueError("label_components_tiled expects a 3-D mask")
+    out, overflow = label_components_tiled_lanes(
+        mask.unsqueeze(0), connectivity=connectivity, impl=impl, tile=tile, pair_cap=pair_cap,
+        edge_cap=edge_cap, table_cap=table_cap, tier=tier, site=site,
+    )
+    return out[0], bool(overflow[0])
 
 
 def label_components_tiled(mask, connectivity: int = 1, impl: str = "auto", tile=None,

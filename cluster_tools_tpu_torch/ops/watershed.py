@@ -30,13 +30,14 @@ _BIG = float(np.float32(3e38))
 _NEG_BIG = -3e38
 
 
-def local_maxima_tensor(x: torch.Tensor, connectivity: int = 1) -> torch.Tensor:
-    """:func:`local_maxima` on a tensor, on its own device."""
+def local_maxima_tensor(x: torch.Tensor, connectivity: int = 1, lead: int = 0) -> torch.Tensor:
+    """:func:`local_maxima` on a tensor, on its own device; ``lead``
+    leading axes are lanes (no neighbour across them)."""
     xf = x.to(torch.float32)
     m = torch.ones(x.shape, dtype=torch.bool, device=x.device)
-    for off in _neighbor_offsets(x.dim(), connectivity):
+    for off in _neighbor_offsets(x.dim() - lead, connectivity):
         for o in (off, tuple(-v for v in off)):
-            m &= xf >= _shift_nd(xf, o, _NEG_BIG)
+            m &= xf >= _shift_nd(xf, o, _NEG_BIG, axis0=lead)
     return m
 
 

@@ -2,32 +2,41 @@
 prefetching IO, retries and a failure manifest.
 
 Port of ``cluster_tools_tpu/runtime/executor.py::BlockwiseExecutor.map_blocks``
-on its per-block path (the reference holds its sharded and ragged sweeps
-bit-identical to it).  Per block:
+on one device.  Two sweep shapes, bit-identical to each other:
 
-1. ``load_fn(block)`` on an IO thread pool, ``prefetch`` batches ahead;
-2. the inputs to the task's device as torch tensors and ``kernel(*inputs)``
-   there, one block a call (``device_batch > 1`` loads that many blocks
-   together and loops over them);
-3. the outputs back to numpy, then ``check_finite`` and ``validate_fn``;
-4. ``store_fn(block, outputs)`` on the IO pool, then ``on_block_done``.
+- **per block** (``sweep_mode="per_block"``): ``load_fn(block)`` on an IO
+  thread pool, ``prefetch`` batches ahead; the inputs to the task's device
+  and ``kernel(*inputs)`` there, one block a call; the outputs back to
+  numpy, ``check_finite`` and ``validate_fn``; ``store_fn(block,
+  outputs)`` on the IO pool, then ``on_block_done``.
+- **sharded** (``"sharded"``, and ``"auto"`` once the sweep fills one
+  batch of ``sharded_batch`` blocks, as in the reference): the blocks of a
+  Morton batch go to the device as one stacked copy and run as one call of
+  :func:`~..parallel.batch_shard.batched_sweep` (the kernel's lane-batched
+  form, ``kernel.batched``, when it has one; else each lane in turn), with
+  one sync and one copy back.  A partial or mixed-shape batch packs
+  through the ragged paged pool (:mod:`..parallel.block_pool`,
+  ``ragged``), staged through the device-resident page pool
+  (:mod:`..parallel.device_pool`, ``device_pool``) when that is on.
 
 Loads and stores retry with capped exponential backoff; a block whose
 load, kernel, validation or store still fails is quarantined and re-run
-once, alone, after the sweep.  Every failure lands in ``failures.json``
-and a RuntimeError names every block still failed at the end.  A kernel
-error is never answered by running another implementation.
+once, alone, after the sweep.  A sharded batch whose call raises
+``torch.OutOfMemoryError`` re-runs its blocks one by one through the same
+kernel (``degraded:unsharded``); any other error quarantines its blocks as
+on the per-block path.  Every failure lands in ``failures.json`` and a
+RuntimeError names every block still failed at the end.  A kernel error is
+never answered by running another implementation.
 
-Not ported (ROADMAP Queue A items 9 and 11), and refused when asked for:
-sharded sweeps (``sweep_mode="sharded"``), the ragged paged pool and the
-device page pool (``ragged="on"``, ``device_pool="on"``), the hung-block
-watchdog and speculation (``block_deadline_s``), degrade-and-split
-(``splittable=True``) and post-store checksum verification
-(``store_verify_fn``).
+Not ported (ROADMAP Queue A item 11), and refused when asked for: the
+hung-block watchdog and speculation (``block_deadline_s``),
+degrade-and-split (``splittable=True``) and post-store checksum
+verification (``store_verify_fn``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 import traceback
@@ -38,6 +47,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel import block_pool as block_pool_mod
+from ..parallel import device_pool as device_pool_mod
+from ..parallel.batch_shard import batched_sweep, ragged_sweep, resolve_sharded_batch, use_sharded_sweep
 from ..utils import function_utils as fu
 from ..utils.volume_utils import Block
 
@@ -125,10 +137,28 @@ def sweep_config(cfg) -> Dict[str, Any]:
     return dict(
         schedule=str(cfg.get("block_schedule") or "morton"),
         sweep_mode=str(cfg.get("sweep_mode") or "auto"),
-        block_deadline_s=cfg.get("block_deadline_s"),
+        sharded_batch=cfg.get("sharded_batch"),
+        ragged=str(cfg.get("ragged") or "auto"),
         device_pool=str(cfg.get("device_pool") or "auto"),
+        device_pool_bytes=cfg.get("device_pool_bytes"),
+        block_deadline_s=cfg.get("block_deadline_s"),
         splittable=bool(cfg.get("allow_block_split")),
     )
+
+
+def _tree_nbytes(out) -> int:
+    return sum(int(a.nbytes) for a in _leaves(out))
+
+
+def _lane(out, j: int, crop=None):
+    """Lane ``j`` of a stacked numpy output tree (``crop(j, leaf)`` crops a
+    ragged lane back to its valid extent)."""
+    if isinstance(out, (tuple, list)):
+        return type(out)(_lane(o, j, crop) for o in out)
+    if isinstance(out, dict):
+        return {k: _lane(v, j, crop) for k, v in out.items()}
+    leaf = out[j]
+    return crop(j, leaf) if crop is not None else leaf
 
 
 class BlockwiseExecutor:
@@ -189,30 +219,45 @@ class BlockwiseExecutor:
         task_name: str = "map_blocks",
         schedule: str = "morton",
         sweep_mode: str = "auto",
+        sharded_batch: Optional[int] = None,
+        ragged: str = "auto",
+        page_shape: Optional[Sequence[int]] = None,
+        device_pool: str = "auto",
+        device_pool_bytes: Optional[int] = None,
         block_deadline_s: Optional[float] = None,
         store_verify_fn: Optional[Callable[[Block], None]] = None,
         splittable: bool = False,
-        ragged: str = "auto",
-        device_pool: str = "auto",
     ) -> Dict[str, Any]:
-        """Execute ``kernel`` over ``blocks``; see the class docstring.
+        """Execute ``kernel`` over ``blocks``; see the module docstring.
 
         ``done_block_ids`` are skipped (marker resume).  ``schedule``:
         ``"morton"`` (default) or ``"given"`` order; blocks are independent,
-        so the order never changes results.  ``sweep_mode``: ``"auto"`` and
-        ``"per_block"`` run per block.  Returns a summary with the summed
-        host-clock seconds of the sweep's stages: ``load_s`` and ``store_s``
-        (IO threads), ``h2d_s``, ``kernel_s`` (ended by a device sync) and
-        ``d2h_s`` (the dispatch thread).
+        so the order never changes results.
+
+        ``sweep_mode``: ``"per_block"``, ``"sharded"`` or ``"auto"`` (sharded
+        once the sweep fills one batch, the reference's rule on one
+        device).  ``sharded_batch``: blocks per sharded call (None:
+        ``max(2 * device_batch, 8)``).  ``ragged`` (sharded path only):
+        ``"auto"`` packs partial and mixed-shape batches through the paged
+        block pool, ``"on"`` packs every batch, ``"off"`` pads a partial
+        batch by repeating its last block (the padded outputs are dropped)
+        and runs mixed shapes per block.  ``page_shape`` overrides the
+        pool's page tile for mixed-shape batches.  ``device_pool``
+        (``"auto"``/``"on"``/``"off"``) stages ragged batches through the
+        resident device page pool (``CTT_DEVICE_POOL=0`` switches it off);
+        ``device_pool_bytes`` is its budget.
+
+        Returns a summary: the summed host-clock seconds of the sweep's
+        stages (``load_s`` and ``store_s`` on the IO threads; ``h2d_s``,
+        ``kernel_s`` ended by a device sync, and ``d2h_s`` on the dispatch
+        thread), the dispatch counters (``n_dispatches``,
+        ``batches_dispatched``, ``blocks_dispatched``, ``dispatch_wait_s``,
+        ``ragged_batches``, ``lanes_padded``, ``pages_in_use``), the
+        device-plane counters (``h2d_bytes``, ``d2h_bytes``,
+        ``device_pool_hits``/``misses``/``evictions``,
+        ``device_pool_resident_bytes``), and on the sharded path the rung
+        each batch ran (``batch_rungs``: ``"batched"`` or ``"lanes"``).
         """
-        if sweep_mode == "sharded":
-            _refuse("sweep_mode='sharded' (one program per batch of blocks)", 9)
-        if sweep_mode not in ("auto", "per_block"):
-            raise ValueError(f"unknown sweep_mode {sweep_mode!r}")
-        if ragged == "on":
-            _refuse("ragged='on' (the paged block pool)", 9)
-        if device_pool == "on":
-            _refuse("device_pool='on' (the device page pool)", 9)
         if block_deadline_s:
             _refuse("block_deadline_s (the hung-block watchdog and speculation)", 11)
         if splittable:
@@ -226,16 +271,47 @@ class BlockwiseExecutor:
             blocks = morton_order(blocks)
         elif schedule not in ("given", None):
             raise ValueError(f"unknown schedule {schedule!r} (expected 'morton' or 'given')")
+        sharded_width = resolve_sharded_batch(1, self.device_batch, sharded_batch)
+        use_sharded = use_sharded_sweep(sweep_mode, 1, len(blocks), sharded_width)
+        if ragged not in ("auto", "on", "off"):
+            raise ValueError(f"unknown ragged mode {ragged!r} (expected 'auto', 'on' or 'off')")
+        if device_pool not in ("auto", "on", "off"):
+            raise ValueError(f"unknown device_pool mode {device_pool!r} (expected 'auto', 'on' or 'off')")
+        # the paged pool is a sharded-path feature, and the resident device
+        # pool rides it (its page tables are the re-addressing mechanism)
+        use_ragged = use_sharded and ragged != "off"
+        ragged_pool = block_pool_mod.PagedBlockPool() if use_ragged else None
+        dev_pool = (device_pool_mod.get_device_pool(device_pool_bytes)
+                    if use_ragged and device_pool != "off" and device_pool_mod.device_pool_enabled() else None)
+        if page_shape is not None:
+            page_shape = tuple(int(p) for p in page_shape)
         stats = {"load_s": 0.0, "h2d_s": 0.0, "kernel_s": 0.0, "d2h_s": 0.0, "store_s": 0.0}
         if not blocks:
             return {"n_blocks": 0, "n_quarantined": 0, "n_failed": 0, **stats}
 
+        dev_snap = device_pool_mod.snapshot()
+        counts = {"n_dispatches": 0, "n_unsharded": 0, "batches_dispatched": 0, "blocks_dispatched": 0,
+                  "dispatch_wait_s": 0.0, "ragged_batches": 0, "lanes_padded": 0, "pages_in_use": 0}
+        batch_rungs: List[str] = []
         failures: Dict[int, Dict[str, Any]] = {}
+        sharded_failed: set = set()
         lock = threading.Lock()
 
         def add(key: str, dt: float) -> None:
             with lock:
                 stats[key] += dt
+
+        def note_dispatch(n_blocks: int, rb=None) -> None:
+            """One call to the device: ``n_blocks`` blocks, ``rb`` the
+            ragged batch it ran."""
+            with lock:
+                counts["n_dispatches"] += 1
+                counts["batches_dispatched"] += 1
+                counts["blocks_dispatched"] += int(n_blocks)
+                if rb is not None:
+                    counts["ragged_batches"] += 1
+                    counts["lanes_padded"] += rb.lanes_padded
+                    counts["pages_in_use"] += rb.pages_in_use
 
         def note_failure(block, site, attempts, error, quarantine):
             with lock:
@@ -261,13 +337,11 @@ class BlockwiseExecutor:
                 note_failure(block, "load", attempts - 1, None, quarantine=False)
             return val
 
-        def load_batch(batch):
-            return [(b, load_block(b)) for b in batch]
-
         def run_kernel(val):
             """Inputs to the device, the kernel, outputs back as numpy."""
             t0 = time.perf_counter()
             inputs = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(self.device) for x in val)
+            device_pool_mod.record_h2d(sum(int(x.nbytes) for x in val))
             self._sync()
             t1 = time.perf_counter()
             out = kernel(*inputs)
@@ -275,12 +349,14 @@ class BlockwiseExecutor:
             t2 = time.perf_counter()
             out = _to_numpy(out)
             t3 = time.perf_counter()
+            device_pool_mod.record_d2h(_tree_nbytes(out))
+            note_dispatch(1)
             add("h2d_s", t1 - t0)
             add("kernel_s", t2 - t1)
             add("d2h_s", t3 - t2)
             return out
 
-        def handle_output(block, out) -> None:
+        def handle_output(block, out, resolution: Optional[str] = None) -> None:
             """Validation, store (with retries), completion hooks; never
             raises — every failure is attributed to its block."""
             try:
@@ -302,6 +378,9 @@ class BlockwiseExecutor:
                     rec = failures.get(int(block.block_id))
                     if rec is not None:
                         rec["resolved"] = True
+                        if resolution is not None:
+                            rec["resolution"] = resolution
+                            counts["n_unsharded"] += resolution == "degraded:unsharded"
                 if on_block_done is not None:
                     on_block_done(block)
             except Exception:
@@ -314,21 +393,157 @@ class BlockwiseExecutor:
                 note_failure(block, "compute", 1, fu.cap_traceback(traceback.format_exc()), quarantine=True)
                 return None
 
-        bs = self.device_batch
+        def run_unsharded(batch, vals, site, error) -> None:
+            """The blocks of a batch the sharded call could not take, one by
+            one through the same kernel (``degraded:unsharded``)."""
+            for blk, val in zip(batch, vals):
+                note_failure(blk, site, 1, error, quarantine=True)
+                with lock:
+                    sharded_failed.add(int(blk.block_id))
+                out = execute(blk, val)
+                if out is not None:
+                    handle_output(blk, out, resolution="degraded:unsharded")
+
+        host_staged = {"recorded": False}
+
+        def stage_ragged(rb):
+            """Device pools, tables and valid extents of one ragged batch:
+            through the resident page pool when it is on (pages already on
+            the device are re-addressed, not re-sent), else from the host.
+            Pool exhaustion stages this batch from the host
+            (``degraded:host_staged``, recorded once per sweep)."""
+            to_dev = lambda arrays: [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays]
+            if dev_pool is not None:
+                try:
+                    sb = dev_pool.stage(rb, self.device)
+                except device_pool_mod.DevicePoolExhausted as e:
+                    device_pool_mod.bump("host_staged_fallbacks")
+                    if not host_staged["recorded"] and failures_path:
+                        host_staged["recorded"] = True
+                        fu.record_failures(failures_path, f"{task_name}.device_pool", [{
+                            "block_id": None, "sites": {"h2d": 1}, "error": fu.cap_traceback(str(e)),
+                            "quarantined": False, "resolved": True, "resolution": "degraded:host_staged",
+                        }])
+                else:
+                    device_pool_mod.record_h2d(sum(int(a.nbytes) for a in sb.tables + sb.valids))
+                    return sb.pools, to_dev(sb.tables), to_dev(sb.valids), sb.specs
+            device_pool_mod.record_h2d(rb.nbytes)
+            return to_dev(rb.pools), to_dev(rb.tables), to_dev(rb.valids), rb.specs
+
+        def run_batch(kind, payload):
+            """One sharded call: the batch to the device, the sweep, one
+            sync, the outputs back.  Returns ``(outputs, rung, rb)``."""
+            t0 = time.perf_counter()
+            rb = None
+            if kind == "dense":
+                arrays = payload[0]
+                inputs = tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+                device_pool_mod.record_h2d(sum(int(a.nbytes) for a in arrays))
+                self._sync()
+                t1 = time.perf_counter()
+                out, rung = batched_sweep(kernel, inputs)
+                self._sync()
+            else:
+                rb = payload[0]
+                with dev_pool.lock if dev_pool is not None else contextlib.nullcontext():
+                    pools, tables, valids, specs = stage_ragged(rb)
+                    self._sync()
+                    t1 = time.perf_counter()
+                    out, rung = ragged_sweep(kernel, pools, tables, valids, specs)
+                    # the lanes are gathered before the pool stages again
+                    self._sync()
+            t2 = time.perf_counter()
+            out = _to_numpy(out)
+            t3 = time.perf_counter()
+            device_pool_mod.record_d2h(_tree_nbytes(out))
+            if rb is not None:
+                rb.release()
+            add("h2d_s", t1 - t0)
+            add("kernel_s", t2 - t1)
+            add("d2h_s", t3 - t2)
+            return out, rung, rb
+
+        bs = sharded_width if use_sharded else self.device_batch
+
+        def load_batch(batch):
+            if not use_sharded:
+                return [(b, load_block(b)) for b in batch]
+            # a batch's blocks load in parallel on their own pool (this
+            # thread is one of the sweep pool's, which runs the stores)
+            ok, vals = [], []
+            for b, val in zip(batch, block_loader.map(load_block, batch)):
+                if val is not None:
+                    ok.append(b)
+                    vals.append(val)
+            if not ok:
+                return ok, "empty", None
+            n_args = len(vals[0])
+            uniform = all(len({v[i].shape for v in vals}) == 1 for i in range(n_args))
+            full = len(vals) == bs
+            if use_ragged and (not uniform or not full or ragged == "on"):
+                # a partial batch, mixed-shape lanes or a forced ragged sweep:
+                # one paged call; padding lanes are dropped after it
+                try:
+                    return ok, "ragged", (ragged_pool.pack(vals, bs, page_shape=page_shape), vals)
+                except ValueError:
+                    if not uniform:
+                        return ok, "mixed", vals
+            if not uniform:
+                return ok, "mixed", vals
+            # pad a partial batch by repeating its last block; the padded
+            # outputs are dropped
+            padded = vals + [vals[-1]] * (bs - len(vals))
+            return ok, "dense", (tuple(np.stack([v[i] for v in padded]) for i in range(n_args)), vals)
+
+        def dispatch_sharded(batch, kind, payload) -> List[Future]:
+            if kind == "mixed":
+                run_unsharded(batch, payload, "pack", "mixed-shape lanes the ragged pool cannot take; "
+                                                      "executed per block")
+                return []
+            vals = payload[1]
+            try:
+                out, rung, rb = run_batch(kind, payload)
+            except torch.OutOfMemoryError:
+                tb = fu.cap_traceback(traceback.format_exc())
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
+                run_unsharded(batch, vals, "dispatch", tb)
+                return []
+            except Exception:
+                tb = fu.cap_traceback(traceback.format_exc())
+                for blk in batch:
+                    note_failure(blk, "compute", 1, tb, quarantine=True)
+                with lock:
+                    sharded_failed.update(int(b.block_id) for b in batch)
+                return []
+            note_dispatch(len(batch), rb)
+            batch_rungs.append(rung)
+            crop = rb.crop if rb is not None else None
+            return [pool.submit(handle_output, blk, _lane(out, j, crop)) for j, blk in enumerate(batch)]
+
         batches = [blocks[i:i + bs] for i in range(0, len(blocks), bs)]
-        with ThreadPoolExecutor(max_workers=self.io_threads) as pool:
+        block_loader = ThreadPoolExecutor(max_workers=self.io_threads) if use_sharded else None
+        with ThreadPoolExecutor(max_workers=self.io_threads) as pool, \
+                block_loader if block_loader is not None else contextlib.nullcontext():
             pending: List[Future] = [pool.submit(load_batch, b) for b in batches[:prefetch]]
             writes: List[Future] = []
             for i in range(len(batches)):
+                t0 = time.perf_counter()
                 loaded = pending.pop(0).result()
+                counts["dispatch_wait_s"] += time.perf_counter() - t0
                 if i + prefetch < len(batches):
                     pending.append(pool.submit(load_batch, batches[i + prefetch]))
-                for block, val in loaded:
-                    if val is None:
-                        continue
-                    out = execute(block, val)
-                    if out is not None:
-                        writes.append(pool.submit(handle_output, block, out))
+                if use_sharded:
+                    batch, kind, payload = loaded
+                    if batch:
+                        writes.extend(dispatch_sharded(batch, kind, payload))
+                else:
+                    for block, val in loaded:
+                        if val is None:
+                            continue
+                        out = execute(block, val)
+                        if out is not None:
+                            writes.append(pool.submit(handle_output, block, out))
                 # bounded store window: each pending store holds a block's outputs
                 while len(writes) > 2 * bs:
                     writes.pop(0).result()
@@ -345,7 +560,8 @@ class BlockwiseExecutor:
                 continue
             out = execute(block, val)
             if out is not None:
-                handle_output(block, out)
+                handle_output(block, out, resolution="degraded:unsharded"
+                              if int(block.block_id) in sharded_failed else None)
 
         unresolved = sorted(b for b, rec in failures.items() if not rec["resolved"])
         if failures_path and failures:
@@ -358,5 +574,16 @@ class BlockwiseExecutor:
                 f"and a quarantine re-attempt (ids: {unresolved})"
                 + (f"; see {failures_path}" if failures_path else "") + f"; first errors:\n{details}"
             )
-        return {"n_blocks": len(blocks), "n_quarantined": len(quarantined), "n_failed": 0,
-                "sweep_mode": "per_block", **stats}
+        dev = device_pool_mod.delta(dev_snap)
+        summary = {
+            "n_blocks": len(blocks), "n_quarantined": len(quarantined), "n_failed": 0,
+            "sweep_mode": "sharded" if use_sharded else "per_block", **stats, **counts,
+            **{k: int(dev[k]) for k in ("h2d_bytes", "d2h_bytes", "device_pool_hits", "device_pool_misses",
+                                        "device_pool_evictions", "host_staged_fallbacks")},
+            "device_pool": "on" if dev_pool is not None else "off",
+            "device_pool_resident_bytes": dev_pool.resident_bytes() if dev_pool is not None else 0,
+        }
+        if use_sharded:
+            summary["sharded_batch"] = bs
+            summary["batch_rungs"] = batch_rungs
+        return summary

@@ -90,9 +90,14 @@ class BaseTask:
         """The reference's runtime knobs, with its defaults.  The port honours
         ``max_retries``/``retry_backoff_s`` (task re-runs in :func:`build`),
         ``io_retries``/``io_backoff_s``/``io_threads`` (the executor's
-        per-block retries and IO pool), ``block_schedule`` and ``sweep_mode``
-        (``auto`` and ``per_block`` both run per block); the others select
-        machinery that is not ported and are refused when turned on."""
+        per-block retries and IO pool), ``block_schedule``, ``sweep_mode``
+        (``auto`` runs sharded once the sweep fills a batch, as in the
+        reference; ``sharded`` and ``per_block`` force a path) with
+        ``sharded_batch``, and ``device_pool`` / ``device_pool_bytes`` (the
+        resident page pool of ragged sweeps).  A task config may also set
+        ``ragged`` (``auto``/``on``/``off``), which the executor takes as
+        the reference's ``map_blocks`` does.  The others select machinery
+        that is not ported and are refused when turned on."""
         return {
             "max_retries": 0,
             "retry_backoff_s": 1.0,

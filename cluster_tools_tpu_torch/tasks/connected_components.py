@@ -103,6 +103,12 @@ class BlockComponentsBase(BaseTask):
                 return label_components_keyed_tensor(m, connectivity=connectivity)
             return label_components_batched(m.unsqueeze(0), connectivity)[0]
 
+        # the lane-batched form: both labellers take a leading item axis
+        kernel.batched = (
+            (lambda m: label_components_keyed_tensor(m, connectivity=connectivity, lead=1)) if keyed
+            else (lambda m: label_components_batched(m, connectivity))
+        )
+
         def store(block, raw):
             # raw: padded-block flat index of the component's min voxel, sentinel n
             bs = block.shape

@@ -13,7 +13,11 @@ Kernels: ``impl`` ``auto`` (the default), ``cuda`` or ``torch`` runs the
 tiled watershed (``ops/tile_ws.py``: kernels B1-B4 on the card with
 ``auto``/``cuda``, their twins with ``torch``); ``legacy``, 2-D mode and
 connectivity above 1 run ``ops/watershed.py``.  The reference's
-``pallas``/``xla`` mean ``auto`` here.
+``pallas``/``xla`` mean ``auto`` here.  On the tiled route without a
+``size_filter`` the kernel carries a lane-batched form
+(``kernel.batched``: :func:`..ops.tile_ws.dt_watershed_lanes`), so a
+sharded sweep runs a whole batch of blocks in one call; the other routes
+run the sweep's lane rung (one call per block of the batch).
 
 ``agglomerate_threshold`` (single-pass only) merges each block's fragments
 by in-block average linkage over the block's RAG before the labels are
@@ -24,7 +28,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..ops.tile_ws import dt_watershed_seeded_tiled, dt_watershed_tiled
+from ..ops.tile_ws import dt_watershed_lanes, dt_watershed_seeded_tiled, dt_watershed_tiled
 from ..ops.watershed import distance_transform_watershed, dt_watershed_seeded, filter_small_segments
 from ..runtime import handoff
 from ..runtime.executor import BlockwiseExecutor, sweep_config, validate_labels
@@ -203,10 +207,11 @@ class WatershedBase(_WsTaskBase):
 
         use_tiled = impl != "legacy" and not two_d and kp["connectivity"] == 1 and len(outer) == 3
 
+        tk = {k: v for k, v in kp.items() if k != "connectivity"}
+        tk.update(_tiled_cap_knobs(cfg))
+
         def kernel(b, m):
             if use_tiled:
-                tk = {k: v for k, v in kp.items() if k != "connectivity"}
-                tk.update(_tiled_cap_knobs(cfg))
                 lab, ovf = dt_watershed_tiled(b, mask=m, impl=impl, device=b.device, **tk)
             else:
                 lab = distance_transform_watershed(b, mask=m, two_d=two_d,
@@ -216,6 +221,9 @@ class WatershedBase(_WsTaskBase):
             if size_filter > 0:
                 lab = filter_small_segments(lab, b, size_filter, connectivity=kp["connectivity"], device=b.device)
             return lab, ovf
+
+        if use_tiled and size_filter == 0:
+            kernel.batched = lambda b, m: dt_watershed_lanes(b, None, m, impl=impl, **tk)
 
         overflow_blocks = set()
 
@@ -300,10 +308,11 @@ class TwoPassWatershedBase(_WsTaskBase):
 
         use_tiled = impl != "legacy" and kp["connectivity"] == 1
 
+        tk = {k: v for k, v in kp.items() if k != "connectivity"}
+        tk.update(_tiled_cap_knobs(cfg))
+
         def kernel(b, ext, m):
             if use_tiled:
-                tk = {k: v for k, v in kp.items() if k != "connectivity"}
-                tk.update(_tiled_cap_knobs(cfg))
                 lab, ovf = dt_watershed_seeded_tiled(b, ext, mask=m, impl=impl, device=b.device, **tk)
             else:
                 lab = dt_watershed_seeded(b, ext, mask=m, impl="auto" if impl == "legacy" else impl,
@@ -314,6 +323,9 @@ class TwoPassWatershedBase(_WsTaskBase):
                 lab = filter_small_segments(lab, b, size_filter, connectivity=kp["connectivity"],
                                             max_label=2 * n_outer, device=b.device)
             return lab, ovf
+
+        if use_tiled and size_filter == 0:
+            kernel.batched = lambda b, ext, m: dt_watershed_lanes(b, ext, m, impl=impl, **tk)
 
         overflow_blocks = set()
 

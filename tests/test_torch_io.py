@@ -193,11 +193,8 @@ def _small_workspace(tmp_path, global_config):
 
 
 REFUSED = [
-    ("cc", {"sweep_mode": "sharded"}, {}, "item 9"),
     ("cc", {"memory_handoffs": True}, {}, "items 9 and 11"),
-    ("cc", {"device_pool": "on"}, {}, "item 9"),
     ("cc", {"block_deadline_s": 5.0}, {}, "item 11"),
-    ("ws", {"sweep_mode": "sharded"}, {}, "item 9"),
     ("ws", {}, {"impl": "host"}, "item 11"),
     # the in-block agglomeration is single-pass only, as in the reference
     ("ws", {}, {"agglomerate_threshold": 0.3, "pass_parity": 0}, "pass_parity"),
@@ -219,14 +216,60 @@ def test_refused_options_raise(tmp_path, kind, global_config, params, item):
         build([wf])
 
 
-@pytest.mark.parametrize("kwargs,item", [({"sweep_mode": "sharded"}, "item 9"), ({"ragged": "on"}, "item 9"),
-                                         ({"device_pool": "on"}, "item 9"), ({"block_deadline_s": 1.0}, "item 11"),
+# sweep modes the port refused before it had the sharded sweep, the paged
+# pool and the device page pool: each now runs and equals the per-block sweep
+NOW_PORTED = [
+    ("cc", {"sweep_mode": "sharded"}, {}),
+    ("cc", {"device_pool": "on", "sweep_mode": "sharded", "ragged": "on"}, {}),
+    ("ws", {"sweep_mode": "sharded"}, {}),
+]
+
+
+@pytest.mark.parametrize("kind,global_config,params", NOW_PORTED)
+def test_ported_sweep_modes_equal_per_block(tmp_path, kind, global_config, params):
+    outs = []
+    for tag, gc in (("pb", {"sweep_mode": "per_block"}), ("mode", global_config)):
+        base = tmp_path / tag
+        path = _small_workspace(base, gc)
+        common = dict(tmp_folder=str(base / "tmp"), config_dir=str(base / "cfg"), target="local",
+                      input_path=path, input_key="x", output_path=path, output_key="y")
+        if kind == "cc":
+            wf = pcc.ConnectedComponentsWorkflow(threshold=0.5, **common, **params)
+        else:
+            wf = pws.WatershedWorkflow(halo=[2, 2, 2], **common, **params)
+        assert build([wf])
+        outs.append(open_container(path)["y"][...])
+    np.testing.assert_array_equal(outs[0], outs[1])
+    assert outs[0].max() > 0
+
+
+@pytest.mark.parametrize("kwargs,item", [({"block_deadline_s": 1.0}, "item 11"),
                                          ({"splittable": True}, "item 11"),
                                          ({"store_verify_fn": lambda b: None}, "item 11")])
 def test_executor_refuses_unported_modes(kwargs, item):
     blocks = [pvu.Blocking((4,), (2,)).get_block(0)]
     with pytest.raises(NotImplementedError, match=item):
         pex.BlockwiseExecutor(target="local").map_blocks(lambda x: x, blocks, lambda b: (np.zeros(2),), **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [{"sweep_mode": "sharded"}, {"sweep_mode": "sharded", "ragged": "on"},
+                                    {"sweep_mode": "sharded", "ragged": "on", "device_pool": "on"}])
+def test_executor_runs_the_sweep_plane_modes(kwargs):
+    blocking = pvu.Blocking((22,), (2,))
+    blocks = [blocking.get_block(b) for b in range(blocking.n_blocks)]
+    vol = np.random.default_rng(3).random(22).astype(np.float32)
+    outs = []
+    for kw in ({"sweep_mode": "per_block"}, kwargs):
+        out = np.zeros_like(vol)
+
+        def store(b, o, out=out):
+            out[b.bb] = o
+
+        summary = pex.BlockwiseExecutor(target="local").map_blocks(
+            lambda x: x * 2 + 1, blocks, lambda b: (vol[b.bb],), store, **kw)
+        outs.append(out)
+    np.testing.assert_array_equal(outs[0], outs[1])
+    assert summary["sweep_mode"] == "sharded" and summary["blocks_dispatched"] == len(blocks)
 
 
 def test_executor_retries_quarantines_and_names_failed_blocks(tmp_path):

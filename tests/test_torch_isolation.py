@@ -96,3 +96,25 @@ def test_prediction_entry_points_default_to_the_card(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(vol, 1.0)
         assert fn(vol, 1.0, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("module", ["parallel/batch_shard.py", "parallel/block_pool.py", "parallel/device_pool.py"])
+def test_sweep_plane_modules_are_checked(module):
+    """The sweep plane's modules are among the files held above."""
+    assert ROOT / "cluster_tools_tpu_torch" / module in PORT_FILES
+
+
+def test_sweep_plane_entry_points_default_to_the_card(monkeypatch):
+    import numpy as np
+
+    from cluster_tools_tpu_torch.parallel.batch_shard import sharded_slab_sweep
+    from cluster_tools_tpu_torch.runtime.executor import BlockwiseExecutor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    vol = np.zeros((8, 4, 4), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sharded_slab_sweep(vol, lambda x: x, extent=4, halo=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BlockwiseExecutor()
+    out = sharded_slab_sweep(vol, lambda x: x, extent=4, halo=1, device="cpu")
+    assert out.shape == (2, 6, 4, 4)
