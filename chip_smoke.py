@@ -85,7 +85,17 @@ Phases, each one line of output, each raising on failure:
     workflow (watershed, Kernighan-Lin) on the first 128^3, and the
     agglomerating watershed on the first 256^3 against its
     ``impl="torch"`` run.  The kernel rows gain ``multicut_launches``;
-13. inference (``phase_inference``): ``InferenceWorkflow`` with the
+13. fusion (``phase_fusion``): task-graph fusion from the port's zarr on
+    local disk: ``MulticutSegmentationWorkflow`` with its own watershed on
+    the main path's 512^3 volume and ``ConnectedComponentsWorkflow`` on it,
+    each with ``memory_handoffs`` off and on (walls, per-task seconds,
+    launches, handoff counters, peak and reserved device memory and the
+    intermediate bytes written to storage; outputs and B1-B4 launches
+    equal between the arms), and the device rung (a CUDA tensor handed
+    from a producer task to a consumer's slab sweep of B3 with no host
+    byte, then staged to and demoted to the memory rung under small device
+    budgets, each equal).  The kernel rows gain ``fusion_launches``;
+14. inference (``phase_inference``): ``InferenceWorkflow`` with the
     full-width U-Net (base 16, depth 2, GroupNorm, bfloat16; seeded weights
     saved with the port's ``save_checkpoint`` and read back from the npz) on
     the main path's 512^3 volume (block 128^3, halo 8: 64 blocks of 144^3),
@@ -951,6 +961,373 @@ def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: li
     log("multicut", f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# the fusion phase's cc arm: cut from the main path's 512 to 256, since the
+# whole smoke at 512 passes half its time limit (the arm's line says so)
+FUSION_CC_EDGE = 256
+# tmp_folder files that are bookkeeping, not a producer -> consumer hop
+FUSION_BOOKKEEPING = (".success.json", ".log", ".ckpt.npz", "failures.json", "io_metrics.json", ".lock")
+
+
+def intermediate_bytes(container: str, keep, tmp_folder: str):
+    """Bytes of the intermediate files a run wrote to storage, and the
+    paths (relative) of the largest: every dataset of ``container`` but
+    ``keep`` (the input and the final output), and every file under
+    ``tmp_folder`` but the manifests, logs, ``failures.json``,
+    ``io_metrics.json``, solver checkpoints (``*.ckpt.npz``) and the block
+    markers."""
+    files = []
+    if os.path.isdir(container):
+        for key in sorted(os.listdir(container)):
+            if key in keep or not os.path.isdir(os.path.join(container, key)):
+                continue
+            for dirpath, _, names in os.walk(os.path.join(container, key)):
+                files += [os.path.join(dirpath, n) for n in names]
+    for dirpath, dirs, names in os.walk(tmp_folder):
+        dirs[:] = [d for d in dirs if d != "markers"]
+        files += [os.path.join(dirpath, n) for n in names if not n.endswith(FUSION_BOOKKEEPING)]
+    sizes = {f: os.path.getsize(f) for f in files if os.path.exists(f)}
+    top = sorted(sizes, key=sizes.get, reverse=True)[:3]
+    return sum(sizes.values()), [os.path.relpath(f, os.path.dirname(tmp_folder)) for f in top]
+
+
+def fusion_arm(K, root: str, tag: str, workflow_cls, memory_handoffs: bool, out_container: str, keep,
+               block, **params) -> dict:
+    """One cold build of a workflow on the card in a fresh ``tmp_folder``
+    with ``memory_handoffs`` off or on: wall seconds (ended by a device
+    sync), per-task seconds and sweep summaries from the manifests, kernel
+    launches, peak and reserved device memory, the handoff and device-plane
+    counters summed over ``io_metrics.json``, the handoffs that spilled
+    (``degraded:spilled`` in ``failures.json``) and the intermediate bytes
+    written to storage.  The handoff registry starts empty and is emptied
+    after (its payloads are this process's RAM)."""
+    from cluster_tools_tpu_torch.runtime import handoff
+    from cluster_tools_tpu_torch.runtime.task import build as run_dag
+
+    d = os.path.join(root, tag)
+    os.makedirs(os.path.join(d, "cfg"))
+    with open(os.path.join(d, "cfg", "global.config"), "w") as fh:
+        json.dump({"block_shape": list(block), "memory_handoffs": memory_handoffs}, fh)
+    tmp = os.path.join(d, "tmp")
+    handoff.reset()
+    wf = workflow_cls(tmp_folder=tmp, config_dir=os.path.join(d, "cfg"), max_jobs=8, block_shape=list(block),
+                      **params)
+    K.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok = run_dag([wf])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    peak_gb, reserved_gb = torch.cuda.max_memory_allocated() / 1e9, torch.cuda.memory_reserved() / 1e9
+    if not ok:
+        logs = "".join(open(os.path.join(tmp, f)).read()[-3000:] for f in sorted(os.listdir(tmp)) if f.endswith(".log"))
+        raise AssertionError(f"fusion {tag}: the workflow failed; task logs:\n{logs}")
+    tasks = {}
+    for f in sorted(os.listdir(tmp)):
+        if f.endswith(".success.json") and not f.split(".")[0].endswith("_workflow"):
+            tasks[f.split(".")[0]] = json.load(open(os.path.join(tmp, f)))
+    counters = Counter()
+    io_path = os.path.join(tmp, "io_metrics.json")
+    if os.path.exists(io_path):
+        for m in json.load(open(io_path))["tasks"].values():
+            counters.update({k: v for k, v in m.items() if isinstance(v, (int, float))})
+    spills = []
+    fail_path = os.path.join(tmp, "failures.json")
+    if os.path.exists(fail_path):
+        spills = [(r["task"].split(".")[0], str(r["handoff"]).replace(root + os.sep, ""), r["reason"])
+                  for r in json.load(open(fail_path))["records"] if r.get("resolution") == "degraded:spilled"]
+    inter, top = intermediate_bytes(out_container, keep, tmp)
+    handoff.reset()
+    sweep = Counter()
+    for m in tasks.values():
+        sweep.update({k: v for k, v in m.get("sweep", {}).items() if k in ("load_s", "store_s")})
+    return dict(wall_s=wall, tasks={k: m["runtime_s"] for k, m in tasks.items() if "runtime_s" in m},
+                launches=launches, peak_gb=peak_gb, reserved_gb=reserved_gb, counters=dict(counters), spills=spills,
+                inter_bytes=inter, inter_top=top, sweep=dict(sweep))
+
+
+HANDOFF_COUNTERS = ("handoffs_published", "handoffs_served", "handoffs_spilled", "handoff_fallbacks",
+                    "bytes_not_stored", "bytes_spilled")
+
+
+def fusion_line(tag: str, rec: dict) -> str:
+    c = rec["counters"]
+    return (f"{tag}: wall {rec['wall_s']:.3f} s; tasks " + ", ".join(f"{k} {v:.3f}" for k, v in rec["tasks"].items())
+            + f" s; launches {rec['launches']}; handoffs " + ", ".join(f"{k} {int(c.get(k, 0))}" for k in HANDOFF_COUNTERS)
+            + f"; peak {rec['peak_gb']:.2f} GB allocated, {rec['reserved_gb']:.2f} GB reserved; intermediate bytes "
+            f"written {rec['inter_bytes']} (largest {rec['inter_top']}); spilled {rec['spills']}")
+
+
+def check_fusion_on(tag: str, rec: dict) -> None:
+    """The on arm's gates: with nothing spilled, no fallback read and no
+    intermediate byte on storage; a spill (the default budget is
+    ``min(2 GiB, MemAvailable/4)``) is correct and only reported, and the
+    reads of a spilled target are fallbacks."""
+    c = rec["counters"]
+    if int(c.get("handoffs_spilled", 0)) == 0:
+        if int(c.get("handoff_fallbacks", 0)) or rec["inter_bytes"]:
+            raise AssertionError(f"fusion {tag}: nothing spilled, yet {int(c.get('handoff_fallbacks', 0))} fallback "
+                                 f"reads and {rec['inter_bytes']} intermediate bytes on storage ({rec['inter_top']})")
+    elif not rec["spills"]:
+        raise AssertionError(f"fusion {tag}: handoffs_spilled > 0 but no degraded:spilled record")
+    if not int(c.get("handoffs_served", 0)):
+        raise AssertionError(f"fusion {tag}: no handoff was served from memory")
+
+
+def phase_fusion(K, vol: torch.Tensor, rows: list, block=(128, 128, 128)) -> None:
+    """Task-graph fusion (ROADMAP item 9b) on the card, from the port's zarr
+    on local disk (zlib level 1, chunks 128^3): the phases before this one
+    read and write ``memory://``, which has neither zlib nor a filesystem,
+    so they cannot show what the handoffs save.
+
+    1. ``MulticutSegmentationWorkflow`` with its own watershed (halo 32,
+       threshold 0.45, min seed distance 2, ``n_scales=1``, ``beta=0.5``,
+       ``gaec_parallel``, block 128^3, ``max_jobs=8``) on the main path's
+       512^3 boundary map, ``memory_handoffs`` off and on, each cold in a
+       fresh ``tmp_folder``: ``seg`` equal bit for bit, B1-B4 launched in
+       both arms with equal counts, and the on arm's gates
+       (:func:`check_fusion_on`).
+    2. ``ConnectedComponentsWorkflow`` (``bmap < 0.45``) on the same file,
+       off and on, at ``FUSION_CC_EDGE``^3: equal labels.
+    3. The device rung: a producer task publishes a 256^3 crop of the
+       volume as a CUDA tensor (``save_handoff_device_arrays``); a consumer
+       resolves it and runs ``sharded_slab_sweep(..., keep_on_device=True)``
+       over axis-0 slabs with B3 as the slab function, publishing its output
+       on the device rung too.  Served with no host byte
+       (``device_handoffs_served == 1``, ``h2d_bytes == d2h_bytes == 0``)
+       and equal to the ``CTT_DEVICE_POOL=0`` run's; then with
+       ``CTT_DEVICE_POOL_BYTES`` below the payload (the publish falls to the
+       memory rung, ``host_staged_fallbacks == 1``, ``d2h_bytes`` = the
+       payload's bytes) and at 1.5 payloads with two payloads published (the
+       elder demoted, ``device_handoffs_demoted == 1``), each equal.
+    Adds ``fusion_launches`` (off / on arm of 1) to the kernel rows.
+    """
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cluster_tools_tpu_torch.io.containers import open_container
+    from cluster_tools_tpu_torch.tasks.connected_components import ConnectedComponentsWorkflow
+    from cluster_tools_tpu_torch.workflows import MulticutSegmentationWorkflow
+
+    t_phase = time.perf_counter()
+    b_np = vol.reshape(vol.shape[-3:]).cpu().numpy()
+    shape = b_np.shape
+    with tempfile.TemporaryDirectory(prefix="fusion-") as root:
+        src_path = os.path.join(root, "in.zarr")
+        src = open_container(src_path).require_dataset("bmap", shape=shape, chunks=block, dtype="float32")
+        grid = [range(0, s, b) for s, b in zip(shape, block)]
+        boxes = [tuple(slice(o, o + b) for o, b in zip(origin, block)) for origin in
+                 [(z, y, x) for z in grid[0] for y in grid[1] for x in grid[2]]]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(lambda bb: src.__setitem__(bb, b_np[bb]), boxes))
+        t_write = time.perf_counter() - t0
+        del b_np
+
+        # ---- 1. the fused chain: watershed -> graph -> features -> costs -> multicut -> write ----
+        mc = {}
+        for arm, on in (("off", False), ("on", True)):
+            out = os.path.join(root, f"mc-{arm}.zarr")
+            mc[arm] = fusion_arm(K, root, f"mc-{arm}", MulticutSegmentationWorkflow, on, out, ("seg",), block,
+                                 input_path=src_path, input_key="bmap", ws_path=out, ws_key="ws", output_path=out,
+                                 output_key="seg", skip_ws=False, halo=[32, 32, 32], threshold=0.45,
+                                 min_seed_distance=2.0, n_scales=1, beta=0.5, agglomerator="gaec_parallel")
+            log("fusion", fusion_line(f"MulticutSegmentationWorkflow {shape} from disk, memory_handoffs {arm}",
+                                      mc[arm]))
+        seg_off = open_container(os.path.join(root, "mc-off.zarr"))["seg"][...]
+        seg_on = open_container(os.path.join(root, "mc-on.zarr"))["seg"][...]
+        if not np.array_equal(seg_off, seg_on):
+            raise AssertionError("fusion: the multicut chain's seg differs between memory_handoffs off and on")
+        n_seg = len(np.unique(seg_on)) - int((seg_on == 0).any())
+        del seg_off, seg_on
+        for arm in ("off", "on"):
+            missing = [k for k in MAIN_PATH_KERNELS if mc[arm]["launches"].get(k, 0) == 0]
+            if missing:
+                raise AssertionError(f"fusion: the {arm} arm launched no {missing}")
+        if mc["off"]["launches"] != mc["on"]["launches"]:
+            raise AssertionError(f"fusion: launches differ, off {mc['off']['launches']} on {mc['on']['launches']}")
+        if not mc["off"]["inter_bytes"]:
+            raise AssertionError("fusion: the off arm wrote no intermediate bytes (the count is broken)")
+        check_fusion_on("multicut on", mc["on"])
+        for arm in ("off", "on"):
+            shutil.rmtree(os.path.join(root, f"mc-{arm}"))
+            shutil.rmtree(os.path.join(root, f"mc-{arm}.zarr"))
+        from cluster_tools_tpu_torch.runtime.handoff import handoff_budget
+
+        log("fusion", f"multicut chain: handoff budget {handoff_budget()} B (CTT_HANDOFF_BYTES, else min(2 GiB, "
+                      f"MemAvailable/4)); "
+                      f"spilled on the on arm {mc['on']['spills']}")
+        log("fusion", f"multicut chain: seg equal bit for bit off/on ({n_seg} segments); launches equal "
+                      f"{mc['on']['launches']}; wall off {mc['off']['wall_s']:.3f} s, on {mc['on']['wall_s']:.3f} s; "
+                      f"intermediate bytes off {mc['off']['inter_bytes']}, on {mc['on']['inter_bytes']}; input "
+                      f"written to disk in {t_write:.2f} s")
+
+        # ---- 2. the store-bound case: cc from disk ----
+        e = FUSION_CC_EDGE
+        ccp = dict(input_path=src_path, input_key="bmap", threshold=0.45, threshold_mode="less", connectivity=1)
+        if e != shape[0]:
+            crop = open_container(src_path).require_dataset("bmap_crop", shape=(e,) * 3, chunks=block,
+                                                            dtype="float32")
+            crop[...] = src[tuple(slice(0, e) for _ in range(3))]
+            ccp["input_key"] = "bmap_crop"
+        cc = {}
+        for arm, on in (("off", False), ("on", True)):
+            out = os.path.join(root, f"cc-{arm}.zarr")
+            cc[arm] = fusion_arm(K, root, f"cc-{arm}", ConnectedComponentsWorkflow, on, out, ("cc",), block,
+                                 output_path=out, output_key="cc", **ccp)
+            sw = cc[arm]["sweep"]
+            log("fusion", fusion_line(f"ConnectedComponentsWorkflow {(e,) * 3} from disk"
+                                      + ("" if e == shape[0] else f" (cut from {shape[0]}^3 to keep the smoke in time)")
+                                      + f", memory_handoffs {arm}, summed load {sw.get('load_s', 0):.3f} s, "
+                                      f"store {sw.get('store_s', 0):.3f} s", cc[arm]))
+        a = open_container(os.path.join(root, "cc-off.zarr"))["cc"][...]
+        b = open_container(os.path.join(root, "cc-on.zarr"))["cc"][...]
+        if not np.array_equal(a, b):
+            raise AssertionError("fusion: cc labels differ between memory_handoffs off and on")
+        check_fusion_on("cc on", cc["on"])
+        log("fusion", f"cc {(e,) * 3}: labels equal off/on ({int(a.max())} max label); wall off "
+                      f"{cc['off']['wall_s']:.3f} s, on {cc['on']['wall_s']:.3f} s; summed store off "
+                      f"{cc['off']['sweep'].get('store_s', 0):.3f} s, on {cc['on']['sweep'].get('store_s', 0):.3f} s")
+        del a, b
+
+        # ---- 3. the device rung ----
+        device_rung(K, vol, root)
+    for row in rows:
+        row["fusion_launches"] = {arm: mc[arm]["launches"].get(row["name"], 0) for arm in ("off", "on")}
+    log("fusion", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def device_rung(K, vol: torch.Tensor, root: str, n: int = 256, extent: int = 32, halo: int = 8) -> None:
+    """Part 3 of the "fusion" phase (see :func:`phase_fusion`)."""
+    from cluster_tools_tpu_torch.parallel import device_pool
+    from cluster_tools_tpu_torch.parallel.batch_shard import sharded_slab_sweep
+    from cluster_tools_tpu_torch.runtime import handoff
+    from cluster_tools_tpu_torch.runtime.task import BaseTask
+    from cluster_tools_tpu_torch.runtime.task import build as run_dag
+
+    big = 1e30
+    crop = vol[0, :n, :n, :n].contiguous()
+    payload_bytes = crop.numel() * crop.element_size()
+
+    def slab_edt(x):
+        # B3 on each halo'd slab: the capped squared EDT along z of the
+        # foreground (boundaries < 0.45), the halo cropped off
+        f = torch.where(x < 0.45, torch.zeros_like(x), torch.full_like(x, big))
+        return K.edt_cascade(f, axis=0, radius=halo, w=1.0, big=big)[halo:-halo]
+
+    class Producer(BaseTask):
+        task_name = "fusion_producer"
+        target = "gpu"
+
+        def run_impl(self):
+            self.save_handoff_device_arrays(self.get_config()["handoff_path"], vol=crop)
+            return {}
+
+    seen = {}
+
+    class Consumer(BaseTask):
+        task_name = "fusion_consumer"
+        target = "gpu"
+
+        def run_impl(self):
+            cfg = self.get_config()
+            got = handoff.resolve_device_arrays(cfg["handoff_path"])["vol"]
+            seen["on_device"] = isinstance(got, torch.Tensor) and got.is_cuda
+            seen["resolved"] = device_pool.snapshot()
+            if not isinstance(got, torch.Tensor):
+                got = np.array(got)  # the memory rung: the sweep uploads it
+            out = sharded_slab_sweep(got, slab_edt, extent, halo, batch=8, fill=0.0, keep_on_device=True,
+                                     device=self.device)
+            self.save_handoff_device_arrays(cfg["final_path"], out=out)
+            return {}
+
+    def run(tag, env):
+        d = os.path.join(root, f"device-{tag}")
+        os.makedirs(os.path.join(d, "cfg"))
+        with open(os.path.join(d, "cfg", "global.config"), "w") as fh:
+            json.dump({"memory_handoffs": True, "device_handoffs": True}, fh)
+        kw = dict(tmp_folder=os.path.join(d, "tmp"), config_dir=os.path.join(d, "cfg"),
+                  handoff_path=os.path.join(d, "vol.npz"), final_path=os.path.join(d, "out.npz"))
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        handoff.reset()
+        try:
+            K.reset_counts()
+            snap, hsnap = device_pool.snapshot(), handoff.snapshot()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = run_dag([Producer(**kw)]) and run_dag([Consumer(**kw)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if not ok:
+                raise AssertionError(f"fusion device rung {tag}: the DAG failed")
+            # publish -> resolve: from before the producer to the consumer's resolve
+            hop = {k: seen["resolved"][k] - snap[k] for k in snap}
+            dev, hd = device_pool.delta(snap), handoff.delta(hsnap)
+            launches = dict(K.LAUNCHES)
+            on_device = seen["on_device"]
+            final = handoff.resolve_device_arrays(kw["final_path"])["out"]
+            final = final if isinstance(final, torch.Tensor) else torch.from_numpy(np.array(final))
+            final = final.cuda()
+        finally:
+            handoff.reset()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        return dict(wall_s=wall, hop=hop, dev=dev, handoff=hd, launches=launches, on_device=on_device, final=final)
+
+    fused = run("fused", {})
+    d, h = fused["dev"], fused["hop"]
+    if not fused["on_device"] or h["device_handoffs_served"] != 1 or h["h2d_bytes"] or h["d2h_bytes"] \
+            or d["h2d_bytes"] or d["d2h_bytes"]:
+        raise AssertionError(f"fusion device rung: payload on the card {fused['on_device']}, publish -> resolve "
+                             f"{h}, whole DAG {d}")
+    if not fused["launches"].get("edt_cascade"):
+        raise AssertionError("fusion device rung: the slab sweep launched no B3")
+    twin = run("kill-switch", {"CTT_DEVICE_POOL": "0"})
+    require_equal("fusion device rung: fused vs CTT_DEVICE_POOL=0", fused["final"], twin["final"])
+    # off the rung the producer's crop and the consumer's output each leave the card once
+    if twin["dev"]["d2h_bytes"] != 2 * payload_bytes:
+        raise AssertionError(f"fusion device rung (CTT_DEVICE_POOL=0): d2h {twin['dev']['d2h_bytes']} B, "
+                             f"expected {2 * payload_bytes}")
+    staged = run("small-budget", {"CTT_DEVICE_POOL_BYTES": str(payload_bytes // 2)})
+    s = staged["hop"]
+    if staged["on_device"] or s["host_staged_fallbacks"] != 1 or s["d2h_bytes"] != payload_bytes:
+        raise AssertionError(f"fusion device rung (budget {payload_bytes // 2} B): not staged to the memory rung: {s}")
+    require_equal("fusion device rung: small budget vs fused", staged["final"], fused["final"])
+    # two payloads under 1.5 of them: publishing the second demotes the first
+    os.environ["CTT_DEVICE_POOL_BYTES"] = str(payload_bytes * 3 // 2)
+    try:
+        handoff.reset()
+        snap, hsnap = device_pool.snapshot(), handoff.snapshot()
+        pa, pb = os.path.join(root, "a.npz"), os.path.join(root, "b.npz")
+        handoff.publish_device_arrays(pa, {"vol": crop}, producer="fusion.0")
+        handoff.publish_device_arrays(pb, {"vol": crop + 1}, producer="fusion.0")
+        dem, hdem = device_pool.delta(snap), handoff.delta(hsnap)
+        back = torch.from_numpy(np.array(handoff.resolve_device_arrays(pa)["vol"])).cuda()
+        live = handoff.resolve_device_arrays(pb)["vol"]
+    finally:
+        os.environ.pop("CTT_DEVICE_POOL_BYTES", None)
+        handoff.reset()
+    if hdem["device_handoffs_demoted"] != 1 or dem["d2h_bytes"] != payload_bytes or not live.is_cuda:
+        raise AssertionError(f"fusion device rung: no demotion under 1.5 payloads: {hdem}, {dem}")
+    require_equal("fusion device rung: demoted payload", back, crop)
+    log("fusion", f"device rung, {(n,) * 3} float32 ({payload_bytes} B) published on the card, resolved by the "
+                  f"consumer's sharded_slab_sweep (extent {extent}, halo {halo}, B3 a slab, keep_on_device): publish "
+                  f"-> resolve served {int(h['device_handoffs_served'])}, h2d {int(h['h2d_bytes'])}, d2h "
+                  f"{int(h['d2h_bytes'])}; the whole DAG (the output published on the card too) bytes_not_staged "
+                  f"{int(d['bytes_not_staged'])}, h2d {int(d['h2d_bytes'])}, d2h {int(d['d2h_bytes'])}, B3 launches "
+                  f"{fused['launches'].get('edt_cascade', 0)}, {fused['wall_s']:.3f} s; equal to the "
+                  f"CTT_DEVICE_POOL=0 run ({twin['wall_s']:.3f} s, h2d {int(twin['dev']['h2d_bytes'])}, d2h "
+                  f"{int(twin['dev']['d2h_bytes'])}); budget {payload_bytes // 2} B: staged to the memory rung "
+                  f"(host_staged_fallbacks {int(s['host_staged_fallbacks'])}, d2h {int(s['d2h_bytes'])}, h2d "
+                  f"{int(s['h2d_bytes'])}), equal; budget {payload_bytes * 3 // 2} B, two payloads: "
+                  f"device_handoffs_demoted {int(hdem['device_handoffs_demoted'])}, d2h {int(dem['d2h_bytes'])}, "
+                  f"the demoted payload equal")
+
+
 # the H100 SXM data sheet's dense bfloat16 tensor rate (the FLOP bound of the U-Net)
 BF16_FLOPS_PER_S = 989e12
 # one interior block and the far corner of the 4x4x4 grid of 128^3 blocks
@@ -1369,6 +1746,7 @@ def main() -> int:
     mem, auto = phase_blockwise(K, vol, ref, rows)
     phase_sweeps(K, mem, auto, main_s_per_voxel, rows)
     phase_multicut(K, vol, ws_crop, mem, rows)
+    phase_fusion(K, vol, rows)
     phase_inference(K, vol, rows, args.seed)
 
     log("done", f"{time.perf_counter() - t_start:.1f}s")

@@ -18,6 +18,16 @@ Files written by either package read back bit for bit in the other.
 ``memory://`` datasets live in a process-wide registry, as in the
 reference (without its fault-injection and checksum hooks).  N5 and HDF5
 are refused (ROADMAP Queue A item 6, still open).
+
+:class:`HandoffDataset` is the in-memory twin of a chunked dataset that
+the task-graph fusion layer (:mod:`..runtime.handoff`) hands from a
+producer task to its consumers.  The port's stores carry no digest
+sidecars (the reference's ``.ctt_checksums/`` and ``io/verified.py`` are
+ROADMAP Queue A item 11), so a handoff's integrity rests on in-memory
+CRC32 region digests: every region write records one, ``verify_region``
+checks it, and :meth:`HandoffDataset.spill` reads every chunk it wrote back
+from the store and holds it against the CRC32 of the in-memory bytes
+before it releases them.
 """
 
 from __future__ import annotations
@@ -366,6 +376,152 @@ class MemoryContainer:
 
     def close(self):
         pass
+
+
+class ChunkCorruptionError(RuntimeError):
+    """A region's bytes no longer match the CRC32 digest taken when they
+    were written (or, for a spill, when they left memory)."""
+
+    def __init__(self, label: str, region, expected, actual):
+        self.label = label
+        self.region = tuple(region)
+        self.expected = expected
+        self.actual = actual
+        super().__init__(
+            f"chunk corruption in {label} region " + "x".join(f"[{a}:{b}]" for a, b in self.region)
+            + f": stored digest {expected}, read digest {actual}"
+        )
+
+
+def _crc(arr: np.ndarray) -> int:
+    return zlib.crc32(np.ascontiguousarray(arr).tobytes())
+
+
+def _regions_overlap(r1, r2) -> bool:
+    return len(r1) == len(r2) and all(a1 < b2 and a2 < b1 for (a1, b1), (a2, b2) in zip(r1, r2))
+
+
+class HandoffDataset:
+    """A ``memory://``-backed handoff twin of a chunked storage dataset.
+
+    Producer tasks write blocks into host RAM through the port's dataset
+    surface (``shape``, ``dtype``, ``ndim``, ``chunks``, ``__getitem__``
+    returning a copy, ``__setitem__``), and consumers resolve the live
+    handle through :mod:`..runtime.handoff` instead of opening the store.
+
+    - **Integrity**: each write of a whole box records the CRC32 of the
+      written bytes for that region (a partial overwrite drops the digests
+      it overlaps); :meth:`verify_region` re-reads a region and checks it.
+    - **Spill**: :meth:`spill` writes the array chunk by chunk through the
+      real dataset's write path (``store_factory()``), reads every chunk
+      back against the CRC32 of its in-memory bytes, then sends every later
+      access to the stored copy and releases the RAM.  After a spill,
+      storage is the single source of truth.
+    """
+
+    def __init__(self, shape, chunks, dtype, store_factory, label: str, fill_value: int = 0):
+        shape = tuple(int(s) for s in shape)
+        self._arr: Optional[np.ndarray] = np.full(shape, fill_value, dtype=np.dtype(dtype))
+        self.chunks = _clamp_chunks(chunks, shape)
+        self._digests: Dict[tuple, int] = {}
+        self._lock = threading.Lock()
+        self._label = label
+        self._store_factory = store_factory
+        self._spilled_ds = None
+        self._spill_started = False
+        # bytes counted into the registry's bytes_not_stored; a spill
+        # reconciles them (they did reach storage)
+        self.not_stored_bytes = 0
+
+    # every accessor snapshots self._arr before branching: a concurrent
+    # spill publishes the storage delegate and then drops the array, so a
+    # reader holds its own reference instead of re-reading the attribute
+
+    @property
+    def shape(self):
+        arr = self._arr
+        return tuple(arr.shape) if arr is not None else tuple(self._spilled_ds.shape)
+
+    @property
+    def dtype(self):
+        arr = self._arr
+        return arr.dtype if arr is not None else self._spilled_ds.dtype
+
+    ndim = property(lambda self: len(self.shape))
+
+    def __getitem__(self, bb):
+        arr = self._arr
+        if arr is None:
+            return self._spilled_ds[bb]
+        return arr[bb].copy()
+
+    def __setitem__(self, bb, value):
+        arr = self._arr
+        if arr is None:
+            self._spilled_ds[bb] = value
+            return
+        value = np.asarray(value, dtype=arr.dtype)
+        arr[bb] = value
+        region, squeeze = _region(bb, arr.shape)
+        whole = not squeeze and value.shape == tuple(b - a for a, b in region)
+        with self._lock:
+            for r in [r for r in self._digests if _regions_overlap(r, region)]:
+                del self._digests[r]
+            if whole:
+                self._digests[region] = _crc(value)
+            self.not_stored_bytes += int(value.nbytes)
+        from ..runtime import handoff as _handoff
+
+        _handoff.get_registry().bump("bytes_not_stored", int(value.nbytes))
+
+    def verify_region(self, bb) -> None:
+        """Check a written region against its digest; raises
+        :class:`ChunkCorruptionError` on a mismatch, no-op where no digest
+        was recorded (or after a spill, whose read-back already checked the
+        stored bytes)."""
+        arr = self._arr
+        if arr is None:
+            return
+        region, _ = _region(bb, arr.shape)
+        with self._lock:
+            want = self._digests.get(region)
+        if want is None:
+            return
+        got = _crc(arr[tuple(slice(a, b) for a, b in region)])
+        if got != want:
+            raise ChunkCorruptionError(self._label, region, want, got)
+
+    def spill(self) -> int:
+        """Flush to the storage spill path and delegate from now on.  Every
+        chunk goes through the real dataset's write path and is read back
+        against the CRC32 of its in-memory bytes before the RAM is released.
+        Returns the bytes freed (0 when already spilled or spilling)."""
+        with self._lock:
+            if self._spill_started:
+                return 0
+            self._spill_started = True
+        try:
+            arr = self._arr
+            ds = self._store_factory()
+            for begin in itertools.product(*[range(0, s, c) for s, c in zip(arr.shape, self.chunks)]):
+                bb = tuple(slice(b, min(b + c, s)) for b, c, s in zip(begin, self.chunks, arr.shape))
+                want = _crc(arr[bb])
+                ds[bb] = arr[bb]
+                got = _crc(np.asarray(ds[bb], dtype=arr.dtype))
+                if got != want:
+                    raise ChunkCorruptionError(f"{self._label} (spill)", [(s.start, s.stop) for s in bb], want, got)
+        except BaseException:
+            # a half-written flush stays retriable: the next attempt
+            # re-writes every region
+            with self._lock:
+                self._spill_started = False
+            raise
+        freed = int(arr.nbytes)
+        # publish the delegate before dropping the array: concurrent readers
+        # hold either the array (still valid bytes) or see the stored copy
+        self._spilled_ds = ds
+        self._arr = None
+        return freed
 
 
 def open_container(path: str, mode: str = "a"):

@@ -31,8 +31,19 @@ is ordered before any later ``index_copy_``.
 
 Counters follow the reference's snapshot/delta pattern (``h2d_bytes``,
 ``d2h_bytes``, ``device_pool_hits``/``misses``/``evictions``,
-``bytes_not_staged``, ...).  ``d2h_bytes`` is recorded here but bumped by
-the executor's device-to-host copies.
+``bytes_not_staged``, ``device_handoffs_served``,
+``host_staged_fallbacks``); the task runtime merges each task's delta
+into ``io_metrics.json``.  ``d2h_bytes``, ``device_handoffs_served`` and
+``bytes_not_staged`` are recorded here but bumped by the executor's
+device-to-host copies, the handoff registry's device rung
+(:mod:`..runtime.handoff`: its demotions, served payloads and the
+``host_staged_fallbacks`` of a publish that fell to the memory rung) and
+the slab sweep's device feed.  One counter plane for the whole
+device-resident data path; the registry keeps its own
+``device_handoffs_published``/``_served``/``_demoted``.
+:func:`device_pool_enabled` (``CTT_DEVICE_POOL=0``) switches off the
+page pool and the device rung of the handoffs alike, and the rung's
+payloads share :func:`device_pool_budget`'s envelope.
 """
 
 from __future__ import annotations
@@ -97,8 +108,9 @@ def record_d2h(nbytes: int) -> None:
 
 
 def device_pool_enabled() -> bool:
-    """Process-level kill switch of the resident page pool:
-    ``CTT_DEVICE_POOL=0``."""
+    """Process-level kill switch of the whole device-resident data plane,
+    the resident page pool and the device handoffs: ``CTT_DEVICE_POOL=0``.
+    Tasks also gate on their ``device_pool`` / ``device_handoffs`` knobs."""
     return os.environ.get("CTT_DEVICE_POOL", "1").lower() not in ("0", "false", "off")
 
 

@@ -21,12 +21,26 @@ on one device.  Two sweep shapes, bit-identical to each other:
 
 Loads and stores retry with capped exponential backoff; a block whose
 load, kernel, validation or store still fails is quarantined and re-run
-once, alone, after the sweep.  A sharded batch whose call raises
+once, alone, after the sweep (a block that failed for want of memory or
+disk first waits up to ``degrade_wait_s`` for headroom,
+``degraded:backpressure``).  A sharded batch whose call raises
 ``torch.OutOfMemoryError`` re-runs its blocks one by one through the same
 kernel (``degraded:unsharded``); any other error quarantines its blocks as
 on the per-block path.  Every failure lands in ``failures.json`` and a
 RuntimeError names every block still failed at the end.  A kernel error is
 never answered by running another implementation.
+
+The admission gate (the reference's ``map_blocks``
+``inflight_byte_budget``): the bytes of blocks loaded but not yet stored
+are capped at ``inflight_byte_budget`` (None: a quarter of MemAvailable
+at the sweep's start, less the live in-memory handoff bytes, floored at a
+quarter of it; the reference also subtracts its decompressed-chunk cache,
+which the port does not have; 0: off).  Before each call to the device
+the dispatch thread drains pending stores while the budget is short or
+host memory (below ``MEM_HEADROOM_FRACTION`` available) or the disk under
+the failure manifest (below ``DISK_HEADROOM_FRACTION`` free) runs low;
+low host memory first flushes completed handoffs to storage
+(:func:`~.handoff.spill_for_headroom`).
 
 Not ported (ROADMAP Queue A item 11), and refused when asked for: the
 hung-block watchdog and speculation (``block_deadline_s``),
@@ -37,6 +51,8 @@ verification (``store_verify_fn``).
 from __future__ import annotations
 
 import contextlib
+import errno
+import os
 import threading
 import time
 import traceback
@@ -52,8 +68,14 @@ from ..parallel import device_pool as device_pool_mod
 from ..parallel.batch_shard import batched_sweep, ragged_sweep, resolve_sharded_batch, use_sharded_sweep
 from ..utils import function_utils as fu
 from ..utils.volume_utils import Block
+from . import handoff as handoff_mod
+from .supervision import disk_free_fraction, host_mem_available_bytes, host_mem_available_fraction
 
 TARGET_DEVICES = {"local": "cpu", "gpu": "cuda"}
+# the admission gate's floors: host memory available, and disk free under
+# the failure manifest, as fractions of their totals
+MEM_HEADROOM_FRACTION = 0.05
+DISK_HEADROOM_FRACTION = 0.02
 
 
 def target_device(target: str) -> torch.device:
@@ -128,6 +150,27 @@ def validate_labels(block: Block, out) -> Optional[str]:
     return None
 
 
+_DISK_FULL_ERRNOS = (errno.ENOSPC, errno.EDQUOT)
+
+
+def classify_resource_error(exc: BaseException) -> Optional[str]:
+    """``"oom"`` / ``"enospc"`` when ``exc`` (or anything on its cause or
+    context chain) is a resource exhaustion: ``MemoryError``,
+    ``torch.OutOfMemoryError``, a ``RuntimeError`` naming
+    ``RESOURCE_EXHAUSTED``, or an ``OSError`` with ENOSPC/EDQUOT.  Else None."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        if isinstance(exc, (MemoryError, torch.OutOfMemoryError)):
+            return "oom"
+        if isinstance(exc, OSError) and exc.errno in _DISK_FULL_ERRNOS:
+            return "enospc"
+        if isinstance(exc, RuntimeError) and "RESOURCE_EXHAUSTED" in str(exc):
+            return "oom"
+        exc = exc.__cause__ or exc.__context__
+    return None
+
+
 def _refuse(what: str, item: int) -> None:
     raise NotImplementedError(f"{what} is not ported: ROADMAP Queue A item {item}")
 
@@ -143,6 +186,8 @@ def sweep_config(cfg) -> Dict[str, Any]:
         device_pool_bytes=cfg.get("device_pool_bytes"),
         block_deadline_s=cfg.get("block_deadline_s"),
         splittable=bool(cfg.get("allow_block_split")),
+        degrade_wait_s=float(cfg.get("degrade_wait_s", 5.0)),
+        inflight_byte_budget=cfg.get("inflight_byte_budget"),
     )
 
 
@@ -192,17 +237,20 @@ class BlockwiseExecutor:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _retry(self, fn: Callable) -> Tuple[Any, int, Optional[str]]:
-        """``(value, attempts, traceback or None)`` of ``fn`` with retries."""
-        last_tb = None
+    def _retry(self, fn: Callable) -> Tuple[Any, int, Optional[str], Optional[str]]:
+        """``(value, attempts, traceback or None, resource class or None)``
+        of ``fn`` with retries (:func:`classify_resource_error` of the last
+        error)."""
+        last_tb, resource = None, None
         for k in range(self.max_retries + 1):
             try:
-                return fn(), k + 1, None
-            except Exception:
+                return fn(), k + 1, None, None
+            except Exception as e:
                 last_tb = fu.cap_traceback(traceback.format_exc())
+                resource = classify_resource_error(e)
                 if k < self.max_retries:
                     time.sleep(fu.backoff_delay(k, self.backoff_base, self.backoff_max))
-        return None, self.max_retries + 1, last_tb
+        return None, self.max_retries + 1, last_tb, resource
 
     def map_blocks(
         self,
@@ -227,6 +275,8 @@ class BlockwiseExecutor:
         block_deadline_s: Optional[float] = None,
         store_verify_fn: Optional[Callable[[Block], None]] = None,
         splittable: bool = False,
+        degrade_wait_s: float = 5.0,
+        inflight_byte_budget: Optional[int] = None,
     ) -> Dict[str, Any]:
         """Execute ``kernel`` over ``blocks``; see the module docstring.
 
@@ -247,12 +297,18 @@ class BlockwiseExecutor:
         resident device page pool (``CTT_DEVICE_POOL=0`` switches it off);
         ``device_pool_bytes`` is its budget.
 
+        ``inflight_byte_budget`` drives the admission gate (module
+        docstring); ``degrade_wait_s`` bounds the headroom wait before a
+        resource-starved block's re-attempt.
+
         Returns a summary: the summed host-clock seconds of the sweep's
         stages (``load_s`` and ``store_s`` on the IO threads; ``h2d_s``,
         ``kernel_s`` ended by a device sync, and ``d2h_s`` on the dispatch
         thread), the dispatch counters (``n_dispatches``,
         ``batches_dispatched``, ``blocks_dispatched``, ``dispatch_wait_s``,
         ``ragged_batches``, ``lanes_padded``, ``pages_in_use``), the
+        admission gate's ``inflight_byte_budget`` and
+        ``n_backpressure_waits`` (dispatches that drained stores first), the
         device-plane counters (``h2d_bytes``, ``d2h_bytes``,
         ``device_pool_hits``/``misses``/``evictions``,
         ``device_pool_resident_bytes``), and on the sharded path the rung
@@ -297,6 +353,69 @@ class BlockwiseExecutor:
         sharded_failed: set = set()
         lock = threading.Lock()
 
+        # -- the admission gate (reference executor.py:1610-1690) ------------
+        # in flight = loaded but not yet stored; the budget caps it.  The
+        # reference's auto budget also subtracts its decompressed-chunk
+        # cache, which the port does not have.
+        if inflight_byte_budget is None:
+            avail = host_mem_available_bytes()
+            budget = int(avail * 0.25) if avail else 0
+            live_handoff = handoff_mod.live_bytes()
+            if budget and live_handoff:
+                # live in-memory handoffs share the host envelope, floored
+                # at a quarter of it so small hosts keep making progress
+                budget = max(budget - live_handoff, budget // 4)
+        else:
+            budget = int(inflight_byte_budget)
+        inflight = {"bytes": 0}
+        backpressure = {"waits": 0}
+        headroom_path = os.path.dirname(os.path.abspath(failures_path)) if failures_path else None
+
+        def release(nbytes: int) -> None:
+            with lock:
+                inflight["bytes"] -= nbytes
+
+        def admit(nbytes: int, writes: List[Future]) -> None:
+            """Drain pending stores (oldest first) while ``nbytes`` more
+            would pass the budget or host memory or disk runs low; the
+            current batch is always admitted.  Low host memory first
+            flushes completed handoffs to storage."""
+            mem = host_mem_available_fraction()
+            if mem is not None and mem < MEM_HEADROOM_FRACTION:
+                handoff_mod.spill_for_headroom()
+            waited = False
+            while writes:
+                with lock:
+                    over = budget and inflight["bytes"] + nbytes > budget
+                mem = host_mem_available_fraction()
+                low_mem = mem is not None and mem < MEM_HEADROOM_FRACTION
+                disk = disk_free_fraction(headroom_path) if headroom_path else None
+                low_disk = disk is not None and disk < DISK_HEADROOM_FRACTION
+                if not (over or low_mem or low_disk):
+                    break
+                waited = True
+                writes.pop(0).result()
+            if waited:
+                backpressure["waits"] += 1
+            with lock:
+                inflight["bytes"] += nbytes
+
+        def wait_for_headroom(resource: str) -> None:
+            """Up to ``degrade_wait_s`` for the exhausted resource to
+            recover before a re-attempt; returns at once on a healthy (or
+            unmeasurable) host."""
+            deadline = time.monotonic() + max(0.0, degrade_wait_s)
+            while time.monotonic() < deadline:
+                if resource == "enospc":
+                    frac = disk_free_fraction(headroom_path) if headroom_path else None
+                    if frac is None or frac > DISK_HEADROOM_FRACTION:
+                        return
+                else:
+                    frac = host_mem_available_fraction()
+                    if frac is None or frac > MEM_HEADROOM_FRACTION:
+                        return
+                time.sleep(min(0.2, max(0.01, degrade_wait_s / 20.0)))
+
         def add(key: str, dt: float) -> None:
             with lock:
                 stats[key] += dt
@@ -313,7 +432,7 @@ class BlockwiseExecutor:
                     counts["lanes_padded"] += rb.lanes_padded
                     counts["pages_in_use"] += rb.pages_in_use
 
-        def note_failure(block, site, attempts, error, quarantine):
+        def note_failure(block, site, attempts, error, quarantine, resource=None):
             with lock:
                 rec = failures.setdefault(int(block.block_id), {
                     "block_id": int(block.block_id), "sites": {}, "error": None,
@@ -322,16 +441,18 @@ class BlockwiseExecutor:
                 rec["sites"][site] = rec["sites"].get(site, 0) + int(attempts)
                 if error is not None:
                     rec["error"] = error
+                if resource is not None:
+                    rec["resource"] = resource
                 if quarantine:
                     rec["quarantined"] = True
                     rec["resolved"] = False
 
         def load_block(block):
             t0 = time.perf_counter()
-            val, attempts, tb = self._retry(lambda: tuple(np.asarray(x) for x in load_fn(block)))
+            val, attempts, tb, resource = self._retry(lambda: tuple(np.asarray(x) for x in load_fn(block)))
             add("load_s", time.perf_counter() - t0)
             if tb is not None:
-                note_failure(block, "load", attempts, tb, quarantine=True)
+                note_failure(block, "load", attempts, tb, quarantine=True, resource=resource)
                 return None
             if attempts > 1:
                 note_failure(block, "load", attempts - 1, None, quarantine=False)
@@ -367,10 +488,10 @@ class BlockwiseExecutor:
                     return
                 if store_fn is not None:
                     t0 = time.perf_counter()
-                    _, attempts, tb = self._retry(lambda: store_fn(block, out))
+                    _, attempts, tb, resource = self._retry(lambda: store_fn(block, out))
                     add("store_s", time.perf_counter() - t0)
                     if tb is not None:
-                        note_failure(block, "store", attempts, tb, quarantine=True)
+                        note_failure(block, "store", attempts, tb, quarantine=True, resource=resource)
                         return
                     if attempts > 1:
                         note_failure(block, "store", attempts - 1, None, quarantine=False)
@@ -389,9 +510,18 @@ class BlockwiseExecutor:
         def execute(block, val) -> Optional[Any]:
             try:
                 return run_kernel(val)
-            except Exception:
-                note_failure(block, "compute", 1, fu.cap_traceback(traceback.format_exc()), quarantine=True)
+            except Exception as e:
+                note_failure(block, "compute", 1, fu.cap_traceback(traceback.format_exc()), quarantine=True,
+                             resource=classify_resource_error(e))
                 return None
+
+        def store_released(block, out, nbytes: int, resolution: Optional[str] = None) -> None:
+            """:func:`handle_output`, then the block's bytes leave the
+            admission gate's in-flight count."""
+            try:
+                handle_output(block, out, resolution)
+            finally:
+                release(nbytes)
 
         def run_unsharded(batch, vals, site, error) -> None:
             """The blocks of a batch the sharded call could not take, one by
@@ -495,31 +625,40 @@ class BlockwiseExecutor:
             padded = vals + [vals[-1]] * (bs - len(vals))
             return ok, "dense", (tuple(np.stack([v[i] for v in padded]) for i in range(n_args)), vals)
 
-        def dispatch_sharded(batch, kind, payload) -> List[Future]:
+        def dispatch_sharded(batch, kind, payload, writes: List[Future]) -> List[Future]:
+            vals = payload if kind == "mixed" else payload[1]
+            sizes = [_tree_nbytes(v) for v in vals]
+            admit(sum(sizes), writes)
             if kind == "mixed":
-                run_unsharded(batch, payload, "pack", "mixed-shape lanes the ragged pool cannot take; "
-                                                      "executed per block")
+                try:
+                    run_unsharded(batch, payload, "pack", "mixed-shape lanes the ragged pool cannot take; "
+                                                          "executed per block")
+                finally:
+                    release(sum(sizes))
                 return []
-            vals = payload[1]
             try:
                 out, rung, rb = run_batch(kind, payload)
             except torch.OutOfMemoryError:
                 tb = fu.cap_traceback(traceback.format_exc())
                 if self.device.type == "cuda":
                     torch.cuda.empty_cache()
-                run_unsharded(batch, vals, "dispatch", tb)
+                try:
+                    run_unsharded(batch, vals, "dispatch", tb)
+                finally:
+                    release(sum(sizes))
                 return []
-            except Exception:
+            except Exception as e:
                 tb = fu.cap_traceback(traceback.format_exc())
                 for blk in batch:
-                    note_failure(blk, "compute", 1, tb, quarantine=True)
+                    note_failure(blk, "compute", 1, tb, quarantine=True, resource=classify_resource_error(e))
                 with lock:
                     sharded_failed.update(int(b.block_id) for b in batch)
+                release(sum(sizes))
                 return []
             note_dispatch(len(batch), rb)
             batch_rungs.append(rung)
             crop = rb.crop if rb is not None else None
-            return [pool.submit(handle_output, blk, _lane(out, j, crop)) for j, blk in enumerate(batch)]
+            return [pool.submit(store_released, blk, _lane(out, j, crop), sizes[j]) for j, blk in enumerate(batch)]
 
         batches = [blocks[i:i + bs] for i in range(0, len(blocks), bs)]
         block_loader = ThreadPoolExecutor(max_workers=self.io_threads) if use_sharded else None
@@ -536,14 +675,18 @@ class BlockwiseExecutor:
                 if use_sharded:
                     batch, kind, payload = loaded
                     if batch:
-                        writes.extend(dispatch_sharded(batch, kind, payload))
+                        writes.extend(dispatch_sharded(batch, kind, payload, writes))
                 else:
                     for block, val in loaded:
                         if val is None:
                             continue
+                        nbytes = _tree_nbytes(val)
+                        admit(nbytes, writes)
                         out = execute(block, val)
                         if out is not None:
-                            writes.append(pool.submit(handle_output, block, out))
+                            writes.append(pool.submit(store_released, block, out, nbytes))
+                        else:
+                            release(nbytes)
                 # bounded store window: each pending store holds a block's outputs
                 while len(writes) > 2 * bs:
                     writes.pop(0).result()
@@ -553,15 +696,21 @@ class BlockwiseExecutor:
         # quarantine pass: each block still unresolved, once more alone
         quarantined = sorted(b for b, rec in failures.items() if rec["quarantined"])
         for block in [b for b in blocks if int(b.block_id) in quarantined]:
-            if failures[int(block.block_id)]["resolved"]:
+            rec = failures[int(block.block_id)]
+            if rec["resolved"]:
                 continue
+            # a block starved of memory or disk waits for headroom first
+            resource = rec.get("resource")
+            if resource is not None:
+                wait_for_headroom(resource)
             val = load_block(block)
             if val is None:
                 continue
             out = execute(block, val)
             if out is not None:
-                handle_output(block, out, resolution="degraded:unsharded"
-                              if int(block.block_id) in sharded_failed else None)
+                resolution = "degraded:unsharded" if int(block.block_id) in sharded_failed else \
+                    ("degraded:backpressure" if resource is not None else None)
+                handle_output(block, out, resolution=resolution)
 
         unresolved = sorted(b for b, rec in failures.items() if not rec["resolved"])
         if failures_path and failures:
@@ -582,6 +731,7 @@ class BlockwiseExecutor:
                                         "device_pool_evictions", "host_staged_fallbacks")},
             "device_pool": "on" if dev_pool is not None else "off",
             "device_pool_resident_bytes": dev_pool.resident_bytes() if dev_pool is not None else 0,
+            "inflight_byte_budget": budget, "n_backpressure_waits": backpressure["waits"],
         }
         if use_sharded:
             summary["sharded_batch"] = bs

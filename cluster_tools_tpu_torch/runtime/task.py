@@ -12,8 +12,17 @@ Targets: ``local`` runs on the CPU (the caller asks for it, as the tests
 do); ``gpu`` runs on the card and is the default of :class:`WorkflowBase`,
 so a workflow that names no target raises where there is no card.  The
 reference's cluster targets (``slurm``, ``lsf``) are ROADMAP Queue A item
-11.  Task-graph fusion (``memory_handoffs``, ``device_handoffs``) is not
-ported (items 9 and 11): only the storage rung of the handoff methods is.
+11.
+
+Task-graph fusion (``memory_handoffs``, ``device_handoffs``; ROADMAP item
+9b): outputs declared through :meth:`BaseTask.handoff_dataset`,
+:meth:`BaseTask.save_handoff_arrays` and
+:meth:`BaseTask.save_handoff_device_arrays` are :class:`MemoryTarget` targets,
+kept in host or device memory by :mod:`.handoff` for the consumer tasks,
+with storage as the fallback.  The success manifest records them, and
+:meth:`BaseTask.complete` re-runs a producer whose memory-only output is
+gone.  Each task's handoff and device-plane counter deltas go into its
+manifest and into ``<tmp_folder>/io_metrics.json``.
 """
 
 from __future__ import annotations
@@ -29,6 +38,23 @@ from typing import Any, Dict, List, Optional, Sequence
 from ..utils import function_utils as fu
 from ..utils import task_utils as tu
 from .executor import target_device
+
+
+class MemoryTarget:
+    """A typed in-memory output target: the declaration that a task's
+    output lives in memory under the identity of the dataset or artifact
+    a storage consumer would have opened, with storage as the fallback.
+    Declared through :meth:`BaseTask.handoff_dataset`,
+    :meth:`BaseTask.save_handoff_arrays` or
+    :meth:`BaseTask.save_handoff_device_arrays`; backed by the registry of
+    :mod:`.handoff`."""
+
+    def __init__(self, entry):
+        self.entry = entry
+
+    @property
+    def identity(self) -> str:
+        return self.entry.identity
 
 
 class SuccessTarget:
@@ -79,6 +105,9 @@ class BaseTask:
         ).hexdigest()[:8]
         self.uid = f"{self.task_name}.{h}"
         self.logger = fu.get_logger(self.uid, os.path.join(tmp_folder, f"{self.uid}.log"))
+        # in-memory output targets declared during run_impl; run() writes
+        # them into the success manifest
+        self._memory_targets: List[MemoryTarget] = []
 
     # -- config ------------------------------------------------------------
     @staticmethod
@@ -96,7 +125,11 @@ class BaseTask:
         ``sharded_batch``, and ``device_pool`` / ``device_pool_bytes`` (the
         resident page pool of ragged sweeps).  A task config may also set
         ``ragged`` (``auto``/``on``/``off``), which the executor takes as
-        the reference's ``map_blocks`` does.  The others select machinery
+        the reference's ``map_blocks`` does.  ``inflight_byte_budget``
+        (None: a quarter of MemAvailable less the live handoff bytes; 0:
+        off) and ``degrade_wait_s`` go to the executor's admission gate;
+        ``memory_handoffs`` and ``device_handoffs`` (default off) turn on
+        task-graph fusion (:mod:`.handoff`).  The others select machinery
         that is not ported and are refused when turned on."""
         return {
             "max_retries": 0,
@@ -155,19 +188,72 @@ class BaseTask:
         raise NotImplementedError
 
     def run(self):
+        from ..parallel import device_pool as device_pool_mod
+        from . import handoff as handoff_mod
+
         self.logger.info(f"start {self.task_name} (target={self.target})")
+        handoff_snap = handoff_mod.snapshot()
+        device_snap = device_pool_mod.snapshot()
         t0 = time.perf_counter()
         result = self.run_impl() or {}
+        handoff_records = self._finalize_handoffs()
         result["runtime_s"] = time.perf_counter() - t0
         result["target"] = self.target
+        if handoff_records:
+            # the resume contract of complete(): a memory-only record whose
+            # handle died with this process re-runs the task
+            result["handoffs"] = handoff_records
+        # the counters' movement during this task, in the manifest and
+        # merged additively into the run's io_metrics.json
+        io_metrics = {}
+        for metrics in (handoff_mod.delta(handoff_snap), device_pool_mod.delta(device_snap)):
+            if any(metrics.values()):
+                io_metrics.update(metrics)
+        if io_metrics:
+            result["io_metrics"] = io_metrics
+            try:
+                fu.record_io_metrics(fu.io_metrics_path(self.tmp_folder), self.uid, io_metrics)
+            except Exception:
+                self.logger.warning(f"io_metrics recording failed:\n{traceback.format_exc()}")
         self.output().write(result)
         self.logger.info(f"done {self.task_name} in {result['runtime_s']:.2f}s")
 
     def complete(self) -> bool:
-        return self.output().exists()
+        """The success manifest exists and every memory-only output it
+        records is still resolvable in this process's registry (live, or
+        spilled since).  A memory-only manifest whose handle is gone (a new
+        process) or that belongs to another request's namespace is removed
+        with its block markers, so the DAG re-runs the producer."""
+        doc = fu.read_json_if_valid(self.output().path)
+        if doc is None:
+            return False
+        stale = [h for h in doc.get("handoffs", []) if not h.get("stored")]
+        if stale:
+            from . import handoff
+
+            stale = [h for h in stale
+                     if not (handoff.in_current_namespace(h.get("identity"))
+                             and handoff.is_resolvable(h.get("identity")))]
+        if not stale:
+            return True
+        self.logger.info(f"{self.task_name}: {len(stale)} memory-only handoff output(s) no longer live "
+                         "(a new process?): re-running the task")
+        try:
+            os.remove(self.output().path)
+        except OSError:
+            pass
+        fu.clear_block_markers(self.tmp_folder, self.uid)
+        return False
 
     # -- block-level resume helpers ---------------------------------------
     def blocks_done(self) -> List[int]:
+        # markers stamped by another process's in-memory run describe data
+        # that died with it: cleared whatever this run's storage path
+        from . import handoff
+
+        if handoff.invalidate_stale_markers(self.tmp_folder, self.uid):
+            self.logger.info(f"{self.task_name}: cleared block markers of another process's in-memory run "
+                             "(its outputs no longer exist)")
         return fu.blocks_done(self.tmp_folder, self.uid)
 
     def log_block_success(self, block_id: int):
@@ -184,35 +270,142 @@ class BaseTask:
         fu.clean_up_for_retry(self.tmp_folder, self.uid)
         self.blocks_done()
 
-    # -- handoff targets: the storage rung ---------------------------------
-    def _check_handoffs_off(self) -> None:
-        cfg = self.get_config()
-        for knob in ("memory_handoffs", "device_handoffs"):
-            if cfg.get(knob):
-                raise NotImplementedError(
-                    f"{knob}=True (task-graph fusion) is not ported: ROADMAP Queue A items 9 and 11"
-                )
+    # -- in-memory handoff targets (task-graph fusion) --------------------
+    def _handoffs_on(self) -> bool:
+        """Fusion applies when the ``memory_handoffs`` knob is set, the
+        process switch (``CTT_HANDOFF``) is on and the task crosses no host
+        boundary (cluster targets, which the port refuses anyway)."""
+        if self.target in _CLUSTER_TARGETS:
+            return False
+        from . import handoff
+
+        if not handoff.handoff_enabled():
+            return False
+        try:
+            cfg = self.get_config()
+        except Exception:
+            return False
+        return bool(cfg.get("memory_handoffs", False))
+
+    def declare_handoff_producer(self) -> bool:
+        """Call at the top of a task that publishes artifact handoffs from
+        block-grain work (per-block npz/npy under :meth:`host_block_map`):
+        returns whether handoffs are on, and stamps this task's markers
+        with the process token, so a later run in another process clears
+        them before trusting them.  Dataset producers get the same guard
+        from :meth:`handoff_dataset`."""
+        if not self._handoffs_on():
+            return False
+        from . import handoff
+
+        handoff.invalidate_stale_markers(self.tmp_folder, self.uid)
+        handoff.mark_memory_producer(self.tmp_folder, self.uid)
+        return True
 
     def handoff_dataset(self, path, key, shape, chunks, dtype, fill_value: int = 0):
-        """The output dataset: ``file_reader(path).require_dataset(...)``."""
+        """Declare a chunked-volume output as a :class:`MemoryTarget` and
+        return the dataset to write through.  Handoffs off (the default):
+        ``file_reader(path).require_dataset(...)``, the storage path.  On:
+        the in-memory :class:`~..io.containers.HandoffDataset`, unless the
+        target spills at birth (the byte budget, or a spilled predecessor
+        at the same identity), when it is the storage dataset."""
         from ..utils.volume_utils import file_reader
+        from . import handoff
 
-        self._check_handoffs_off()
-        return file_reader(path).require_dataset(key, shape=shape, chunks=chunks, dtype=dtype)
+        if not self._handoffs_on():
+            # an earlier run's live payload must not shadow the fresh
+            # storage bytes this run is about to write
+            handoff.discard(handoff.dataset_identity(path, key))
+            return file_reader(path).require_dataset(key, shape=shape, chunks=chunks, dtype=dtype)
+        # markers stamped by another process's in-memory run are stale on
+        # every acquire path, spill at birth included
+        handoff.invalidate_stale_markers(self.tmp_folder, self.uid)
+        ds, entry = handoff.acquire_dataset(path, key, shape=shape, chunks=chunks, dtype=dtype, producer=self.uid,
+                                            failures_path=self.failures_path, fill_value=fill_value)
+        self._memory_targets.append(MemoryTarget(entry))
+        if not entry.spilled:
+            handoff.mark_memory_producer(self.tmp_folder, self.uid)
+        return ds
 
     def save_handoff_arrays(self, path, **arrays):
-        """Publish named arrays as an ``.npz`` artifact."""
+        """Publish named arrays as the artifact a storage consumer would
+        have loaded from ``path`` (npz): a plain ``np.savez`` with handoffs
+        off, else read-only in host RAM unless the budget writes the file
+        (and its CRC sidecar) through."""
         import numpy as np
 
-        self._check_handoffs_off()
-        np.savez(path, **arrays)
+        from . import handoff
+
+        if not self._handoffs_on():
+            # drop an earlier run's live payload and spill sidecar: the
+            # plain file this run writes is the truth
+            handoff.forget_artifact(path)
+            np.savez(path, **arrays)
+            return
+        entry = handoff.publish_arrays(path, arrays, producer=self.uid, failures_path=self.failures_path)
+        self._memory_targets.append(MemoryTarget(entry))
 
     def save_handoff_array(self, path, array):
-        """Publish one array as an ``.npy`` artifact."""
+        """Single-array (``.npy``) twin of :meth:`save_handoff_arrays`."""
         import numpy as np
 
-        self._check_handoffs_off()
-        np.save(path, array)
+        from . import handoff
+
+        if not self._handoffs_on():
+            handoff.forget_artifact(path)
+            np.save(path, array)
+            return
+        entry = handoff.publish_arrays(path, {"data": array}, producer=self.uid, failures_path=self.failures_path)
+        self._memory_targets.append(MemoryTarget(entry))
+
+    def _device_handoffs_on(self) -> bool:
+        """The device rung: the ``device_handoffs`` knob on top of
+        :meth:`_handoffs_on`, and the ``CTT_DEVICE_POOL`` kill switch."""
+        if not self._handoffs_on():
+            return False
+        from ..parallel import device_pool
+
+        if not device_pool.device_pool_enabled():
+            return False
+        try:
+            cfg = self.get_config()
+        except Exception:
+            return False
+        return bool(cfg.get("device_handoffs", False))
+
+    def save_handoff_device_arrays(self, path, **arrays):
+        """Device-rung twin of :meth:`save_handoff_arrays`: with
+        ``device_handoffs`` on, the named tensors (numpy arrays are uploaded
+        to this task's device) stay in device memory under the artifact
+        identity for :func:`~.handoff.resolve_device_arrays`; otherwise
+        they land on the memory rung or in a plain npz, one device-to-host
+        copy, as :meth:`save_handoff_arrays` takes them."""
+        from . import handoff
+
+        if not self._device_handoffs_on():
+            return self.save_handoff_arrays(path, **{k: _host_array(v) for k, v in arrays.items()})
+        entry = handoff.publish_device_arrays(path, arrays, producer=self.uid, failures_path=self.failures_path,
+                                              device=self.device)
+        self._memory_targets.append(MemoryTarget(entry))
+
+    def save_handoff_device_array(self, path, array):
+        """Single-array (``.npy``) twin of :meth:`save_handoff_device_arrays`."""
+        from . import handoff
+
+        if not self._device_handoffs_on():
+            return self.save_handoff_array(path, _host_array(array))
+        entry = handoff.publish_device_arrays(path, {"data": array}, producer=self.uid,
+                                              failures_path=self.failures_path, device=self.device)
+        self._memory_targets.append(MemoryTarget(entry))
+
+    def _finalize_handoffs(self) -> List[Dict[str, Any]]:
+        """Mark this run's declared targets complete; returns the manifest
+        records :meth:`complete` validates on resume."""
+        if not self._memory_targets:
+            return []
+        from . import handoff
+
+        return handoff.finalize_task(self._memory_targets, self.uid)
 
     def host_block_map(self, block_ids: Sequence[int], process, blocking=None) -> int:
         """Run ``process(block_id)`` for every block without a success marker
@@ -266,6 +459,21 @@ class BaseTask:
                 f"see {self.failures_path}; first tracebacks:\n{detail}"
             )
         return len(todo)
+
+
+def _host_array(a):
+    """A tensor (or array) as a numpy array on the host; a copy off the
+    card counts in the device plane's ``d2h_bytes``."""
+    import numpy as np
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        if a.device.type != "cpu":
+            from ..parallel import device_pool
+
+            device_pool.record_d2h(a.nbytes)
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 _TARGET_SUFFIX = {"local": "Local", "gpu": "GPU"}

@@ -66,6 +66,9 @@ class BlockComponentsBase(BaseTask):
         block_ids = blocks_in_volume(shape, block_shape, cfg.get("roi_begin"), cfg.get("roi_end"))
         out = self.handoff_dataset(cfg["output_path"], cfg["output_key"], shape=shape, chunks=block_shape,
                                    dtype="uint64")
+        # the per-block uniques are block-grain artifact handoffs: stamp the
+        # marker epoch even when the dataset spilled at birth
+        self.declare_handoff_producer()
         done = set(self.blocks_done())
         blocks_all = [blocking.get_block(b) for b in block_ids]
         threshold = cfg.get("threshold")
@@ -207,6 +210,7 @@ class BlockFacesBase(BaseTask):
             raise ValueError(f"connectivity must be in [1, {ndim}]")
         # the half-neighbourhood doubles as the unordered block-direction list
         directions = _neighbor_offsets(ndim, connectivity)
+        self.declare_handoff_producer()
 
         def slab_bbs(block, d):
             """(our-side bb, neighbour-side bb) of the shared boundary."""

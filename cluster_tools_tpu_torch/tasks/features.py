@@ -68,6 +68,7 @@ class BlockEdgeFeaturesBase(BaseTask):
         blocking = Blocking(shape, tuple(cfg["block_shape"]))
         channel = cfg.get("channel")
         dev = self.device
+        self.declare_handoff_producer()
 
         def process(block_id: int):
             block = blocking.get_block(block_id)

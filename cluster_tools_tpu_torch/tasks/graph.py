@@ -71,6 +71,9 @@ class InitialSubGraphsBase(BaseTask):
         shape = ds.shape
         blocking = Blocking(shape, tuple(cfg["block_shape"]))
         dev = self.device
+        # block graphs are published in memory for MergeSubGraphs; stale
+        # markers of another process are invalidated here
+        self.declare_handoff_producer()
 
         def process(block_id: int):
             block = blocking.get_block(block_id)
@@ -132,6 +135,7 @@ class MapEdgeIdsBase(BaseTask):
         shape = handoff.resolve_dataset(cfg["input_path"], cfg["input_key"]).shape
         _, uv_global, _, _ = load_global_graph(self.tmp_folder)
         find = edge_id_finder(uv_global)
+        self.declare_handoff_producer()
 
         def process(block_id: int):
             uv = handoff.load_arrays(block_graph_path(self.tmp_folder, block_id))["uv"]

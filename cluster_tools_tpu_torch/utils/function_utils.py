@@ -1,4 +1,5 @@
-"""Logging, backoff, failure manifests and block success markers.
+"""Logging, backoff, failure and IO-metrics manifests and block success
+markers.
 
 Port (a copy) of the parts of ``cluster_tools_tpu/utils/function_utils.py``
 that the task runtime and the block executor call.  Completion is
@@ -135,6 +136,47 @@ def record_failures(path: str, task_name: str, records) -> None:
             existing[(task_name, rec.get("block_id"))] = rec
         merged = sorted(existing.values(), key=lambda r: (str(r.get("task")), r.get("block_id") or 0))
         atomic_write_json(path, {"version": FAILURES_SCHEMA_VERSION, "records": merged})
+
+
+def io_metrics_path(tmp_folder: str) -> str:
+    """The per-run IO metrics manifest, next to ``failures.json``."""
+    return os.path.join(tmp_folder, "io_metrics.json")
+
+
+def record_io_metrics(path: str, task_name: str, metrics) -> None:
+    """Merge one task's counter deltas into ``io_metrics.json`` (the
+    reference's layout: ``{"version": 2, "tasks": {uid: {counter: total}},
+    "provenance": {uid: {"host:pid": {"host", "pid", "last_updated",
+    "merges", "counters"}}}}``).  Counters merge additively per task uid,
+    so a resumed run's second pass accumulates into one total; each merge
+    stamps the writing process's provenance entry.  Same file lock as
+    :func:`record_failures`."""
+    with file_lock(path):
+        doc = read_json_if_valid(path) or {}
+        doc["version"] = max(2, int(doc.get("version") or 1))
+        tasks = doc.setdefault("tasks", {})
+        cur = dict(tasks.get(task_name) or {})
+        moved = []
+        for k, v in dict(metrics).items():
+            if isinstance(v, (int, float)) and isinstance(cur.get(k), (int, float)):
+                cur[k] = cur[k] + v
+            else:
+                cur[k] = v
+            if not isinstance(v, (int, float)) or v:
+                moved.append(str(k))
+        tasks[task_name] = cur
+        host, pid = socket.gethostname(), os.getpid()
+        prov = doc.setdefault("provenance", {}).setdefault(task_name, {})
+        entry = dict(prov.get(f"{host}:{pid}") or {})
+        entry.update({
+            "host": host,
+            "pid": pid,
+            "last_updated": datetime.datetime.now().isoformat(),
+            "merges": int(entry.get("merges", 0)) + 1,
+            "counters": sorted(set(entry.get("counters") or []) | set(moved)),
+        })
+        prov[f"{host}:{pid}"] = entry
+        atomic_write_json(path, doc)
 
 
 def _marker_dir(tmp_folder: str, task_name: str) -> str:
