@@ -51,6 +51,29 @@ Phases, each one line of output, each raising on failure:
 9. tiled seeds: the whole step with ``seed_mode="tiled"`` at 128x256x256
    (B1 and B4 also run in the seeds stage), ``impl="cuda"`` against
    ``impl="torch"`` bit for bit, with its own launch counts;
+9b. sharded (``phase_sharded``): the ws+cc step on a mesh of shards on
+    the card (ROADMAP item 10a).  ``(2, 512, 512, 512)`` (seeds 0 and 1)
+    on a dp=2 x sp=4 mesh, 8 shards on the one card, the main path's
+    configuration: the fused step once to warm up and once timed, the split
+    step once to warm up and three times timed by stage (launches,
+    collective counters and peak memory of each timed run), checked (1)
+    fused == split bit for bit, (2) == the same 8-shard step with
+    ``impl="torch"``, (3) each volume's cc = the single-device step's cc
+    partition and ``n_foreground`` = its sum exactly; every launch of one
+    split run replayed against its twin.  (4) One volume on sp = (z, y) =
+    2 x 2 with ``exact_edt``, ``stitch_ws_threshold=0.5`` and
+    ``max_labels_per_shard``, at 512^3: cc and ``n_foreground`` against
+    the single-device step, ws, cc, ``n_foreground`` and overflow against
+    its ``impl="torch"`` run, and every launch of one run replayed against
+    its twin (the exact EDT is capped at ``dt_max_distance``: B3 at radius
+    32 along the flipped axes).  (5) The mesh-exact squared EDT of a 256^3
+    mask on 2 x 2 = ``round(scipy EDT ** 2)``, its B3 launches at full
+    radius timed against their bound.  (6) ``launch_workers(2, ...,
+    devices_per_process=2)``: two processes on the one card (gloo, host
+    staging) run ``cc_pod_demo`` and the split step z-sharded on 256^3;
+    its ws and cc = the in-process 4-shard mesh's bit for bit.  Times on
+    one card show what sharding costs (halos, rendezvous, extra launches),
+    not scaling.  The kernel rows gain ``sharded_launches``;
 10. blockwise: BASELINE configs 1-3 through the port's workflows on the
     main path's volume in ``memory://`` (block 128^3): connected components
     (against ``scipy.ndimage.label``), single- and two-pass watershed (halo
@@ -143,6 +166,16 @@ FP32_OPS_PER_S = 67e12 / 2
 INT32_OPS_PER_S = 67e12 / 4
 
 MAIN_SHAPE = (1, 512, 512, 512)
+# the main path's configuration (the JAX benchmark's headline)
+MAIN_CFG = dict(halo=32, threshold=0.45, dt_max_distance=32.0, min_seed_distance=2.0, seed_mode="sparse")
+# the "sharded" phase: a dp x sp mesh of 8 shards on the card
+SHARDED_SHAPE = (2, 512, 512, 512)
+# the uncapped mesh-exact EDT (radius edge - 1) against scipy, and the
+# cross-process run, use this edge: above radius 160 the twin's EDT pass
+# materialises (lines, n, n) (ops/edt.py), ~68 GB for a 512-long pass over
+# a 512 x 128 shard.  The two-axis step's exact EDT is capped at
+# dt_max_distance (radius 32), so its twin runs at full size.
+SHARDED_TWIN_EDGE = 256
 
 KERNELS = {
     # name: (id, source, replaces)
@@ -1566,7 +1599,7 @@ def main_phases(K, args, gen):
     phase_kernels(K, gen)
 
     # ---- main path at full width ----
-    cfg = dict(halo=32, threshold=0.45, dt_max_distance=32.0, min_seed_distance=2.0, seed_mode="sparse")
+    cfg = dict(MAIN_CFG)
     step = make_ws_ccl_split(device="cuda", **cfg)
     vol = synthetic_boundaries(MAIN_SHAPE, torch.Generator(device="cuda").manual_seed(args.seed))
     torch.cuda.synchronize()
@@ -1718,6 +1751,246 @@ def main_phases(K, args, gen):
     return rows, vol, ref, ws_crop, main_s_per_voxel
 
 
+def collective_summary(snapshot: dict) -> str:
+    """``stage: kind calls/MB/wait s`` of a collective-counter snapshot."""
+    return "; ".join(
+        f"{stage}: " + ", ".join(f"{k} {c['calls']}/{c['bytes'] / 1e6:.1f} MB/{c['wait_s']:.3f} s"
+                                 for k, c in kinds.items())
+        for stage, kinds in snapshot.items()
+    )
+
+
+def phase_sharded(K, args, rows: list, main_s: float) -> None:
+    """The "sharded" phase (9b in the module docstring)."""
+    import tempfile
+
+    import scipy.ndimage as ndi
+
+    from cluster_tools_tpu_torch.parallel import spmd
+    from cluster_tools_tpu_torch.parallel.distributed_edt import distributed_distance_transform_squared
+    from cluster_tools_tpu_torch.parallel.mesh import make_mesh
+    from cluster_tools_tpu_torch.parallel.multihost import ENV_DEMO, launch_workers
+    from cluster_tools_tpu_torch.parallel.pipeline import make_ws_ccl_step
+    from cluster_tools_tpu_torch.parallel.split_pipeline import make_ws_ccl_split
+    from cluster_tools_tpu_torch.utils.synthetic import synthetic_boundaries
+
+    t_phase = time.perf_counter()
+    cfg = dict(MAIN_CFG, fill_mode="capacity", tier_mode="cond")
+    vol = torch.cat([synthetic_boundaries((1,) + SHARDED_SHAPE[1:],
+                                          torch.Generator(device="cuda").manual_seed(args.seed + b))
+                     for b in range(SHARDED_SHAPE[0])])
+    mesh = make_mesh(8)
+    if mesh.grid != (2, 4):
+        raise AssertionError(f"8 shards factor as {mesh.grid}, not dp=2 x sp=4")
+    fused = make_ws_ccl_step(mesh, **cfg)
+    split = make_ws_ccl_split(mesh, **cfg)
+
+    # ---- (1) the fused step and the split step on the kernels ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused(vol)
+    torch.cuda.synchronize()
+    fused_warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_f = fused(vol)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    split(vol)
+    marks = {}
+
+    def timed(stage, *_):
+        torch.cuda.synchronize()
+        marks[stage] = time.perf_counter()
+
+    runs = []
+    for _ in range(3):
+        out_s = None
+        K.reset_counts()
+        spmd.COUNTERS.reset()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_s = split.run_staged(vol, timed)
+        total_s = time.perf_counter() - t0
+        prev, stage_ms = t0, {}
+        for stage in ("seeds", "flow", "fill", "cc"):
+            stage_ms[stage] = (marks[stage] - prev) * 1e3
+            prev = marks[stage]
+        runs.append((total_s, stage_ms, dict(K.LAUNCHES), spmd.COUNTERS.snapshot(),
+                     torch.cuda.max_memory_allocated() / 1e9))
+    total_s, stage_ms, launches, collectives, peak_gb = sorted(runs, key=lambda r: r[0])[1]
+    missing = [k for k in MAIN_PATH_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"the sharded step launched no {missing}")
+    for what, a, b in zip(("ws", "cc", "n_fg"), out_f[:3], out_s[:3]):
+        require_equal(f"sharded fused == split {what}", a, b)
+    if out_f[3] or out_s[3]:
+        raise AssertionError("the sharded step reported overflow")
+    log("sharded", f"{SHARDED_SHAPE} on {mesh} {cfg}: fused warm-up {fused_warm_s * 1e3:.1f} ms, timed "
+                   f"{fused_s * 1e3:.1f} ms; split 3 timed runs "
+                   + "/".join(f"{r[0] * 1e3:.1f}" for r in runs) + f" ms, median {total_s * 1e3:.1f} ms = "
+                   + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items())
+                   + f" ms; {vol.numel() / total_s:.4g} voxels/s (main, one volume on one shard: "
+                     f"{main_s * 1e3:.1f} ms = {MAIN_SHAPE[1] * MAIN_SHAPE[2] * MAIN_SHAPE[3] / main_s:.4g} "
+                     f"voxels/s); peak {peak_gb:.2f} GB; launches per run {launches}; fused == split on ws, cc, "
+                     f"n_fg, overflow")
+    log("sharded-collectives", collective_summary(collectives))
+
+    # ---- (2) the same 8-shard step on the twins ----
+    K.reset_counts()
+    t0 = time.perf_counter()
+    out_t = make_ws_ccl_step(mesh, impl="torch", **cfg)(vol)
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    for what, a, b in zip(("ws", "cc", "n_fg"), out_f[:3], out_t[:3]):
+        require_equal(f"sharded twins {what}", a, b)
+    if out_t[3] or sum(K.LAUNCHES.values()):
+        raise AssertionError(f"sharded twins: overflow {out_t[3]}, launches {dict(K.LAUNCHES)}")
+    del out_t
+
+    # ---- (3) cc partition and n_fg against the single-device step ----
+    single = make_ws_ccl_split(device="cuda", **cfg)
+    cc_single, single_ms, dp_sums = [], [], []
+    sp = mesh.axis_size("sp")
+    for b in range(SHARDED_SHAPE[0]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cc1, _, ovf1 = single(vol[b:b + 1])
+        torch.cuda.synchronize()
+        single_ms.append((time.perf_counter() - t0) * 1e3)
+        if ovf1 or not partition_equal(out_s[1][b], cc1[0]):
+            raise AssertionError(f"volume {b}: the sharded cc is not the single-device cc partition")
+        # the float32 psum of the per-shard counts, in the mesh's order
+        # (over sp, then over dp); past 2**24 a float32 sum rounds, as the
+        # reference documents, so this order is the one to hold exactly
+        slabs = (cc1[0] > 0).reshape(sp, -1).sum(1).to(torch.float32)
+        acc = slabs[0]
+        for c in slabs[1:]:
+            acc = acc + c
+        dp_sums.append(acc)
+        cc_single.append(cc1[0])
+    want_n = dp_sums[0]
+    for c in dp_sums[1:]:
+        want_n = want_n + c
+    n_int = int((out_s[1] > 0).sum())
+    if n_int != sum(int((c > 0).sum()) for c in cc_single) or float(out_s[2]) != float(want_n):
+        raise AssertionError(f"sharded n_fg {float(out_s[2])} (count {n_int}) != the single-device "
+                             f"step's {float(want_n)}")
+    log("sharded-check", f"impl=torch == kernels on ws, cc, n_fg, overflow ({twin_s * 1e3:.1f} ms, no "
+                         f"launch); cc = the single-device cc partition for each volume; {n_int} "
+                         f"foreground voxels as single-device, n_fg {float(out_s[2]):.0f} = the float32 sum "
+                         f"of its per-shard counts (single-device runs "
+                         + "/".join(f"{t:.1f}" for t in single_ms) + " ms)")
+
+    # every launch of one split run, replayed against its twin
+    with K.capture_inputs() as captured:
+        split(vol)
+    n_replayed = Counter()
+    for name, kargs, kkw in captured:
+        kfn, tfn = replay(K, name, kargs, kkw)
+        require_equal(f"sharded {name} launch {n_replayed[name]} replayed", kfn(), tfn())
+        n_replayed[name] += 1
+    if n_replayed != Counter({k: v for k, v in launches.items() if v}):
+        raise AssertionError(f"replayed {dict(n_replayed)} != a run's launches {launches}")
+    del captured, out_f, out_s
+    log("sharded-kernels", f"every launch of one split run equals its twin: {dict(n_replayed)}")
+
+    # ---- (4) two axes, exact EDT, stitch, compaction ----
+    mesh2 = make_mesh(4, axis_names=("dp", "spz", "spy"), grid=(1, 2, 2))
+    cfg2 = dict(cfg, sp_axis=("spz", "spy"), exact_edt=True, stitch_ws_threshold=0.5,
+                max_labels_per_shard=1 << 22)
+    step2 = make_ws_ccl_split(mesh2, **cfg2)
+    step2(vol[:1])
+    K.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ws2, cc2, n2, ovf2 = step2(vol[:1])
+    torch.cuda.synchronize()
+    two_s = time.perf_counter() - t0
+    launches2 = dict(K.LAUNCHES)
+    if ovf2 or not partition_equal(cc2[0], cc_single[0]) or \
+            int((cc2 > 0).sum()) != int((cc_single[0] > 0).sum()):
+        raise AssertionError("two-axis step: overflow, or cc differs from the single-device step")
+    n_seg = int(torch.unique(ws2).numel()) - 1
+    # the same run on the twins, at full size: the exact EDT is capped at
+    # dt_max_distance, so B3's twin takes the cascade form (radius 32)
+    out_t = make_ws_ccl_split(mesh2, impl="torch", **cfg2)(vol[:1])
+    for what, a, b in zip(("ws", "cc", "n_fg"), (ws2, cc2, n2), out_t[:3]):
+        require_equal(f"two-axis twins {what}", a, b)
+    if out_t[3]:
+        raise AssertionError("two-axis twins: overflow")
+    del ws2, cc2, out_t
+    # every launch of one two-axis run, replayed against its twin
+    with K.capture_inputs() as captured:
+        step2(vol[:1])
+    n_replayed2, b3_radii = Counter(), Counter()
+    for name, kargs, kkw in captured:
+        kfn, tfn = replay(K, name, kargs, kkw)
+        require_equal(f"two-axis {name} launch {n_replayed2[name]} replayed", kfn(), tfn())
+        n_replayed2[name] += 1
+        if name == "edt_cascade":
+            b3_radii[(kkw["axis"], kkw["radius"])] += 1
+    if n_replayed2 != Counter({k: v for k, v in launches2.items() if v}):
+        raise AssertionError(f"two-axis: replayed {dict(n_replayed2)} != a run's launches {launches2}")
+    del captured
+    log("sharded-2axis", f"{(1,) + SHARDED_SHAPE[1:]} on {mesh2} exact_edt, stitch 0.5, max_labels_per_shard "
+                         f"{1 << 22}: {two_s * 1e3:.1f} ms, {n_seg} ws segments, n_fg {float(n2):.0f}, launches "
+                         f"{launches2}; cc = the single-device partition; kernels == impl=torch on ws, cc, n_fg, "
+                         f"overflow; every launch equals its twin; B3 (axis, radius): launches "
+                         + ", ".join(f"{k}: {v}" for k, v in sorted(b3_radii.items())))
+    e = SHARDED_TWIN_EDGE
+
+    # ---- (5) the mesh-exact squared EDT against scipy ----
+    mesh_e = make_mesh(4, axis_names=("spz", "spy"), grid=(2, 2))
+    mask = (vol[0, :e, :e, :e] < torch.tensor(np.float32(0.45), device="cuda")).contiguous()
+    K.reset_counts()
+    with K.capture_inputs() as captured:
+        dist = distributed_distance_transform_squared(mask, mesh_e, sp_axis=("spz", "spy"))
+    want = np.round(ndi.distance_transform_edt(mask.cpu().numpy()) ** 2)
+    if not np.array_equal(dist.cpu().numpy().astype(np.float64), want):
+        raise AssertionError("the mesh-exact squared EDT differs from scipy's")
+    b3 = []
+    for _, kargs, kkw in captured:
+        kfn, tfn = replay(K, "edt_cascade", kargs, kkw)
+        require_equal(f"exact EDT B3 axis {kkw['axis']} radius {kkw['radius']} replayed", kfn(), tfn())
+        b3.append((kkw["axis"], kkw["radius"], tuple(kargs[0].shape), cuda_ms(kfn, 3),
+                   bound_ms("edt_cascade", kargs, kkw)))
+    del captured
+    log("sharded-edt", f"{e}^3 mask on {mesh_e}: squared EDT == round(scipy ** 2); B3 launches "
+                       + "; ".join(f"axis {a} radius {r} shape {sh}: {t:.3f} ms (bound {bd[0]:.3f} ms by {bd[1]})"
+                                   for a, r, sh, t, bd in b3))
+
+    # ---- (6) across processes: 2 processes x 2 shards on the one card ----
+    pod_vol = vol[:1, :e, :e, :e].contiguous()
+    tmp = tempfile.mkdtemp(prefix="ct_pod_")
+    try:
+        np.save(os.path.join(tmp, "v.npy"), pod_vol.cpu().numpy())
+        job = dict(volume=os.path.join(tmp, "v.npy"), cfg=cfg, out=os.path.join(tmp, "o.npz"))
+        t0 = time.perf_counter()
+        results = launch_workers(2, "cluster_tools_tpu_torch.parallel.multihost:ws_ccl_pod_demo",
+                                 devices_per_process=2, timeout=400, extra_env={ENV_DEMO: json.dumps(job)})
+        pod_s = time.perf_counter() - t0
+        for pid, (rc, out, err) in enumerate(results):
+            if rc != 0 or "CC_POD_OK" not in out or "WS_CCL_POD_OK" not in out:
+                raise AssertionError(f"pod worker {pid} rc {rc}:\n{out[-800:]}\n{err[-2000:]}")
+        backend = [ln for ln in results[0][2].splitlines() if "torch.distributed backend" in ln]
+        pod = np.load(job["out"])
+        ws4, cc4, n4, _ = make_ws_ccl_split(make_mesh(4, grid=(1, 4)), **cfg)(pod_vol)
+        require_equal("pod ws == in-process 4-shard ws", torch.from_numpy(pod["ws"]), ws4.cpu())
+        require_equal("pod cc == in-process 4-shard cc", torch.from_numpy(pod["cc"]), cc4.cpu())
+        if float(pod["n_fg"]) != float(n4):
+            raise AssertionError("pod n_fg differs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("sharded-pod", f"launch_workers(2, devices_per_process=2) on {e}^3: {pod_s:.1f} s wall; "
+                       f"{backend[0].strip() if backend else 'backend line missing'}; "
+                       + " | ".join(ln for ln in results[0][1].splitlines() if "POD_OK" in ln)
+                       + "; ws, cc, n_fg == the in-process 4-shard mesh")
+    for r in rows:
+        r["sharded_launches"] = launches.get(r["name"], 0)
+    log("sharded", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1743,6 +2016,8 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows, vol, ref, ws_crop, main_s_per_voxel = main_phases(K, args, gen)
+    phase_sharded(K, args, rows, main_s_per_voxel * (MAIN_SHAPE[1] + 2 * MAIN_CFG["halo"]) * MAIN_SHAPE[2]
+                  * MAIN_SHAPE[3])
     mem, auto = phase_blockwise(K, vol, ref, rows)
     phase_sweeps(K, mem, auto, main_s_per_voxel, rows)
     phase_multicut(K, vol, ws_crop, mem, rows)

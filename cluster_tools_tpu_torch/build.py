@@ -7,7 +7,10 @@ All sources compile concurrently (one ``nvcc`` each).  Libraries land in
 ``.torch_ext/`` at the repository root (git-ignored), named by a hash of
 the sources and flags, so an unchanged tree reuses its build.
 
-Importing this module needs no ``nvcc``; :func:`build_all` does.
+Importing this module needs no ``nvcc``; :func:`build_all` does.  The
+shards of a mesh launch kernels from threads of one process, so building
+and loading happen under one lock: the first caller builds, the others wait
+for its libraries.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -45,6 +49,7 @@ NVCC_FLAGS = [
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: Dict[str, float] = {}
+_BUILD_LOCK = threading.RLock()
 
 
 def nvcc_path() -> str:
@@ -73,6 +78,11 @@ def build_all() -> Dict[str, float]:
     Returns seconds per library (0.0 when a cached build was reused).
     Raises with the compiler's output when any build fails.
     """
+    with _BUILD_LOCK:
+        return _build_all()
+
+
+def _build_all() -> Dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in SOURCES:
@@ -127,5 +137,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, building everything at first use."""
     if name not in _LIBS:
-        build_all()
+        with _BUILD_LOCK:
+            if name not in _LIBS:
+                _build_all()
     return _LIBS[name]

@@ -12,7 +12,7 @@ count).
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -168,3 +168,35 @@ def finalize_labels(raw: torch.Tensor) -> torch.Tensor:
     """Sentinel/flat-index labels -> ``flat_index + 1``, background 0."""
     n = raw.numel()
     return torch.where(raw == n, 0, raw + 1).to(torch.int32)
+
+
+def relabel_consecutive(labels: torch.Tensor, max_labels: int,
+                        value_bound: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Map non-negative labels (0 = background) to dense ``1..K``.
+
+    Returns ``(dense_labels, n_labels)`` (int32; ``n_labels`` a 0-d
+    tensor).  Past ``max_labels`` the ids clamp to ``max_labels + 1`` while
+    ``n_labels > max_labels`` flags the overflow.  ``value_bound`` is the
+    inclusive upper bound on label values that sizes the presence bitmap
+    (default ``labels.numel()``); a label above it takes the sort path.
+    Both paths give the same ids: a label's rank among the distinct
+    positive labels.
+    """
+    flat = labels.reshape(-1).to(torch.int32)
+    n = flat.numel()
+    dom = n if value_bound is None else int(value_bound)
+    cap = torch.tensor(max_labels + 1, dtype=torch.int32, device=flat.device)
+    if int(flat.max()) <= dom:
+        # presence bitmap -> prefix-sum ranks -> one gather
+        present = torch.zeros((dom + 1,), dtype=torch.int32, device=flat.device)
+        present[flat.long()] = 1
+        present[0] = 0  # background is not a label
+        rank = torch.cumsum(present, 0, dtype=torch.int32)  # rank[v] = dense id
+        n_fg = rank[-1]
+        dense = torch.where(flat > 0, torch.minimum(rank[flat.clamp(0, dom).long()], cap), 0)
+    else:
+        vals, inv = torch.unique(flat, sorted=True, return_inverse=True)
+        rank = torch.cumsum((vals > 0).to(torch.int32), 0, dtype=torch.int32)
+        n_fg = rank[-1]
+        dense = torch.where(flat > 0, torch.minimum(rank[inv], cap), 0)
+    return dense.to(torch.int32).reshape(labels.shape), n_fg.to(torch.int32)

@@ -102,6 +102,11 @@ def edt_axis_pass(f, axis: int, w: float, radius: int, impl: str = "auto", devic
     if radius <= 0:
         return f
     if resolve_impl(impl, f) == "cuda" and f.dim() == 3:
+        # B3 runs the cascade at any radius, where the twin switches to the
+        # broadcast min-plus above _CASCADE_MAX_RADIUS (the exact EDT's
+        # full-extent passes).  For unit sampling the two are bit-equal: every
+        # finite value is an integer below 2**24, so each sum is exact.  Other
+        # sampling is not covered by that argument.
         return edt_cascade(f, axis, radius, float(w), float(_BIG), impl="cuda")
     return _edt_1d_axis(f, axis, float(w), radius)
 

@@ -21,12 +21,16 @@ A wrapper runs the twin only for a CPU tensor (or ``impl="torch"``); for
 a CUDA tensor it launches its kernel or raises — never a silent fallback.
 ``LAUNCHES`` counts kernel launches (twin calls do not count); ``RUNGS``
 counts which rung each remap site took (the per-tile table kernel or the
-gather rung the reference takes when a table overflows).
+gather rung the reference takes when a table overflows).  The shards of a
+mesh run on threads of one process, so the counts and the capture list
+change only under ``_LOCK`` (:func:`count_rung`, :func:`_launch`,
+:func:`_record`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from collections import Counter
 from typing import List, Optional
 
@@ -48,11 +52,19 @@ DEFAULT_TILE = (16, 16, 128)
 LAUNCHES: Counter = Counter()
 RUNGS: Counter = Counter()
 _CAPTURE: Optional[List[tuple]] = None
+_LOCK = threading.Lock()
 
 
 def reset_counts() -> None:
-    LAUNCHES.clear()
-    RUNGS.clear()
+    with _LOCK:
+        LAUNCHES.clear()
+        RUNGS.clear()
+
+
+def count_rung(name: str) -> None:
+    """Count one remap site's choice of rung."""
+    with _LOCK:
+        RUNGS[name] += 1
 
 
 @contextlib.contextmanager
@@ -72,11 +84,10 @@ def capture_inputs():
 
 def _record(name: str, args: tuple, kwargs: dict) -> None:
     if _CAPTURE is not None:
-        _CAPTURE.append((
-            name,
-            tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args),
-            dict(kwargs),
-        ))
+        entry = (name, tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args), dict(kwargs))
+        with _LOCK:
+            if _CAPTURE is not None:
+                _CAPTURE.append(entry)
 
 
 def _launch(name: str, device: torch.device, lib, fn_name: str, *args) -> None:
@@ -86,7 +97,8 @@ def _launch(name: str, device: torch.device, lib, fn_name: str, *args) -> None:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: {lib.ct_error_string(rc).decode()} ({rc})"
         )
-    LAUNCHES[name] += 1
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 
 def _cuda_lib(name: str):

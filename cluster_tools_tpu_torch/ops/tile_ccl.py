@@ -27,7 +27,7 @@ import torch
 
 from ..device import as_tensor, resolve_device, resolve_impl
 from .ccl import _shift
-from .kernels import BIG, RUNGS, apply_remap, tile_ccl
+from .kernels import BIG, apply_remap, count_rung, tile_ccl
 from .unionfind import union_find_tensor
 
 DEFAULT_TILE = (16, 16, 128)
@@ -529,10 +529,10 @@ def label_components_tiled_lanes(mask: torch.Tensor, connectivity: int = 1, impl
     if bool(tbl_overflow.any()):
         # a lane whose table overflows takes the gather rung; both rungs
         # give the same labels, so the whole stack takes it
-        RUNGS[f"{site}:gather"] += 1
+        count_rung(f"{site}:gather")
         resolved = resolve_labels_gather_lanes(labels, ea, eb, root_a, root_b)
     else:
-        RUNGS[f"{site}:table"] += 1
+        count_rung(f"{site}:table")
         resolved = apply_remap(
             labels.reshape(lanes * zp, yp, xp).contiguous(), old_tbl.reshape(lanes * n_tiles, table_cap),
             new_tbl.reshape(lanes * n_tiles, table_cap), tile=tile, cap=table_cap, impl=impl,

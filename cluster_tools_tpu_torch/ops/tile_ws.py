@@ -27,7 +27,7 @@ import torch
 
 from ..device import as_tensor, resolve_device, resolve_impl
 from .ccl import _compress, _shift
-from .kernels import RUNGS, WS_OFFS, apply_remap, tile_ws_propagate
+from .kernels import WS_OFFS, apply_remap, count_rung, tile_ws_propagate
 from .tile_ccl import (
     BIG,
     DEFAULT_TABLE_CAP,
@@ -560,10 +560,10 @@ def _ws_flow_lanes(height, seeds, mask, *, impl, tile, exit_cap, table_cap, tier
     if bool(tbl_overflow.any()):
         # both rungs give the same labels, so an overflowing lane takes
         # the whole stack to the gather rung
-        RUNGS["flow:gather"] += 1
+        count_rung("flow:gather")
         values = _resolve_codes_gather_lanes(values, codes, finals)
     else:
-        RUNGS["flow:table"] += 1
+        count_rung("flow:table")
         values = apply_remap(values.reshape(stack).contiguous(), old_tbl.reshape(lanes * n_tiles, table_cap),
                              new_tbl.reshape(lanes * n_tiles, table_cap), tile=tile, cap=table_cap,
                              impl=impl).reshape(h.shape)
@@ -622,10 +622,10 @@ def _ws_fill_lanes(values, h, orig_shape, *, impl, tile, exit_cap, fill_cap, tab
     old2, new2, tbl_overflow2 = build_remap_tables_lanes(all_tiles, all_vals, all_fin, n_tiles,
                                                          table_cap=table_cap, tier=tier)
     if bool(tbl_overflow2.any()):
-        RUNGS["fill:gather"] += 1
+        count_rung("fill:gather")
         values = _resolve_codes_gather_lanes(values, fill_vals, fill_finals)
     else:
-        RUNGS["fill:table"] += 1
+        count_rung("fill:table")
         stack = (lanes * zp, yp, xp)
         values = apply_remap(values.reshape(stack).contiguous(), old2.reshape(lanes * n_tiles, table_cap),
                              new2.reshape(lanes * n_tiles, table_cap), tile=tile, cap=table_cap,
@@ -715,10 +715,12 @@ def _seed_ccl(maxima, seed_cap, *, mode, impl, tile, pair_cap, edge_cap, table_c
 
 def _dt_seeds_lanes(boundaries, mask, *, threshold, min_seed_distance, sampling,
                     dt_max_distance, impl, tile, pair_cap, edge_cap, table_cap, seed_cap,
-                    seed_mode, tier, sigma_seeds=0.0):
+                    seed_mode, tier, sigma_seeds=0.0, dist=None):
     """Seed phase over a ``[B, z, y, x]`` stack: threshold -> capped EDT
     (B3 over lane-safe views) -> optional smoothing -> maxima plateaus ->
-    seed CCL.  Returns ``(seeds, valid, overflow [B])``."""
+    seed CCL.  ``dist``: squared distances given by the caller (the
+    mesh-exact transform), used in place of the EDT.  Returns ``(seeds,
+    valid, overflow [B])``."""
     from .edt import distance_transform_squared_tensor
     from .filters import gaussian_smooth_tensor
     from .watershed import local_maxima_tensor
@@ -726,8 +728,13 @@ def _dt_seeds_lanes(boundaries, mask, *, threshold, min_seed_distance, sampling,
     dev = boundaries.device
     valid = torch.ones(boundaries.shape, dtype=torch.bool, device=dev) if mask is None else mask.to(torch.bool)
     fg = (boundaries < torch.tensor(threshold, dtype=torch.float32, device=dev)) & valid
-    dist = distance_transform_squared_tensor(fg, sampling=sampling, max_distance=dt_max_distance, impl=impl,
-                                             lead=1)
+    if dist is None:
+        dist = distance_transform_squared_tensor(fg, sampling=sampling, max_distance=dt_max_distance, impl=impl,
+                                                 lead=1)
+    else:
+        # zero the given distances outside the foreground so seed maxima
+        # stay inside basins
+        dist = torch.where(fg, dist.to(torch.float32), torch.tensor(np.float32(0.0), device=dev))
     if sigma_seeds > 0:
         dist = gaussian_smooth_tensor(dist, sigma_seeds, sampling=sampling, lead=1)
     msd2 = torch.tensor(np.float32(min_seed_distance * min_seed_distance), device=dev)
@@ -742,10 +749,11 @@ def _dt_seeds_lanes(boundaries, mask, *, threshold, min_seed_distance, sampling,
     return seeds, valid, seed_overflow
 
 
-def _dt_seeds_core(boundaries, mask, **kw):
+def _dt_seeds_core(boundaries, mask, dist=None, **kw):
     """Seed phase of one volume (:func:`_dt_seeds_lanes` of one lane)."""
     seeds, valid, overflow = _dt_seeds_lanes(
-        boundaries.unsqueeze(0), None if mask is None else mask.unsqueeze(0), **kw
+        boundaries.unsqueeze(0), None if mask is None else mask.unsqueeze(0),
+        dist=None if dist is None else dist.unsqueeze(0), **kw
     )
     return seeds[0], valid[0], bool(overflow[0])
 

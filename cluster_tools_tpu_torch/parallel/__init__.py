@@ -1,1 +1,3 @@
-"""Single-device cases of the mesh-level drivers (halo, CCL, the split ws+cc step)."""
+"""Mesh-level parallelism: meshes of shards, the SPMD communicator, halo
+exchange, reshards, the distributed CCL and EDT, the fused and split ws+cc
+steps, and the cross-process launcher."""

@@ -1,44 +1,37 @@
-"""The ws+cc step as a chain of four stages — single-device case.
+"""The ws+cc step as a chain of four stages over a mesh.
 
-Port of ``cluster_tools_tpu/parallel/split_pipeline.py::make_ws_ccl_split``
-on a 1x1 (dp, sp) mesh, the shape of the single-card benchmark:
+Port of ``cluster_tools_tpu/parallel/split_pipeline.py::make_ws_ccl_split``:
+the fused step (:mod:`.pipeline`) cut into four :func:`~.spmd.shard_map`
+stages whose intermediates stay with their shards:
 
-1. ``seeds`` — halo padding along z (``fill=1.0``), capped EDT (kernel
-   B3), maxima, seed CCL (B1 + B4 when ``seed_mode="tiled"``).
-2. ``flow``  — descent directions, in-tile flow (B2), exit chase + remap (B4).
-3. ``fill``  — unseeded-basin fill, remap (B4), halo crop.
-4. ``cc``    — tiled CCL of the foreground (B1 + B4) and the foreground count.
+1. ``seeds`` — halo exchange (``fill=1.0``), the capped EDT (kernel B3) or
+   the mesh-exact one, maxima, seed CCL (B1 + B4 when
+   ``seed_mode="tiled"``);
+2. ``flow``  — descent directions, in-tile flow (B2), exit chase + remap (B4);
+3. ``fill``  — unseeded-basin fill, remap (B4), halo crop, fragment ids
+   globalized by shard rank, the cross-shard stitch;
+4. ``cc``    — the distributed CCL of the foreground (B1 + B4) and the
+   mesh-wide foreground count.
 
 ``step(boundaries)`` takes a float32 ``(B, Z, Y, X)`` batch and returns
-``(ws_labels, cc_labels, n_foreground, overflow)`` — the reference's
-contract.  Intermediates stay on the device; each stage frees what the next
-one does not need (the reference donates them).
+``(ws_labels, cc_labels, n_foreground, overflow)`` — the fused step's
+contract, equal to it bit for bit.  Each stage frees what the next one
+does not need (the reference donates them).  Without a mesh the step runs
+on one shard of ``device``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
-import numpy as np
-import torch
-
-from ..device import as_tensor, resolve_device, resolve_impl
-from ..ops.tile_ccl import DEFAULT_TABLE_CAP, resolve_tier_mode
-from ..ops.tile_ws import (
-    _dt_seeds_core,
-    _ws_fill_core,
-    _ws_flow_core,
-    resolve_fill_mode,
-    resolve_seed_mode,
-)
-from .distributed_ccl import sharded_label_components_tensor
-from .halo import crop_halo, exchange_halo
+from . import spmd
+from .pipeline import as_batch, resolve_mesh, resolve_step_impl, stage_bodies, step_config
 
 
 class SplitWsCclStep:
     """Callable chain of the four stages.  ``stages`` maps stage name to
     its function; ``run_staged(boundaries, sync)`` calls
-    ``sync(name, *tensors)`` after each stage (pass a blocking sync to time
+    ``sync(name, *outputs)`` after each stage (pass a blocking sync to time
     stages one by one)."""
 
     def __init__(self, stages, runner):
@@ -52,99 +45,62 @@ class SplitWsCclStep:
         return self._runner(boundaries, sync=sync)
 
 
-def make_ws_ccl_split(device=None, halo: int = 4, threshold: float = 0.3, connectivity: int = 1,
+def make_ws_ccl_split(mesh=None, halo: int = 4, threshold: float = 0.3, connectivity: int = 1,
+                      dp_axis: str = "dp", sp_axis: Union[str, Sequence[str]] = "sp",
                       dt_max_distance: Optional[float] = None, min_seed_distance: float = 0.0,
-                      impl: str = "auto", fill_mode: Optional[str] = None,
-                      seed_mode: Optional[str] = None, tier_mode: Optional[str] = None
-                      ) -> SplitWsCclStep:
-    """Build the single-device ws+cc step.
-
-    ``impl``: ``auto`` (kernels on the card, twins on the CPU), ``cuda`` or
-    ``torch``.  ``fill_mode``/``seed_mode``/``tier_mode`` mirror
+                      max_labels_per_shard: Optional[int] = None, impl: str = "auto", exact_edt: bool = False,
+                      stitch_ws_threshold: Optional[float] = None, fill_mode: Optional[str] = None,
+                      seed_mode: Optional[str] = None, tier_mode: Optional[str] = None,
+                      device=None) -> SplitWsCclStep:
+    """Build the split twin of :func:`~.pipeline.make_ws_ccl_step` for
+    ``mesh`` (default: one shard on ``device``, the card unless the caller
+    names the CPU).  Same arguments and output contract; ``impl`` is the
+    tiled family (``auto``/``cuda``/``torch``), 3-D volumes, connectivity
+    1.  ``fill_mode``/``seed_mode``/``tier_mode`` mirror
     ``CT_FILL_MODE``/``CT_SEED_CCL``/``CT_TIER_MODE`` (``None`` reads the
-    variable; the defaults are ``auto``/``tiled``/``cond``).
+    variable here; the defaults are ``auto``/``tiled``/``cond``).
     """
+    if impl == "legacy":
+        raise ValueError("split mode covers the tiled kernels only")
     if connectivity != 1:
         raise ValueError("split mode supports connectivity=1 only")
-    dev = resolve_device(device)
-    impl = resolve_impl(impl, dev)
-    fill_mode = resolve_fill_mode(fill_mode, dev)
-    seed_mode = resolve_seed_mode(seed_mode)
-    tier = resolve_tier_mode(tier_mode)
-    caps = dict(tile=None, table_cap=DEFAULT_TABLE_CAP, tier=tier)
+    mesh = resolve_mesh(mesh, device, dp_axis, sp_axis)
+    impl = resolve_step_impl(impl, mesh)
+    names = (sp_axis,) if isinstance(sp_axis, str) else tuple(sp_axis)
+    seeds_body, flow_body, fill_body, cc_body = stage_bodies(**step_config(
+        mesh, dp_axis, sp_axis, fill_mode, seed_mode, tier_mode, halo=halo, threshold=threshold,
+        connectivity=connectivity, dt_max_distance=dt_max_distance, min_seed_distance=min_seed_distance,
+        max_labels_per_shard=max_labels_per_shard, impl=impl, exact_edt=exact_edt,
+        stitch_ws_threshold=stitch_ws_threshold))
+    spec = spmd.P(dp_axis, *names)
+    rep = spmd.P()
 
-    def seeds_stage(boundaries):
-        if boundaries.dim() - 1 != 3:
-            raise ValueError("split mode expects a (B, Z, Y, X) batch of 3-D volumes")
-        pad_out, seed_out, ovf = [], [], False
-        for vol in boundaries:
-            padded = exchange_halo(vol, halo, 0, 1, fill=1.0)
-            seeds, _, s_ovf = _dt_seeds_core(
-                padded, None, threshold=threshold, min_seed_distance=min_seed_distance,
-                sampling=None, dt_max_distance=dt_max_distance, impl=impl, pair_cap=None,
-                edge_cap=None, seed_cap=None, seed_mode=seed_mode, **caps,
-            )
-            ovf = ovf or s_ovf
-            pad_out.append(padded)
-            seed_out.append(seeds)
-        return torch.stack(pad_out), torch.stack(seed_out), ovf
+    def smap(body, in_specs, out_specs, name):
+        return spmd.shard_map(body, mesh, in_specs, out_specs, name=name, keep_sharded=True)
 
-    def flow_stage(padded, seeds, ovf):
-        val_out, h_out = [], []
-        for b in range(padded.shape[0]):
-            values, h, o = _ws_flow_core(padded[b], seeds[b], None, impl=impl, exit_cap=None, **caps)
-            ovf = ovf or o
-            val_out.append(values)
-            h_out.append(h)
-        return torch.stack(val_out), torch.stack(h_out), ovf
-
-    def fill_stage(values, h, boundaries, ovf):
-        pad_shape = (boundaries.shape[1] + 2 * halo, boundaries.shape[2], boundaries.shape[3])
-        if int(np.prod(pad_shape)) >= 2**31:
-            raise ValueError(f"padded volume {pad_shape} overflows int32 labels")
-        ws_out = []
-        for b in range(values.shape[0]):
-            ws, o = _ws_fill_core(
-                values[b], h[b], pad_shape, impl=impl, exit_cap=None, fill_cap=None,
-                adj_cap=None, fill_rounds=None, fill_mode=fill_mode, **caps,
-            )
-            ovf = ovf or o
-            # one shard: rank 0, so fragment ids are already global
-            ws_out.append(crop_halo(ws, halo, 0))
-        return torch.stack(ws_out).contiguous(), ovf
-
-    thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
-
-    def cc_stage(boundaries, ovf):
-        cc_out = []
-        for vol in boundaries:
-            cc, cc_over = sharded_label_components_tensor(
-                vol < thr, impl=impl, tier=tier, site="cc"
-            )
-            ovf = ovf or cc_over
-            cc_out.append(cc)
-        cc_lab = torch.stack(cc_out)
-        n_fg = (cc_lab > 0).sum().to(torch.float32)
-        return cc_lab, n_fg, bool(ovf)
-
-    stages = {"seeds": seeds_stage, "flow": flow_stage, "fill": fill_stage, "cc": cc_stage}
+    stages = {
+        "seeds": smap(seeds_body, (spec,), (spec, spec, rep), "seeds"),
+        "flow": smap(flow_body, (spec, spec, rep), (spec, spec, rep), "flow"),
+        "fill": smap(fill_body, (spec, spec, spec, rep), (spec, rep), "fill"),
+        "cc": smap(cc_body, (spec, rep), (spec, rep, rep), "cc"),
+    }
 
     def runner(boundaries, sync=None):
-        boundaries = as_tensor(boundaries, dev, torch.float32)
-        padded, seeds, ovf = seeds_stage(boundaries)
+        vol = spmd.shard(as_batch(boundaries), mesh, spec)
+        padded, seeds, ovf = stages["seeds"](vol)
         if sync is not None:
             sync("seeds", seeds)
-        values, h, ovf = flow_stage(padded, seeds, ovf)
+        values, h, ovf = stages["flow"](padded, seeds, ovf)
         del padded, seeds
         if sync is not None:
             sync("flow", values)
-        ws_lab, ovf = fill_stage(values, h, boundaries, ovf)
+        ws_lab, ovf = stages["fill"](values, h, vol, ovf)
         del values, h
         if sync is not None:
             sync("fill", ws_lab)
-        cc_lab, n_fg, overflow = cc_stage(boundaries, ovf)
+        cc_lab, n_fg, overflow = stages["cc"](vol, ovf)
         if sync is not None:
             sync("cc", cc_lab)
-        return ws_lab, cc_lab, n_fg, overflow
+        return ws_lab.full(), cc_lab.full(), n_fg, bool(overflow)
 
     return SplitWsCclStep(stages, runner)

@@ -18,7 +18,8 @@ from ..device import as_tensor, resolve_device
 
 # reference kwargs with no counterpart on one device; dropped
 _DROPPED = ("interpret", "mesh", "dp_axis", "sp_axis")
-# reference kwargs the port supports only at their default
+# reference kwargs this single-device helper carries only at their
+# default (the mesh builders of ``parallel/`` take the mesh-only ones)
 _DEFAULT_ONLY = {
     "exact_edt": False,
     "sigma_seeds": 0.0,
@@ -51,11 +52,12 @@ def from_reference(volume: np.ndarray, seeds: Optional[np.ndarray] = None,
     for key, value in config.items():
         if key in _DROPPED:
             if key == "mesh" and value is not None and getattr(value, "size", 1) != 1:
-                raise NotImplementedError("only the single-device (1x1 mesh) path is ported")
+                raise NotImplementedError("from_reference carries single-device arguments; build a mesh of "
+                                          "several shards with parallel.mesh.make_mesh")
             continue
         if key in _DEFAULT_ONLY:
             if value != _DEFAULT_ONLY[key]:
-                raise NotImplementedError(f"{key}={value!r} is not ported yet")
+                raise NotImplementedError(f"{key}={value!r} is not carried by this single-device helper")
             continue
         if key == "stitch_ws_threshold":
             continue

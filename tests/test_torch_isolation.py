@@ -73,6 +73,14 @@ def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
     assert '"ok": true' not in out.stdout
 
 
+@pytest.mark.parametrize("module", ["parallel/mesh.py", "parallel/spmd.py", "parallel/halo.py", "parallel/reshard.py",
+                                    "parallel/distributed_ccl.py", "parallel/distributed_edt.py",
+                                    "parallel/pipeline.py", "parallel/split_pipeline.py", "parallel/multihost.py"])
+def test_mesh_modules_are_checked(module):
+    """The mesh slice's modules are among the files held above."""
+    assert ROOT / "cluster_tools_tpu_torch" / module in PORT_FILES
+
+
 @pytest.mark.parametrize("module", ["models/__init__.py", "models/unet.py", "models/flax_import.py",
                                     "models/torch_import.py", "tasks/inference.py", "tasks/ilastik.py"])
 def test_prediction_modules_are_checked(module):

@@ -71,8 +71,22 @@ def test_halo_pad_and_crop():
     assert padded.shape == (6, 3, 4)
     assert (padded[:2] == 1.0).all() and (padded[-2:] == 1.0).all()
     assert torch.equal(crop_halo(padded, 2, 0), x)
-    with pytest.raises(NotImplementedError):
-        exchange_halo(x, 1, 0, axis_size=2)
+    # between two shards: each side's halo is the neighbour's rows, as in the reference
+    from jax.sharding import PartitionSpec as JP
+
+    from cluster_tools_tpu.compat import shard_map as j_shard_map
+    from cluster_tools_tpu.parallel.halo import exchange_halo as j_exchange_halo
+    from cluster_tools_tpu_torch.parallel import spmd
+    from cluster_tools_tpu_torch.parallel.mesh import make_mesh as p_make_mesh
+
+    vol = np.arange(2 * 4 * 3 * 4, dtype=np.float32).reshape(8, 3, 4)
+    jm = make_mesh(2, axis_names=("sp",), devices=jax.devices("cpu")[:2])
+    want = j_shard_map(lambda v: j_exchange_halo(v, 1, 0, "sp", 2, fill=1.0), mesh=jm, in_specs=JP("sp"),
+                       out_specs=JP("sp"))(vol)
+    got = spmd.shard_map(lambda v: exchange_halo(v, 1, 0, "sp", 2, fill=1.0), p_make_mesh(2, ("sp",), devices="cpu"),
+                         spmd.P("sp"), spmd.P("sp"))(vol)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy()[5], vol[4])  # shard 0's high halo: shard 1's first row
 
 
 def test_synthetic_makers():
