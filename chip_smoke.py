@@ -112,12 +112,16 @@ Phases, each one line of output, each raising on failure:
     local disk: ``MulticutSegmentationWorkflow`` with its own watershed on
     the main path's 512^3 volume and ``ConnectedComponentsWorkflow`` on it,
     each with ``memory_handoffs`` off and on (walls, per-task seconds,
-    launches, handoff counters, peak and reserved device memory and the
-    intermediate bytes written to storage; outputs and B1-B4 launches
-    equal between the arms), and the device rung (a CUDA tensor handed
+    launches, handoff and chunk-cache counters, peak and reserved device
+    memory and the intermediate bytes written to storage; outputs and B1-B4
+    launches equal between the arms), the device rung (a CUDA tensor handed
     from a producer task to a consumer's slab sweep of B3 with no host
     byte, then staged to and demoted to the memory rung under small device
-    budgets, each equal).  The kernel rows gain ``fusion_launches``;
+    budgets, each equal), and the chunk cache: the watershed task from the
+    zarr with ``CTT_CHUNK_CACHE=0`` and with the cache on, and from the
+    port's N5 with it on, each equal to the chain's watershed, the cached
+    arms missing each distinct chunk of the sweep once.  The kernel rows
+    gain ``fusion_launches`` and ``cache_launches``;
 14. inference (``phase_inference``): ``InferenceWorkflow`` with the
     full-width U-Net (base 16, depth 2, GroupNorm, bfloat16; seeded weights
     saved with the port's ``save_checkpoint`` and read back from the npz) on
@@ -144,6 +148,7 @@ without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import shutil
@@ -1032,7 +1037,10 @@ def fusion_arm(K, root: str, tag: str, workflow_cls, memory_handoffs: bool, out_
     counters summed over ``io_metrics.json``, the handoffs that spilled
     (``degraded:spilled`` in ``failures.json``) and the intermediate bytes
     written to storage.  The handoff registry starts empty and is emptied
-    after (its payloads are this process's RAM)."""
+    after (its payloads are this process's RAM); the chunk cache starts
+    empty (``configure()``), so every arm reads cold, and its counters come
+    back summed (``counters``) and by task (``task_counters``)."""
+    from cluster_tools_tpu_torch.io import chunk_cache
     from cluster_tools_tpu_torch.runtime import handoff
     from cluster_tools_tpu_torch.runtime.task import build as run_dag
 
@@ -1042,6 +1050,7 @@ def fusion_arm(K, root: str, tag: str, workflow_cls, memory_handoffs: bool, out_
         json.dump({"block_shape": list(block), "memory_handoffs": memory_handoffs}, fh)
     tmp = os.path.join(d, "tmp")
     handoff.reset()
+    chunk_cache.configure()
     wf = workflow_cls(tmp_folder=tmp, config_dir=os.path.join(d, "cfg"), max_jobs=8, block_shape=list(block),
                       **params)
     K.reset_counts()
@@ -1060,11 +1069,12 @@ def fusion_arm(K, root: str, tag: str, workflow_cls, memory_handoffs: bool, out_
     for f in sorted(os.listdir(tmp)):
         if f.endswith(".success.json") and not f.split(".")[0].endswith("_workflow"):
             tasks[f.split(".")[0]] = json.load(open(os.path.join(tmp, f)))
-    counters = Counter()
+    counters, task_counters = Counter(), {}
     io_path = os.path.join(tmp, "io_metrics.json")
     if os.path.exists(io_path):
-        for m in json.load(open(io_path))["tasks"].values():
+        for uid, m in json.load(open(io_path))["tasks"].items():
             counters.update({k: v for k, v in m.items() if isinstance(v, (int, float))})
+            task_counters[uid.split(".")[0]] = m
     spills = []
     fail_path = os.path.join(tmp, "failures.json")
     if os.path.exists(fail_path):
@@ -1076,18 +1086,25 @@ def fusion_arm(K, root: str, tag: str, workflow_cls, memory_handoffs: bool, out_
     for m in tasks.values():
         sweep.update({k: v for k, v in m.get("sweep", {}).items() if k in ("load_s", "store_s")})
     return dict(wall_s=wall, tasks={k: m["runtime_s"] for k, m in tasks.items() if "runtime_s" in m},
-                launches=launches, peak_gb=peak_gb, reserved_gb=reserved_gb, counters=dict(counters), spills=spills,
-                inter_bytes=inter, inter_top=top, sweep=dict(sweep))
+                launches=launches, peak_gb=peak_gb, reserved_gb=reserved_gb, counters=dict(counters),
+                task_counters=task_counters, spills=spills, inter_bytes=inter, inter_top=top, sweep=dict(sweep))
 
 
 HANDOFF_COUNTERS = ("handoffs_published", "handoffs_served", "handoffs_spilled", "handoff_fallbacks",
                     "bytes_not_stored", "bytes_spilled")
+# the chunk cache's counters that the fusion phase prints
+CACHE_COUNTERS = ("hits", "misses", "coalesced", "evictions", "bytes_from_storage", "direct_reads", "stall_fallbacks")
+
+
+def cache_line(c: dict) -> str:
+    return ", ".join(f"{k} {int(c.get(k, 0))}" for k in CACHE_COUNTERS)
 
 
 def fusion_line(tag: str, rec: dict) -> str:
     c = rec["counters"]
     return (f"{tag}: wall {rec['wall_s']:.3f} s; tasks " + ", ".join(f"{k} {v:.3f}" for k, v in rec["tasks"].items())
-            + f" s; launches {rec['launches']}; handoffs " + ", ".join(f"{k} {int(c.get(k, 0))}" for k in HANDOFF_COUNTERS)
+            + f" s; launches {rec['launches']}; chunk cache {cache_line(c)}; handoffs "
+            + ", ".join(f"{k} {int(c.get(k, 0))}" for k in HANDOFF_COUNTERS)
             + f"; peak {rec['peak_gb']:.2f} GB allocated, {rec['reserved_gb']:.2f} GB reserved; intermediate bytes "
             f"written {rec['inter_bytes']} (largest {rec['inter_top']}); spilled {rec['spills']}")
 
@@ -1134,7 +1151,22 @@ def phase_fusion(K, vol: torch.Tensor, rows: list, block=(128, 128, 128)) -> Non
        memory rung, ``host_staged_fallbacks == 1``, ``d2h_bytes`` = the
        payload's bytes) and at 1.5 payloads with two payloads published (the
        elder demoted, ``device_handoffs_demoted == 1``), each equal.
-    Adds ``fusion_launches`` (off / on arm of 1) to the kernel rows.
+    4. The chunk cache (ROADMAP item 9c): ``WatershedWorkflow`` (halo 32,
+       threshold 0.45, min seed distance 2, block 128^3, ``max_jobs=8``)
+       three times, each cold (fresh ``tmp_folder``, cache emptied by
+       ``configure()``): (a) ``CTT_CHUNK_CACHE=0``, (b) the cache on, (c) the
+       cache on, from the same volume written by the port to N5 (gzip,
+       blocks 128^3).  Per arm the watershed task's seconds, the wall, the
+       task's cache counters and the launches.  Gates: the labels of every
+       arm equal bit for bit to the chain's own watershed of part 1; in (b)
+       and (c) one miss a distinct chunk of the sweep's cover, its bytes
+       from storage, every other chunk read a hit or a coalesced wait and no
+       direct read (computed from the cover, and only when the cache's
+       budget holds the whole input: the phase fails otherwise); in (a) one
+       direct read a block; no stall fallback; every arm's launches those of
+       the chain.  Parts 1-3 run with the cache on and print its counters.
+    Adds ``fusion_launches`` (off / on arm of 1) and ``cache_launches``
+    (arms a, b, c) to the kernel rows.
     """
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1182,6 +1214,8 @@ def phase_fusion(K, vol: torch.Tensor, rows: list, block=(128, 128, 128)) -> Non
         if not mc["off"]["inter_bytes"]:
             raise AssertionError("fusion: the off arm wrote no intermediate bytes (the count is broken)")
         check_fusion_on("multicut on", mc["on"])
+        # the chain's own watershed, for part 4 (the off arm stores it)
+        ws_chain = open_container(os.path.join(root, "mc-off.zarr"))["ws"][...]
         for arm in ("off", "on"):
             shutil.rmtree(os.path.join(root, f"mc-{arm}"))
             shutil.rmtree(os.path.join(root, f"mc-{arm}.zarr"))
@@ -1225,9 +1259,115 @@ def phase_fusion(K, vol: torch.Tensor, rows: list, block=(128, 128, 128)) -> Non
 
         # ---- 3. the device rung ----
         device_rung(K, vol, root)
+
+        # ---- 4. the chunk cache ----
+        cache = chunk_cache_arms(K, vol, root, src_path, ws_chain, mc["off"]["launches"], block)
+        del ws_chain
     for row in rows:
         row["fusion_launches"] = {arm: mc[arm]["launches"].get(row["name"], 0) for arm in ("off", "on")}
+        row["cache_launches"] = {arm: cache[arm]["launches"].get(row["name"], 0) for arm in cache}
     log("fusion", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def chunk_cover(shape, block, halo, chunks):
+    """``(chunk reads, distinct chunks, their bytes, blocks)`` of one sweep's
+    outer reads (``block`` with ``halo``, clipped to the volume) over a
+    float32 volume stored in ``chunks``; a chunk's bytes are its part
+    inside the volume."""
+    from cluster_tools_tpu_torch.utils.volume_utils import Blocking
+
+    blocking = Blocking(shape, block)
+    steps = []
+    for b in range(blocking.n_blocks):
+        blk = blocking.get_block(b, halo)
+        steps += itertools.product(*[range(lo // c, (hi - 1) // c + 1)
+                                     for lo, hi, c in zip(blk.outer_begin, blk.outer_end, chunks)])
+    distinct = set(steps)
+    nbytes = sum(int(np.prod([min(c, s - i * c) for i, c, s in zip(idx, chunks, shape)])) * 4 for idx in distinct)
+    return len(steps), len(distinct), nbytes, blocking.n_blocks
+
+
+def chunk_cache_arms(K, vol: torch.Tensor, root: str, src_path: str, ws_chain: np.ndarray, chain_launches: dict,
+                     block, halo: int = 32) -> dict:
+    """Part 4 of the "fusion" phase (see :func:`phase_fusion`); returns the
+    arms' records."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cluster_tools_tpu_torch.io import chunk_cache
+    from cluster_tools_tpu_torch.io.containers import open_container
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedWorkflow
+
+    shape = tuple(vol.shape[-3:])
+    n_steps, n_distinct, cover_bytes, n_blocks = chunk_cover(shape, block, [halo] * 3, block)
+    budget = chunk_cache.configure().max_bytes
+    in_bytes = int(np.prod(shape)) * 4
+    log("fusion", f"chunk cache: budget {budget} B (CTT_CHUNK_CACHE_BYTES, else min(1 GiB, MemAvailable/8)); the "
+                  f"watershed sweep's outer reads (block {tuple(block)}, halo {halo}) cover {n_steps} chunk reads of "
+                  f"{n_distinct} distinct chunks ({cover_bytes} B decompressed)")
+    if budget < in_bytes:
+        raise AssertionError(f"fusion: the chunk cache's budget {budget} B is below the input's {in_bytes} B, so the "
+                             "miss gate cannot hold (raise CTT_CHUNK_CACHE_BYTES)")
+    # the same volume in the port's N5 (gzip, blocks of `block`)
+    n5_path = os.path.join(root, "in.n5")
+    n5 = open_container(n5_path).require_dataset("bmap", shape=shape, chunks=block, dtype="float32",
+                                                  compression="gzip")
+    b = vol.reshape(shape)
+    boxes = [tuple(slice(o, o + c) for o, c in zip(origin, block))
+             for origin in itertools.product(*[range(0, s, c) for s, c in zip(shape, block)])]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda bb: n5.__setitem__(bb, b[bb].cpu().numpy()), boxes))
+    log("fusion", f"chunk cache: the input written to the port's N5 (gzip) in {time.perf_counter() - t0:.2f} s")
+
+    recs = {}
+    for arm, path, cache_on in (("a", src_path, False), ("b", src_path, True), ("c", n5_path, True)):
+        out = os.path.join(root, f"ws-{arm}.zarr")
+        saved = os.environ.get("CTT_CHUNK_CACHE")
+        os.environ["CTT_CHUNK_CACHE"] = "1" if cache_on else "0"
+        try:
+            rec = fusion_arm(K, root, f"ws-{arm}", WatershedWorkflow, False, out, ("ws",), block, input_path=path,
+                             input_key="bmap", output_path=out, output_key="ws", halo=[halo] * 3, threshold=0.45,
+                             min_seed_distance=2.0)
+        finally:
+            if saved is None:
+                del os.environ["CTT_CHUNK_CACHE"]
+            else:
+                os.environ["CTT_CHUNK_CACHE"] = saved
+        recs[arm] = rec
+        c = rec["task_counters"].get("watershed", {})
+        src = "zarr" if path == src_path else "N5"
+        log("fusion", f"chunk cache arm ({arm}) WatershedWorkflow {shape} from {src}, CTT_CHUNK_CACHE="
+                      f"{1 if cache_on else 0}: watershed task {rec['tasks'].get('watershed', float('nan')):.3f} s, "
+                      f"wall {rec['wall_s']:.3f} s, summed load {rec['sweep'].get('load_s', 0):.3f} s; watershed "
+                      f"task counters {cache_line(c)}; launches {rec['launches']}")
+        if not np.array_equal(open_container(out)["ws"][...], ws_chain):
+            raise AssertionError(f"fusion: chunk cache arm ({arm}): the labels differ from the multicut chain's "
+                                 "watershed")
+        shutil.rmtree(os.path.join(root, f"ws-{arm}"))
+        shutil.rmtree(out)
+        missing = [k for k in MAIN_PATH_KERNELS if rec["launches"].get(k, 0) == 0]
+        if missing or rec["launches"] != chain_launches:
+            raise AssertionError(f"fusion: chunk cache arm ({arm}) launched {rec['launches']}, the chain's watershed "
+                                 f"{chain_launches}")
+        if int(c.get("stall_fallbacks", 0)):
+            raise AssertionError(f"fusion: chunk cache arm ({arm}): {c['stall_fallbacks']} stall fallbacks")
+        if cache_on:
+            got = (int(c.get("misses", 0)), int(c.get("bytes_from_storage", 0)),
+                   int(c.get("hits", 0)) + int(c.get("coalesced", 0)), int(c.get("direct_reads", 0)))
+            if got != (n_distinct, cover_bytes, n_steps - n_distinct, 0):
+                raise AssertionError(f"fusion: chunk cache arm ({arm}): misses, bytes from storage, hits + coalesced, "
+                                     f"direct reads {got}; the chunk cover gives {n_distinct}, {cover_bytes}, "
+                                     f"{n_steps - n_distinct}, 0")
+        elif (int(c.get("direct_reads", 0)), int(c.get("hits", 0)) + int(c.get("misses", 0))) != (n_blocks, 0):
+            raise AssertionError(f"fusion: chunk cache arm ({arm}) with the cache off: {cache_line(c)}; expected "
+                                 f"{n_blocks} direct reads and no hit or miss")
+    log("fusion", f"chunk cache: labels equal bit for bit in arms (a), (b), (c) and to the multicut chain's "
+                  f"watershed; (b) and (c) missed each of the {n_distinct} distinct chunks once ({cover_bytes} B "
+                  f"from storage) and served the other {n_steps - n_distinct} chunk reads from the cache; (a) "
+                  f"{n_blocks} direct reads; no stall fallback; launches {chain_launches} in every arm; watershed "
+                  "task " + ", ".join(f"({a}) {r['tasks'].get('watershed', float('nan')):.3f}" for a, r in recs.items())
+                  + " s")
+    return recs
 
 
 def device_rung(K, vol: torch.Tensor, root: str, n: int = 256, extent: int = 32, halo: int = 8) -> None:
@@ -1660,15 +1800,20 @@ def main_phases(K, args, gen):
         raise AssertionError("main path reported overflow")
     if ws.shape != vol.shape or ws.dtype != torch.int32 or bool((ws < 0).any()):
         raise AssertionError(f"ws labels malformed: {ws.shape} {ws.dtype}")
-    if int(n_fg) != int((cc > 0).sum()):
-        raise AssertionError(f"n_foreground {float(n_fg)} != {int((cc > 0).sum())}")
+    # n_foreground is the count cast to float32, as the step promises (exact
+    # below 2**24; past it float32 rounds): held exactly to that cast of the
+    # exact integer count
+    n_int = int((cc > 0).sum())
+    if float(n_fg) != float(np.float32(n_int)):
+        raise AssertionError(f"n_foreground {float(n_fg)} != float32({n_int}) = {float(np.float32(n_int))}")
     import scipy.ndimage as ndi
 
     fg_np = (vol[0] < torch.tensor(np.float32(0.45), device="cuda")).cpu().numpy()
     ref, n_ref = ndi.label(fg_np)
     if not partition_equal(cc[0], torch.from_numpy(ref.astype(np.int32)).cuda()):
         raise AssertionError("cc labels are not scipy.ndimage.label's partition")
-    log("main-check", f"overflow False; n_foreground {int(n_fg)}; cc = scipy partition "
+    log("main-check", f"overflow False; n_foreground {float(n_fg):.0f} = float32 of the {n_int} foreground "
+                      f"voxels; cc = scipy partition "
                       f"({n_ref} components); ws segments {int(torch.unique(ws).numel()) - 1}")
 
     # ---- the same step on the twins ----

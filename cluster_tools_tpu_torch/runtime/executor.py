@@ -30,12 +30,18 @@ on the per-block path.  Every failure lands in ``failures.json`` and a
 RuntimeError names every block still failed at the end.  A kernel error is
 never answered by running another implementation.
 
+``load_fn`` may return futures (anything with ``.result()``, such as
+``read_async`` through :func:`~..io.prefetch.async_loader`): a batch's
+reads are all issued before any is resolved, so its chunk reads are in
+flight together.  The first attempt resolves the issued futures; a retry
+calls ``load_fn`` again.
+
 The admission gate (the reference's ``map_blocks``
 ``inflight_byte_budget``): the bytes of blocks loaded but not yet stored
 are capped at ``inflight_byte_budget`` (None: a quarter of MemAvailable
-at the sweep's start, less the live in-memory handoff bytes, floored at a
-quarter of it; the reference also subtracts its decompressed-chunk cache,
-which the port does not have; 0: off).  Before each call to the device
+at the sweep's start, less the decompressed-chunk cache's budget while the
+cache is on and less the live in-memory handoff bytes, each floored at a
+quarter of it; 0: off).  Before each call to the device
 the dispatch thread drains pending stores while the budget is short or
 host memory (below ``MEM_HEADROOM_FRACTION`` available) or the disk under
 the failure manifest (below ``DISK_HEADROOM_FRACTION`` free) runs low;
@@ -63,6 +69,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..io import chunk_cache as chunk_cache_mod
 from ..parallel import block_pool as block_pool_mod
 from ..parallel import device_pool as device_pool_mod
 from ..parallel.batch_shard import batched_sweep, ragged_sweep, resolve_sharded_batch, use_sharded_sweep
@@ -210,9 +217,10 @@ class BlockwiseExecutor:
     """Run a per-block kernel over blocks on the device of ``target``.
 
     ``load_fn(block)`` returns the kernel's input arrays (numpy, already
-    padded to one shape); ``kernel(*tensors)`` gets them as tensors on the
-    device and returns a tensor or a tuple of tensors and flags;
-    ``store_fn(block, outputs)`` persists one block's outputs as numpy.
+    padded to one shape) or futures of them; ``kernel(*tensors)`` gets them
+    as tensors on the device and returns a tensor or a tuple of tensors and
+    flags; ``store_fn(block, outputs)`` persists one block's outputs as
+    numpy.
     """
 
     def __init__(self, target: str = "gpu", device_batch: int = 1, io_threads: int = 8,
@@ -354,16 +362,18 @@ class BlockwiseExecutor:
         lock = threading.Lock()
 
         # -- the admission gate (reference executor.py:1610-1690) ------------
-        # in flight = loaded but not yet stored; the budget caps it.  The
-        # reference's auto budget also subtracts its decompressed-chunk
-        # cache, which the port does not have.
+        # in flight = loaded but not yet stored; the budget caps it
         if inflight_byte_budget is None:
             avail = host_mem_available_bytes()
             budget = int(avail * 0.25) if avail else 0
+            if budget and chunk_cache_mod.cache_enabled():
+                # the decompressed-chunk cache shares the host envelope,
+                # floored at a quarter of it so small hosts keep making
+                # progress
+                budget = max(budget - chunk_cache_mod.get_chunk_cache().max_bytes, budget // 4)
             live_handoff = handoff_mod.live_bytes()
             if budget and live_handoff:
-                # live in-memory handoffs share the host envelope, floored
-                # at a quarter of it so small hosts keep making progress
+                # so do live in-memory handoffs, with the same floor
                 budget = max(budget - live_handoff, budget // 4)
         else:
             budget = int(inflight_byte_budget)
@@ -447,9 +457,35 @@ class BlockwiseExecutor:
                     rec["quarantined"] = True
                     rec["resolved"] = False
 
-        def load_block(block):
+        def issue(block):
+            """``load_fn(block)`` (its futures, or its arrays) and the error
+            it raised, one of them None."""
             t0 = time.perf_counter()
-            val, attempts, tb, resource = self._retry(lambda: tuple(np.asarray(x) for x in load_fn(block)))
+            try:
+                return load_fn(block), None
+            except Exception as e:
+                return None, e
+            finally:
+                add("load_s", time.perf_counter() - t0)
+
+        def load_block(block, issued=None):
+            """The block's inputs as numpy, with retries: the first attempt
+            resolves ``issued`` (or raises its error), a retry calls
+            ``load_fn`` again."""
+            pending = [issued]
+
+            def attempt():
+                pre, pending[0] = pending[0], None
+                if pre is None:
+                    per = load_fn(block)
+                else:
+                    per, exc = pre
+                    if exc is not None:
+                        raise exc
+                return tuple(np.asarray(x.result() if hasattr(x, "result") else x) for x in per)
+
+            t0 = time.perf_counter()
+            val, attempts, tb, resource = self._retry(attempt)
             add("load_s", time.perf_counter() - t0)
             if tb is not None:
                 note_failure(block, "load", attempts, tb, quarantine=True, resource=resource)
@@ -596,12 +632,15 @@ class BlockwiseExecutor:
         bs = sharded_width if use_sharded else self.device_batch
 
         def load_batch(batch):
+            # every read of the batch is issued before any is resolved
             if not use_sharded:
-                return [(b, load_block(b)) for b in batch]
+                issued = [issue(b) for b in batch]
+                return [(b, load_block(b, i)) for b, i in zip(batch, issued)]
             # a batch's blocks load in parallel on their own pool (this
             # thread is one of the sweep pool's, which runs the stores)
+            issued = list(block_loader.map(issue, batch))
             ok, vals = [], []
-            for b, val in zip(batch, block_loader.map(load_block, batch)):
+            for b, val in zip(batch, block_loader.map(load_block, batch, issued)):
                 if val is not None:
                     ok.append(b)
                     vals.append(val)

@@ -188,10 +188,12 @@ class BaseTask:
         raise NotImplementedError
 
     def run(self):
+        from ..io import chunk_cache
         from ..parallel import device_pool as device_pool_mod
         from . import handoff as handoff_mod
 
         self.logger.info(f"start {self.task_name} (target={self.target})")
+        io_snap = chunk_cache.snapshot()
         handoff_snap = handoff_mod.snapshot()
         device_snap = device_pool_mod.snapshot()
         t0 = time.perf_counter()
@@ -206,7 +208,8 @@ class BaseTask:
         # the counters' movement during this task, in the manifest and
         # merged additively into the run's io_metrics.json
         io_metrics = {}
-        for metrics in (handoff_mod.delta(handoff_snap), device_pool_mod.delta(device_snap)):
+        for metrics in (chunk_cache.delta(io_snap), handoff_mod.delta(handoff_snap),
+                        device_pool_mod.delta(device_snap)):
             if any(metrics.values()):
                 io_metrics.update(metrics)
         if io_metrics:

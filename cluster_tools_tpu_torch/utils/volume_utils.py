@@ -121,8 +121,9 @@ def pad_block_to(data: np.ndarray, target_shape: Sequence[int], mode: str = "con
 
 
 def file_reader(path: str, mode: str = "a"):
-    """Open a container by extension: ``.zarr``/``.zr`` (the port's numpy
-    zarr v2) or ``memory://``; see :func:`..io.open_container`."""
+    """Open a container by extension: ``.zarr``/``.zr`` and ``.n5`` (the
+    port's numpy zarr v2 and N5), ``.h5``/``.hdf5``/``.hdf`` (``h5py``) or
+    ``memory://``; see :func:`..io.open_container`."""
     from ..io import open_container
 
     return open_container(path, mode=mode)

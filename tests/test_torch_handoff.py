@@ -639,7 +639,10 @@ def _sweep_into(ds, vol, blocking, mode, **kw):
 
 def test_executor_budget_subtracts_live_handoffs(tmp_path, monkeypatch):
     """Reference :671, and the budget the sweep then runs under: a quarter
-    of MemAvailable less the live handoff bytes, floored at a quarter of it."""
+    of MemAvailable less the chunk cache's budget (while the cache is on),
+    then less the live handoff bytes, each floored at a quarter of it."""
+    from cluster_tools_tpu_torch.io import chunk_cache
+
     _path, ds, _entry = _mk_handoff(tmp_path, shape=(32, 32, 32))
     assert handoff.live_bytes() == 32 ** 3 * 8
     assert handoff.spill_for_headroom() == 0  # only complete entries spill
@@ -648,11 +651,21 @@ def test_executor_budget_subtracts_live_handoffs(tmp_path, monkeypatch):
     blocking = Blocking((16,), (4,))
     vol = np.arange(16, dtype=np.float32)
     sink = np.zeros(16, np.float32)
-    summary = _sweep_into(sink, vol, blocking, "per_block")
-    assert summary["inflight_byte_budget"] == max(250_000 - 32 ** 3 * 8, 250_000 // 4)
-    handoff.reset()
-    assert _sweep_into(sink, vol, blocking, "per_block")["inflight_byte_budget"] == 250_000
-    assert _sweep_into(sink, vol, blocking, "per_block", inflight_byte_budget=0)["inflight_byte_budget"] == 0
+    chunk_cache.configure(max_bytes=100_000)
+    try:
+        after_cache = max(250_000 - 100_000, 250_000 // 4)
+        summary = _sweep_into(sink, vol, blocking, "per_block")
+        assert summary["inflight_byte_budget"] == max(after_cache - 32 ** 3 * 8, after_cache // 4)
+        monkeypatch.setenv("CTT_CHUNK_CACHE", "0")
+        summary = _sweep_into(sink, vol, blocking, "per_block")
+        assert summary["inflight_byte_budget"] == max(250_000 - 32 ** 3 * 8, 250_000 // 4)
+        handoff.reset()
+        assert _sweep_into(sink, vol, blocking, "per_block")["inflight_byte_budget"] == 250_000
+        monkeypatch.setenv("CTT_CHUNK_CACHE", "1")
+        assert _sweep_into(sink, vol, blocking, "per_block")["inflight_byte_budget"] == after_cache
+        assert _sweep_into(sink, vol, blocking, "per_block", inflight_byte_budget=0)["inflight_byte_budget"] == 0
+    finally:
+        chunk_cache.configure()
 
 
 @pytest.mark.parametrize("mode", ["per_block", "sharded"])
@@ -787,7 +800,10 @@ def _cc_run(side, root, data, env):
     with pytest.MonkeyPatch.context() as mp:
         for k, v in env.items():
             mp.setenv(k, v)
-        wf = CC(tmp_folder=tmp, config_dir=os.path.join(d, "cfg"), max_jobs=2, target="local", input_path=path,
+        # one IO thread: both packages keep one degraded:spilled record a
+        # producer task (keyed by task and block_id None), the last spill to
+        # land, which concurrent stores would make a race
+        wf = CC(tmp_folder=tmp, config_dir=os.path.join(d, "cfg"), max_jobs=1, target="local", input_path=path,
                 input_key="x", output_path=path, output_key="cc", block_shape=[8, 8, 8], threshold=0.5)
         assert run([wf]), side
     labels = np.asarray(reader(path)["cc"][...])

@@ -31,19 +31,30 @@ def test_port_file_imports_no_jax(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-def test_importing_the_port_leaves_jax_unloaded():
+def _import_every_port_module_and_assert(check: str):
     code = (
         "import sys, importlib, pkgutil\n"
         "import cluster_tools_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cluster_tools_tpu')]\n"
-        "assert not bad, bad\n"
+        f"{check}\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_importing_the_port_leaves_jax_unloaded():
+    _import_every_port_module_and_assert(
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cluster_tools_tpu')]\n"
+        "assert not bad, bad")
+
+
+def test_importing_the_port_leaves_h5py_unloaded():
+    """The card's machine has no h5py: the HDF5 container imports it only
+    when a file is opened."""
+    _import_every_port_module_and_assert("assert 'h5py' not in sys.modules")
 
 
 def test_default_device_raises_without_a_gpu(monkeypatch):
