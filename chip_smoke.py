@@ -106,8 +106,27 @@ Phases, each one line of output, each raising on failure:
     output of phase 10 (per-task times; the merged graph against the numpy
     oracle, the segmentation against the assignment table); the default
     workflow (watershed, Kernighan-Lin) on the first 128^3, and the
-    agglomerating watershed on the first 256^3 against its
-    ``impl="torch"`` run.  The kernel rows gain ``multicut_launches``;
+    agglomerating watershed on the first 128^3 (cut from 256^3 to pay for
+    12b) against its ``impl="torch"`` run.  The kernel rows gain
+    ``multicut_launches``;
+12b. reduce-tree (``phase_reduce_tree``, in phase 12's ``tmp_folder``):
+    the sharded global solve (ROADMAP 10b) and the fused workflow (12a).
+    (a) ``AgglomerativeClusteringWorkflow`` with ``solver_shards=8`` and
+    the collective plane demanded, on 8 sibling shards on the card
+    (``CTT_MESH_SHARDS=8``), the whole 512^3 graph: equal to the in-process
+    packet plane bit for bit, collective on every level, no ``degraded:*``
+    record, a warm re-solve sending no byte to the card; (b)
+    ``SolveGlobal`` (``gaec_parallel``, 8 shards) on both planes, equal,
+    energy within 0.1% of the unsharded solve; (c) the same over a
+    two-process worker group (gloo, packet plane), equal to (b); per arm the
+    wall, levels, rounds, boundary edges, hops, bytes gathered, host syncs
+    and h2d bytes.  (d) ``FusedSegmentationWorkflow`` on the main path's
+    volume and configuration, fused and split, on 1 shard and 8: ws and cc
+    = ``make_ws_ccl_step`` on the same mesh, cc = scipy's partition,
+    ``n_foreground`` = the mesh's float32 sum of the exact per-shard
+    counts, every launch of one 8-shard run replayed against its twin.
+    (e) ``sharded_slab_sweep`` of B3 with ``n_ranks=4`` = ``n_ranks=1``.
+    The kernel rows gain ``fused_launches``;
 13. fusion (``phase_fusion``): task-graph fusion from the port's zarr on
     local disk: ``MulticutSegmentationWorkflow`` with its own watershed on
     the main path's 512^3 volume and ``ConnectedComponentsWorkflow`` on it,
@@ -148,6 +167,7 @@ without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -192,8 +212,16 @@ KERNELS = {
     "apply_remap": ("B4", "cluster_tools_tpu_torch/csrc/apply_remap.cu", "cluster_tools_tpu/ops/pallas_kernels.py:384"),
 }
 # the config-4 shape: the fused RAG + parallel GAEC on this crop of the main
-# path's watershed labels; the agglomerating watershed on the same crop
+# path's watershed labels
 CONFIG4_CROP = 256
+# the agglomerating watershed and its impl="torch" twin: cut from 256^3 to
+# 128^3 (~87 s at 256^3) to pay for the "reduce-tree" phase
+AGG_WS_CROP = 128
+# the "reduce-tree" phase: sibling shards on the one card, and the device
+# page pool's budget for the collective plane's lanes (a level of the 512^3
+# graph's pages; the tasks' default of 256 MiB would hold none)
+REDUCE_SHARDS = 8
+REDUCE_POOL_BYTES = 8 << 30
 # the default multicut workflow (Kernighan-Lin global solve) with its watershed
 MC_DEFAULT_CROP = 128
 # the kernels the main path must launch (B1d is a variant nothing selects)
@@ -822,7 +850,8 @@ MC_TASKS = ("initial_sub_graphs", "merge_sub_graphs", "map_edge_ids", "block_edg
             "probs_to_costs", "solve_subproblems", "reduce_problem", "solve_global", "write")
 
 
-def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: list, block=(128, 128, 128)) -> None:
+def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: list, block=(128, 128, 128),
+                   then=None) -> None:
     """BASELINE config 4 on the card.
 
     1. The bench's config-4 shape: ``block_rag_fused`` + ``gaec_parallel``
@@ -843,10 +872,11 @@ def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: li
     3. The default workflow (Kernighan-Lin global solve, its own
        watershed: B1-B4 launch) on the first ``MC_DEFAULT_CROP``^3 (block
        64^3); and the single-pass watershed with
-       ``agglomerate_threshold=0.5`` on the first ``CONFIG4_CROP``^3
-       (block 128^3) against its ``impl="torch"`` run, bit for bit.
+       ``agglomerate_threshold=0.5`` on the first ``AGG_WS_CROP``^3
+       (block 64^3) against its ``impl="torch"`` run, bit for bit.
     Adds ``multicut_launches`` (the kernels' launches in 3's watershed) to
-    the kernel rows.
+    the kernel rows.  ``then(context)`` runs before the workflows'
+    ``tmp_folder`` goes (the "reduce-tree" phase reuses it).
     """
     from cluster_tools_tpu_torch.io.containers import MemoryContainer, open_container
     from cluster_tools_tpu_torch.ops.contraction import gaec_parallel, solver_delta, solver_snapshot
@@ -947,6 +977,7 @@ def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: li
         del ws, seg, want, idx
         log("multicut", f"merged graph = the numpy oracle's (nodes, uv, sizes; {t_oracle:.1f} s); seg > 0 = ws > 0; "
                         f"seg = the assignment table applied to ws")
+        mc_energy = t["solve_global"]["energy"]
         rec = wf_run(K, tmp, cfg_dir, AgglomerativeClusteringWorkflow, output_key="ac_seg", **io)
         ac = rec["tasks"]["agglomerative_clustering"]
         log("multicut", f"AgglomerativeClusteringWorkflow in the same tmp_folder (graph and features reused): wall "
@@ -979,10 +1010,11 @@ def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: li
         for row in rows:
             row["multicut_launches"] = launches.get(row["name"], 0)
 
-        half = tuple(slice(0, n) for _ in range(3))
-        f.require_dataset("boundaries_half", shape=(n,) * 3, chunks=block, dtype="float32")[...] = \
+        a_n = AGG_WS_CROP
+        half = tuple(slice(0, a_n) for _ in range(3))
+        f.require_dataset("boundaries_half", shape=(a_n,) * 3, chunks=(a_n // 2,) * 3, dtype="float32")[...] = \
             f["boundaries"][half]
-        agg = dict(input_path=mem, input_key="boundaries_half", output_path=mem, block_shape=list(block),
+        agg = dict(input_path=mem, input_key="boundaries_half", output_path=mem, block_shape=[a_n // 2] * 3,
                    agglomerate_threshold=0.5, dt_max_distance=32.0, **ws_cfg)
         recs = {impl: wf_run(K, os.path.join(root, f"agg-{impl}"), cfg_dir, WatershedWorkflow, output_key=f"agg_{impl}",
                              impl=impl, **agg) for impl in ("auto", "torch")}
@@ -991,12 +1023,298 @@ def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: li
         a, b = f["agg_auto"][...], f["agg_torch"][...]
         if not np.array_equal(a, b):
             raise AssertionError("multicut: the agglomerating watershed's impl='torch' output differs from the kernels'")
-        log("multicut", f"single-pass watershed with agglomerate_threshold=0.5 on {(n,) * 3}, block {block}: "
+        log("multicut", f"single-pass watershed with agglomerate_threshold=0.5 on {(a_n,) * 3}, block "
+                        f"{(a_n // 2,) * 3}: "
                         f"{recs['auto']['wall_s']:.3f} s (impl=torch {recs['torch']['wall_s']:.3f} s), "
                         f"{len(np.unique(a)) - int((a == 0).any())} segments; equals its impl='torch' run bit for bit; "
                         f"launches {recs['auto']['launches']}")
+        log("multicut", f"phase {time.perf_counter() - t_phase:.1f} s")
+        if then is not None:
+            then(dict(root=root, tmp=tmp, io=io, block=block, mc_energy=mc_energy))
     del MemoryContainer._registry[mem]
-    log("multicut", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def tree_line(info: dict, delta: dict, wall: float) -> str:
+    """One arm of the "reduce-tree" phase: the solve's shape and counters."""
+    return (f"wall {wall:.3f} s, plane {info.get('reduce_plane')}, levels {len(info.get('levels', []))}, "
+            f"rounds {int(delta['tree_rounds'] + delta.get('solver_rounds', 0))}, boundary edges in "
+            f"{int(delta['boundary_edges_in'])} out {int(delta['boundary_edges_out'])}, collective hops "
+            f"{int(delta['collective_hops'])}, bytes gathered {int(delta['bytes_over_interconnect'])}, host syncs "
+            f"{int(delta['host_syncs'])}"
+            + ("" if not info.get("levels") or "solve_s" not in info["levels"][0] else
+               "; levels (edges in, solve s) " + ", ".join(f"({lv['edges_in']}, {lv['solve_s']:.3f})"
+                                                          for lv in info["levels"])))
+
+
+def degraded_records(tmp: str) -> list:
+    """The ``degraded:*`` records of the solve tasks in ``tmp``'s
+    ``failures.json``."""
+    path = os.path.join(tmp, "failures.json")
+    if not os.path.exists(path):
+        return []
+    return [r for r in json.load(open(path))["records"] if str(r.get("resolution", "")).startswith("degraded:")
+            and str(r.get("task", "")).split(".")[0] in ("agglomerative_clustering", "solve_global")]
+
+
+def phase_reduce_tree(K, vol: torch.Tensor, ref: np.ndarray, mem: str, mc: dict, rows: list) -> None:
+    """The sharded global solve and the fused workflow on the card (ROADMAP
+    items 10b and 12a), in the "multicut" phase's ``tmp_folder`` (the 512^3
+    graph, its features and costs and the reduced problem; not cut):
+
+    a. ``AgglomerativeClusteringWorkflow`` (threshold 0.5) with
+       ``solver_shards=8`` and the collective plane demanded, on a sibling
+       mesh of ``REDUCE_SHARDS`` shards on the card: labels equal the
+       in-process packet plane's on the same problem bit for bit, the plane
+       is ``collective`` on every level and no ``degraded:*`` record is
+       written; a warm re-solve sends no bytes to the card.
+    b. ``SolveGlobal`` (``gaec_parallel``) with ``solver_shards=8`` on both
+       planes, equal to each other, its energy within 0.1% of the
+       unsharded solve's (the reference's own claim).
+    c. The same solve over a worker group (``solver_workers=2``: two CPU
+       processes, gloo, the packet plane), equal to (b).
+    d. ``FusedSegmentationWorkflow`` on the main path's 512^3 volume
+       (``memory://``, the main path's configuration), ``fused`` and
+       ``split``, on 1 shard (the card count) and on 8: ws and cc equal
+       ``make_ws_ccl_step`` on the same mesh bit for bit, cc is scipy's
+       partition, ``n_foreground`` is the float32 mesh sum of the exact
+       per-shard counts, rounded (the exact integer count wherever float32
+       holds it); every kernel launch of one run replayed against its twin.
+       Adds ``fused_launches`` to the kernel rows.
+    e. ``sharded_slab_sweep`` of B3 over the 512^3 volume with
+       ``n_ranks=4`` on the one card equals ``n_ranks=1``.
+    """
+    from cluster_tools_tpu_torch.io.containers import open_container
+    from cluster_tools_tpu_torch.parallel import device_pool
+    from cluster_tools_tpu_torch.parallel import reduce_tree as rt
+    from cluster_tools_tpu_torch.parallel.batch_shard import sharded_slab_sweep
+    from cluster_tools_tpu_torch.parallel.mesh import make_mesh
+    from cluster_tools_tpu_torch.parallel.pipeline import make_ws_ccl_step
+    from cluster_tools_tpu_torch.runtime import handoff
+    from cluster_tools_tpu_torch.runtime.task import build as run_dag
+    from cluster_tools_tpu_torch.tasks.agglomerative_clustering import agglomerative_assignments_path
+    from cluster_tools_tpu_torch.tasks.features import features_path
+    from cluster_tools_tpu_torch.tasks.fused import FusedSegmentationWorkflow
+    from cluster_tools_tpu_torch.tasks.graph import load_global_graph
+    from cluster_tools_tpu_torch.tasks.multicut import SolveGlobalGPU, assignments_path
+    from cluster_tools_tpu_torch.workflows import AgglomerativeClusteringWorkflow
+
+    t_phase = time.perf_counter()
+    tmp, block = mc["tmp"], mc["block"]
+    saved_env = {k: os.environ.get(k) for k in ("CTT_MESH_SHARDS", "CT_SEED_CCL")}
+    os.environ["CTT_MESH_SHARDS"] = str(REDUCE_SHARDS)
+    cfg_dir = os.path.join(mc["root"], "cfg-tree")
+    os.makedirs(cfg_dir)
+    with open(os.path.join(cfg_dir, "global.config"), "w") as fh:
+        json.dump({"block_shape": list(block)}, fh)
+    with open(os.path.join(cfg_dir, "agglomerative_clustering.config"), "w") as fh:
+        json.dump({"solver_shards": REDUCE_SHARDS, "reduce_plane": "collective",
+                   "device_pool_bytes": REDUCE_POOL_BYTES}, fh)
+    if degraded_records(tmp):
+        raise AssertionError(f"reduce-tree: degraded records before the phase: {degraded_records(tmp)}")
+
+    # ---- (a) agglomerative clustering on the collective plane ----
+    unsharded = np.load(agglomerative_assignments_path(tmp))["values"]
+    for fn in os.listdir(tmp):  # the unsharded run's manifest: rerun the task
+        if fn.split(".")[0] == "agglomerative_clustering" and fn.endswith(".success.json"):
+            os.remove(os.path.join(tmp, fn))
+    device_pool.reset()
+    snap_t, snap_d = rt.solve_snapshot(), device_pool.snapshot()
+    rec = wf_run(K, tmp, cfg_dir, AgglomerativeClusteringWorkflow, output_key="ac_tree", **mc["io"])
+    d_tree, h2d_cold = rt.solve_delta(snap_t), device_pool.delta(snap_d)["h2d_bytes"]
+    ac = rec["tasks"]["agglomerative_clustering"]
+    solver = ac["solver"]
+    if not (solver.get("sharded") and solver.get("reduce_plane") == "collective") or "degraded_plane" in solver \
+            or any(lv["plane"] != "collective" for lv in solver["levels"]):
+        raise AssertionError(f"reduce-tree (a): the collective plane did not carry the solve: "
+                             f"{ {k: v for k, v in solver.items() if k != 'levels'} }")
+    labels_c = np.load(agglomerative_assignments_path(tmp))["values"].astype(np.int64) - 1
+    nodes, _, edges, sizes = load_global_graph(tmp)
+    feats = handoff.load_array(features_path(tmp))
+    s = np.maximum(np.asarray(sizes, np.float64), 1e-12)
+    payload = np.stack([np.asarray(feats[:, 0], np.float64) * s, s], axis=1)
+    edges = edges.astype(np.int64)
+    node_shard = rt.contiguous_node_shards(len(nodes), REDUCE_SHARDS)
+    solve_kw = dict(fanout=2, mode="min", threshold=0.5, max_workers=8, device="cuda",
+                    device_pool_bytes=REDUCE_POOL_BYTES)
+    snap_t = rt.solve_snapshot()
+    t0 = time.perf_counter()
+    labels_p, info_p = rt.sharded_solve(len(nodes), edges, payload, node_shard, reduce_plane="packet", **solve_kw)
+    packet_s, d_packet = time.perf_counter() - t0, rt.solve_delta(snap_t)
+    if not np.array_equal(labels_c, labels_p):
+        raise AssertionError(f"reduce-tree (a): the collective plane's labels differ from the packet plane's at "
+                             f"{int((labels_c != labels_p).sum())} nodes")
+    snap_t, snap_d = rt.solve_snapshot(), device_pool.snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels_w, info_w = rt.sharded_solve(len(nodes), edges, payload, node_shard, reduce_plane="collective",
+                                        **solve_kw)
+    warm_s, d_warm, h2d_warm = time.perf_counter() - t0, rt.solve_delta(snap_t), device_pool.delta(snap_d)["h2d_bytes"]
+    if not np.array_equal(labels_w, labels_c) or info_w["reduce_plane"] != "collective":
+        raise AssertionError("reduce-tree (a): the warm collective re-solve differs")
+    if h2d_warm:
+        raise AssertionError(f"reduce-tree (a): the warm re-solve sent {h2d_warm} B to the card")
+    bad = degraded_records(tmp)
+    if bad:
+        raise AssertionError(f"reduce-tree (a): degraded records written: {bad}")
+    log("reduce-tree", f"(a) AgglomerativeClusteringWorkflow, threshold 0.5, solver_shards {REDUCE_SHARDS}, "
+                       f"collective plane on {REDUCE_SHARDS} sibling shards on cuda:0: {len(nodes)} nodes, "
+                       f"{len(edges)} edges -> {len(np.unique(labels_c))} clusters (unsharded "
+                       f"{len(np.unique(unsharded))}); workflow wall {rec['wall_s']:.3f} s, task "
+                       f"{ac['runtime_s']:.3f} s; " + tree_line(solver, d_tree, ac["runtime_s"])
+                       + f", h2d {h2d_cold} B cold; warm re-solve {warm_s:.3f} s, h2d {h2d_warm} B, pool hits "
+                       f"{int(device_pool.delta(snap_d)['device_pool_hits'])}; = the in-process packet plane "
+                       f"(max_workers 8) bit for bit: " + tree_line(info_p, d_packet, packet_s)
+                       + "; no degraded record")
+
+    # ---- (b) SolveGlobal on both planes, (c) over a worker group ----
+    task_kw = dict(tmp_folder=tmp, config_dir=cfg_dir, max_jobs=8, input_path=mem, input_key="ws",
+                   block_shape=list(block), scale=1, agglomerator="gaec_parallel", solver_shards=REDUCE_SHARDS,
+                   device_pool_bytes=REDUCE_POOL_BYTES)
+    solves = {}
+    for arm, extra in (("collective", dict(reduce_plane="collective")), ("packet", dict(reduce_plane="packet")),
+                       ("workers", dict(reduce_plane="packet", solver_workers=2))):
+        task = SolveGlobalGPU(**task_kw, **extra)
+        snap_t = rt.solve_snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not run_dag([task]):
+            raise AssertionError(f"reduce-tree ({arm}): SolveGlobal failed; log:\n"
+                                 + open(os.path.join(tmp, f"{task.uid}.log")).read()[-3000:])
+        wall, delta = time.perf_counter() - t0, rt.solve_delta(snap_t)
+        doc = task.output().read()
+        solves[arm] = (np.load(assignments_path(tmp))["values"].copy(), doc, wall, delta)
+    lab_c, doc_c = solves["collective"][:2]
+    if doc_c["solver"]["reduce_plane"] != "collective" or "degraded_plane" in doc_c["solver"]:
+        raise AssertionError(f"reduce-tree (b): the collective plane did not carry SolveGlobal: {doc_c['solver']}")
+    for arm in ("packet", "workers"):
+        if not np.array_equal(solves[arm][0], lab_c):
+            raise AssertionError(f"reduce-tree ({arm}): SolveGlobal's labels differ from the collective plane's")
+    if solves["workers"][1]["solver"].get("workers") != 2:
+        raise AssertionError("reduce-tree (c): the solve did not run over the worker group")
+    energy, e0 = doc_c["energy"], mc["mc_energy"]
+    gap = abs(energy - e0) / abs(e0)
+    if gap > 1e-3:
+        raise AssertionError(f"reduce-tree (b): sharded energy {energy} is {100 * gap:.3f}% from the unsharded "
+                             f"{e0} (> 0.1%)")
+    bad = degraded_records(tmp)
+    if bad:
+        raise AssertionError(f"reduce-tree (b, c): degraded records written: {bad}")
+    for arm, (_, doc, wall, delta) in solves.items():
+        log("reduce-tree", f"({'c' if arm == 'workers' else 'b'}) SolveGlobal gaec_parallel, solver_shards "
+                           f"{REDUCE_SHARDS}, {arm}{' (2 processes, gloo, packet plane)' if arm == 'workers' else ''}: "
+                           f"{doc['solver']['edges_in']} edges -> {doc['n_segments']} segments, energy "
+                           f"{doc['energy']:.6g}; task {doc['runtime_s']:.3f} s; " + tree_line(doc["solver"], delta, wall))
+    log("reduce-tree", f"(b, c) the three arms' labels equal; energy {energy:.6g} against the unsharded "
+                       f"{e0:.6g}: gap {100 * gap:.4f}% (<= 0.1%); no degraded record")
+
+    # ---- (d) the fused workflow on the main path's volume ----
+    os.environ["CT_SEED_CCL"] = "sparse"
+    f = open_container(mem)
+    fused_cfg = {k: v for k, v in MAIN_CFG.items() if k != "seed_mode"}
+    fg = vol[0] < torch.tensor(np.float32(fused_cfg["threshold"]), device="cuda")
+    n_exact = int(fg.sum())
+    ref_t = torch.from_numpy(ref.astype(np.int32)).cuda()
+    fused_launches = {}
+    for shards in (1, REDUCE_SHARDS):
+        os.environ["CTT_MESH_SHARDS"] = str(shards)
+        mesh = make_mesh(shards, axis_names=("dp", "sp"), grid=(1, shards), devices="cuda")
+        ref_ws, ref_cc, _, ref_ovf = make_ws_ccl_step(mesh, **fused_cfg)(vol)
+        if ref_ovf:
+            raise AssertionError(f"reduce-tree (d): make_ws_ccl_step overflowed on {shards} shard(s)")
+        # the mesh's float32 sum of the exact per-shard counts, in rank order
+        slabs = fg.reshape(shards, -1).sum(1).to(torch.float32)
+        acc = slabs[0]
+        for c in slabs[1:]:
+            acc = acc + c
+        want_n = int(round(float(acc)))
+        for execution in ("fused", "split"):
+            tag = f"{shards}-{execution}"
+            d = tempfile.mkdtemp(prefix=f"fused-{tag}-", dir=mc["root"])
+            wf = FusedSegmentationWorkflow(tmp_folder=os.path.join(d, "tmp"), config_dir=cfg_dir, max_jobs=8,
+                                           input_path=mem, input_key="boundaries", output_path=mem,
+                                           ws_key=f"fws-{tag}", cc_key=f"fcc-{tag}", block_shape=list(block),
+                                           execution=execution, **fused_cfg)
+            replaying = shards == REDUCE_SHARDS and execution == "split"
+            K.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with K.capture_inputs() if replaying else contextlib.nullcontext() as captured:
+                ok = run_dag([wf])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            if not ok:
+                raise AssertionError(f"reduce-tree (d) {tag}: the fused workflow failed")
+            doc = wf.output().read()
+            if shards == REDUCE_SHARDS and execution == "fused":
+                fused_launches = launches
+            missing = [k for k in MAIN_PATH_KERNELS if launches.get(k, 0) == 0]
+            if missing:
+                raise AssertionError(f"reduce-tree (d) {tag}: no launch of {missing}")
+            ws_got = torch.from_numpy(f[f"fws-{tag}"][...].view(np.int64)).cuda()
+            cc_got = torch.from_numpy(f[f"fcc-{tag}"][...].view(np.int64)).cuda()
+            for what, a, b in (("ws", ws_got, ref_ws[0]), ("cc", cc_got, ref_cc[0])):
+                if not torch.equal(a, b.long()):
+                    raise AssertionError(f"reduce-tree (d) {tag}: {what} differs from make_ws_ccl_step's")
+            if not partition_equal(cc_got, ref_t):
+                raise AssertionError(f"reduce-tree (d) {tag}: cc is not scipy.ndimage.label's partition")
+            if doc["n_foreground"] != want_n or (float(np.float32(n_exact)) == n_exact and shards == 1
+                                                 and doc["n_foreground"] != n_exact):
+                raise AssertionError(f"reduce-tree (d) {tag}: n_foreground {doc['n_foreground']} != {want_n} "
+                                     f"(exact count {n_exact})")
+            f._data.pop(f"fws-{tag}")
+            f._data.pop(f"fcc-{tag}")
+            del ws_got, cc_got
+            replayed = ""
+            if replaying:
+                out = {}
+                for i, (kname, kargs, kkw) in enumerate(captured):
+                    kfn, tfn = replay(K, kname, kargs, kkw)
+                    require_equal(f"reduce-tree (d) {tag}: {kname} launch {i}", kfn(), tfn())
+                    out[kname] = out.get(kname, 0) + 1
+                captured.clear()
+                replayed = f"; every launch of this run equals its twin ({out})"
+            voxels = int(np.prod(vol.shape))
+            log("reduce-tree", f"(d) FusedSegmentationWorkflow {tuple(vol.shape[1:])}, {execution}, mesh "
+                               f"{doc['mesh']}: wall {wall:.3f} s = {voxels / wall:.4g} voxels/s, peak {peak:.2f} GB; "
+                               f"ws, cc = make_ws_ccl_step on the same mesh; cc = scipy partition; n_foreground "
+                               f"{doc['n_foreground']} (exact count {n_exact}); launches {launches}{replayed}")
+        del ref_ws, ref_cc
+    for row in rows:
+        row["fused_launches"] = fused_launches.get(row["name"], 0)
+
+    # ---- (e) the slab sweep of B3 across ranks ----
+    big, extent, halo = 1e30, 64, 32
+
+    def slab_edt(x):
+        f_ = torch.where(x < 0.45, torch.zeros_like(x), torch.full_like(x, big))
+        return K.edt_cascade(f_, axis=0, radius=halo, w=1.0, big=big)[halo:-halo]
+
+    outs = {}
+    for n_ranks in (1, 4):
+        K.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sharded_slab_sweep(vol[0], slab_edt, extent, halo, batch=8, fill=0.0, keep_on_device=True,
+                                 n_ranks=n_ranks)
+        torch.cuda.synchronize()
+        outs[n_ranks] = (out, time.perf_counter() - t0, dict(K.LAUNCHES))
+    if not torch.equal(outs[1][0], outs[4][0]):
+        raise AssertionError("reduce-tree (e): sharded_slab_sweep with n_ranks=4 differs from n_ranks=1")
+    log("reduce-tree", f"(e) sharded_slab_sweep of B3 (extent {extent}, halo {halo}, batch 8) over "
+                       f"{tuple(vol.shape[1:])}: n_ranks=4 == n_ranks=1 bit for bit; "
+                       + "; ".join(f"n_ranks {r}: {s_:.3f} s, launches {ln}" for r, (_, s_, ln) in outs.items()))
+    del outs
+    # the plane's arenas (8 GiB budget) go: later phases size their own
+    device_pool.reset()
+    for k, v in saved_env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    log("reduce-tree", f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
 # the fusion phase's cc arm: cut from the main path's 512 to 256, since the
@@ -2165,7 +2483,7 @@ def main() -> int:
                   * MAIN_SHAPE[3])
     mem, auto = phase_blockwise(K, vol, ref, rows)
     phase_sweeps(K, mem, auto, main_s_per_voxel, rows)
-    phase_multicut(K, vol, ws_crop, mem, rows)
+    phase_multicut(K, vol, ws_crop, mem, rows, then=lambda mc: phase_reduce_tree(K, vol, ref, mem, mc, rows))
     phase_fusion(K, vol, rows)
     phase_inference(K, vol, rows, args.seed)
 

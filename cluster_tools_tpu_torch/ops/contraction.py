@@ -34,6 +34,11 @@ Rungs (``impl``):
 - ``"auto"`` resolves to ``"torch"`` when the solve's device is a CUDA
   device, else to ``"numpy"``.
 
+:func:`lane_frontier_rounds` is the reduce tree's level program for one
+group (the reference's vmapped ``lane_frontier_rounds``): the same rounds
+with frontier abstention on fixed-capacity lanes, in plain torch on the
+lane's device.
+
 The reference's host C++ rung (``impl="native"``) is not ported: ROADMAP
 Queue A item 13.
 """
@@ -233,6 +238,154 @@ def _contract_rounds_torch(n_nodes: int, edges: np.ndarray, payload: np.ndarray,
         u, v, pay = _canonical_edges_torch(n, root[u], root[v], pay)
     _record_solver_metrics(solver_rounds=rounds)
     return torch.unique(labels, return_inverse=True)[1].cpu().numpy().astype(np.int64)
+
+
+#: the least row capacity a lane's arrays are cut down to
+LANE_MIN_CAPACITY = 64
+
+
+def _lane_capacity(live: int, cap: int) -> int:
+    """The power of two (at least :data:`LANE_MIN_CAPACITY`, at most
+    ``cap``) that holds ``live`` rows."""
+    want = LANE_MIN_CAPACITY
+    while want < live:
+        want *= 2
+    return min(cap, want)
+
+
+def _segment_sums(pay: torch.Tensor, order: torch.Tensor, sid: torch.Tensor) -> torch.Tensor:
+    """Per-segment column sums of the rows ``pay[order]`` ([W, k]), each
+    segment summed in row order from 0.0 (``np.bincount``'s order).  ``sid``
+    ascends: real segments ``0..`` first, then each dead row its own spare
+    segment ``W + row``.  Fixed shapes: empty segments sum to 0, so no host
+    read sizes the output; returns the first ``W`` segments."""
+    w = int(pay.shape[0])
+    # a column at a time: on the card the row gather of a [W, 2] float64
+    # array was the lane's costliest operation
+    pay = torch.stack([pay[:, c].index_select(0, order) for c in range(pay.shape[1])], dim=1)
+    # integer counts (exact in any order); bincount would read the host to
+    # size its output
+    lengths = torch.zeros(2 * w, dtype=torch.int64, device=pay.device)
+    lengths.scatter_add_(0, sid, torch.ones_like(sid))
+    return torch.segment_reduce(pay, "sum", lengths=lengths, unsafe=True)[:w]
+
+
+def lane_frontier_rounds(u: torch.Tensor, v: torch.Tensor, pay: torch.Tensor, f_node: torch.Tensor,
+                         f_ghost: torch.Tensor, f_pay: torch.Tensor, threshold: float, *, n_pad: int, mode: str,
+                         k: int, stop=None) -> Tuple[torch.Tensor, int]:
+    """One reduce-tree group as a device computation: canonical aggregation
+    and mutual-best contraction rounds with frontier abstention, the exact
+    scheme of :func:`..parallel.reduce_tree.frontier_contraction`, in
+    float64 and int64 on the lanes' device.
+
+    Inputs are fixed-capacity lanes: ``u``/``v`` ``[We]`` int64 endpoints
+    with ``n_pad`` as the padding sentinel, ``pay`` ``[We, k]`` float64, the
+    frontier ``f_node``/``f_ghost``/``f_pay`` ``[Wf]``/``[Wf, k]`` with the
+    same sentinel on ``f_node``.  Every float operation is the numpy rung's:
+    stable sorts on one int64 key (``lo * (n_pad + 1) + hi``; the frontier's
+    ``f_node * mult + f_ghost`` with ``mult`` recomputed over the live
+    entries at every call) and per-segment sums in sorted order, never
+    atomics; ties break toward the smallest canonical edge id.  A row that
+    takes no part in a scatter (dead, padding, not eligible) goes to a
+    spare slot of its own: on the card, a million rows aimed at one slot
+    would serialise on its atomics.  Each round ends on one host read (does
+    any edge contract?, and how many edges and frontier rows live), so a
+    lane of ``r`` rounds makes ``r + 1`` host reads.  The live rows are a
+    prefix of the sorted arrays, so a round cuts the capacities down to the
+    power of two (at least :data:`LANE_MIN_CAPACITY`) that holds them: the
+    edge ids, the sorted ranks, do not change.  ``stop`` (a callable) is
+    polled at every round boundary and,
+    when it returns True, ends the call with :class:`RuntimeError`.
+    Returns ``(labels [n_pad] raw roots, rounds)``; the caller crops to its
+    member count and relabels consecutively.
+    """
+    dev = u.device
+    n = int(n_pad)
+    sign = 1.0 if mode == "max" else -1.0
+    thr = sign * float(threshold)
+    SENT = n
+    BIGK = 2 ** 62
+    neg = torch.tensor(-np.inf, dtype=torch.float64, device=dev)
+
+    def prio_of(p):
+        if k == 1:
+            return sign * p[:, 0]
+        return sign * (p[:, 0] / p[:, 1].clamp_min(1e-300))
+
+    def segments(key, dead_key, rows):
+        """Sorted keys, their order, the real segment ids (dead rows: the
+        spare segments ``W + row``) and the segments' keys ``[W]``."""
+        w = int(key.shape[0])
+        key_s, order = torch.sort(key, stable=True)
+        valid = key_s != dead_key
+        first = torch.ones_like(valid)
+        first[1:] = key_s[1:] != key_s[:-1]
+        first &= valid
+        sid = torch.where(valid, torch.cumsum(first, 0) - 1, w + rows)
+        key_seg = torch.full((2 * w,), dead_key, dtype=torch.int64, device=dev)
+        key_seg.scatter_(0, torch.where(first, sid, w + rows), key_s)
+        return order, sid, key_seg[:w]
+
+    def agg_edges(u, v, pay):
+        lo, hi = torch.minimum(u, v), torch.maximum(u, v)
+        dead = (lo == hi) | (u == SENT)
+        lo = torch.where(dead, SENT, lo)
+        hi = torch.where(dead, SENT, hi)
+        order, sid, key_seg = segments(lo * (n + 1) + hi, SENT * (n + 1) + SENT,
+                                       torch.arange(int(u.shape[0]), dtype=torch.int64, device=dev))
+        return key_seg // (n + 1), key_seg % (n + 1), _segment_sums(pay, order, sid)
+
+    def agg_frontier(fn, fg, fpay):
+        valid = fn != SENT
+        mult = (torch.where(valid, fg, -1).max() + 1).clamp_min(1)
+        order, sid, key_seg = segments(torch.where(valid, fn * mult + fg, BIGK), BIGK,
+                                       torch.arange(int(fn.shape[0]), dtype=torch.int64, device=dev))
+        live = key_seg != BIGK
+        return (torch.where(live, key_seg // mult, SENT), torch.where(live, key_seg % mult, 0),
+                _segment_sums(fpay, order, sid))
+
+    u, v, pay = agg_edges(u, v, pay)
+    fn, fg, fpay = agg_frontier(f_node, f_ghost, f_pay)
+    labels = torch.arange(n + 1, dtype=torch.int64, device=dev)
+    rounds = 0
+    while True:
+        if stop is not None and stop():
+            raise RuntimeError("lane_frontier_rounds stopped at a round boundary")
+        We, Wf = int(u.shape[0]), int(fn.shape[0])
+        eid = torch.arange(We, dtype=torch.int64, device=dev)
+        spare_e, spare_f = n + eid, n + torch.arange(Wf, dtype=torch.int64, device=dev)
+        active = u != SENT
+        prio = torch.where(active, prio_of(pay), neg)
+        elig = active & (prio > thr)
+        # slots [0, n) are the nodes, the rest one spare slot a row
+        best_p = torch.full((n + max(We, Wf),), -np.inf, dtype=torch.float64, device=dev)
+        best_p.scatter_reduce_(0, torch.where(elig, u, spare_e), prio, "amax")
+        best_p.scatter_reduce_(0, torch.where(elig, v, spare_e), prio, "amax")
+        # external competition: the frontier raises best_p but places no
+        # candidate edge id, so a node whose best edge is external abstains
+        factive = fn != SENT
+        fprio = torch.where(factive, prio_of(fpay), neg)
+        best_p.scatter_reduce_(0, torch.where(factive & (fprio > thr), fn, spare_f), fprio, "amax")
+        best_e = torch.full((n + We,), We, dtype=torch.int64, device=dev)
+        best_e.scatter_reduce_(0, torch.where(elig & (prio == best_p[u]), u, spare_e), eid, "amin")
+        best_e.scatter_reduce_(0, torch.where(elig & (prio == best_p[v]), v, spare_e), eid, "amin")
+        mutual = elig & (best_e[u] == eid) & (best_e[v] == eid)
+        progressed, live_e, live_f = torch.stack([mutual.any().long(), active.sum(), factive.sum()]).tolist()
+        if not progressed:
+            break
+        rounds += 1
+        # a matching: every mutual v is its own slot; the rest write spares
+        root = torch.arange(n + 1 + We, dtype=torch.int64, device=dev)
+        root.scatter_(0, torch.where(mutual, v, spare_e + 1), torch.where(mutual, u, spare_e + 1))
+        labels = root[labels]
+        u, v, pay = agg_edges(root[u], root[v], pay)
+        fn, fg, fpay = agg_frontier(root[fn], fg, fpay)
+        # contraction only merges: the rows that live now are at most the
+        # round's live rows, a prefix of the sorted arrays
+        ce, cf = _lane_capacity(live_e, We), _lane_capacity(live_f, Wf)
+        u, v, pay = u[:ce], v[:ce], pay[:ce]
+        fn, fg, fpay = fn[:cf], fg[:cf], fpay[:cf]
+    return labels[:n], rounds
 
 
 def parallel_contraction(n_nodes: int, edges: np.ndarray, payload: np.ndarray, mode: str, threshold: float,

@@ -18,13 +18,15 @@ batch's stacked lanes:
   then run as :func:`batched_sweep` does.
 - :func:`exchange_batch_halo` and :func:`sharded_slab_sweep` — slab runs
   along axis 0 whose interior halos are rebuilt from batch neighbours by
-  local slicing, so every voxel is read once.
+  local slicing, so every voxel is read once.  Over ``n_ranks > 1`` shards
+  of a mesh the batch splits into sub-batches, one a shard, and the slabs
+  at the shards' cuts travel over ``spmd.ppermute``, as the reference's
+  sharded program does.
 
 The policy functions (:func:`resolve_sharded_batch`,
 :func:`use_sharded_sweep`, :func:`slab_sweep_device_feed_ok`) are the
-reference's, word for word.  Batches across more than one device (the
-reference's ``ppermute`` between device sub-batches) are ROADMAP Queue A
-item 10.
+reference's, word for word.  The executor's sweeps over more than one
+shard are ROADMAP Queue A item 10c.
 """
 
 from __future__ import annotations
@@ -158,15 +160,18 @@ def exchange_batch_halo(
     lo_edge: Optional[torch.Tensor] = None,
     hi_edge: Optional[torch.Tensor] = None,
     fill=0,
+    axis_name: Optional[str] = None,
 ) -> torch.Tensor:
-    """Halo reconstruction along the *batch* axis on one device.
+    """Halo reconstruction along the *batch* axis.
 
     ``x`` is a stacked batch ``[b, *spatial]`` whose blocks form a
     contiguous run along spatial ``axis``.  Each block's missing halo along
-    that axis is its batch neighbour's edge slab (a local slice);
-    ``lo_edge`` / ``hi_edge`` are the run-end slabs for the first and last
-    block (``fill`` without them).  Returns ``[b, ...]`` with the extent
-    along ``axis`` grown by ``2 * halo``.
+    that axis is its batch neighbour's edge slab: a local slice inside the
+    batch; with ``axis_name`` (inside a :func:`~.spmd.shard_map` body, ``x``
+    this shard's sub-batch) one ``ppermute`` each way across the shards'
+    cuts.  ``lo_edge`` / ``hi_edge`` are the run-end slabs for the globally
+    first and last block (``fill`` without them).  Returns ``[b, ...]`` with
+    the extent along ``axis`` grown by ``2 * halo``.
     """
     if halo <= 0:
         return x
@@ -183,8 +188,22 @@ def exchange_batch_halo(
             return torch.full((1,) + slab_shape, fill, dtype=x.dtype, device=x.device)
         return edge.to(device=x.device, dtype=x.dtype).reshape((1,) + slab_shape)
 
-    pred = torch.cat([_edge(lo_edge), hi_slabs[:-1]], dim=0)
-    succ = torch.cat([lo_slabs[1:], _edge(hi_edge)], dim=0)
+    from_prev, from_next = _edge(lo_edge), _edge(hi_edge)
+    if axis_name is not None:
+        from . import spmd
+
+        n = spmd.context().axis_size(axis_name)
+        idx = spmd.axis_index(axis_name)
+        # my last block's high slab -> the next shard (its pred), my first
+        # block's low slab -> the previous shard (its succ)
+        got_prev = spmd.ppermute(hi_slabs[-1:].contiguous(), axis_name, [(i, i + 1) for i in range(n - 1)])
+        got_next = spmd.ppermute(lo_slabs[:1].contiguous(), axis_name, [(i, i - 1) for i in range(1, n)])
+        if idx > 0:
+            from_prev = got_prev
+        if idx < n - 1:
+            from_next = got_next
+    pred = torch.cat([from_prev, hi_slabs[:-1]], dim=0)
+    succ = torch.cat([lo_slabs[1:], from_next], dim=0)
     return torch.cat([pred, x, succ], dim=ax)
 
 
@@ -217,14 +236,14 @@ def sharded_slab_sweep(
     on the device (sliced there; the skipped upload is counted as
     ``bytes_not_staged``).  ``keep_on_device=True`` returns a device tensor
     (no device-to-host copy); the default returns numpy and counts
-    ``d2h_bytes``.  ``n_ranks > 1`` (slabs across devices) is ROADMAP
-    Queue A item 10.
+    ``d2h_bytes``.  ``n_ranks > 1`` splits each batch (rounded up to a
+    multiple of ``n_ranks``) over a mesh of ``n_ranks`` shards on the
+    device, the halos at the shards' cuts exchanged by ``ppermute``; the
+    output equals ``n_ranks=1`` bit for bit.
     """
-    if int(n_ranks) != 1:
-        raise NotImplementedError(
-            "sharded_slab_sweep across more than one rank (the halo exchange between "
-            "devices) is not ported: ROADMAP Queue A item 10"
-        )
+    n_ranks = int(n_ranks)
+    if n_ranks < 1:
+        raise ValueError(f"n_ranks must be >= 1, got {n_ranks}")
     size = int(vol.shape[0])
     if size % extent:
         raise ValueError(
@@ -235,8 +254,8 @@ def sharded_slab_sweep(
         raise ValueError(f"halo {halo} exceeds the slab extent {extent}")
     n_slabs = size // extent
     if batch is None:
-        batch = min(n_slabs, 8)
-    batch = max(1, int(batch))
+        batch = min(n_slabs, max(n_ranks, 8))
+    batch = -(-max(1, int(batch)) // n_ranks) * n_ranks
 
     on_device = isinstance(vol, torch.Tensor)
     if on_device:
@@ -257,6 +276,19 @@ def sharded_slab_sweep(
         return s if on_device else torch.from_numpy(np.ascontiguousarray(s))
 
     fill_edge = torch.full(edge_shape, fill, dtype=dtype)
+    run = None
+    if n_ranks > 1:
+        from . import spmd
+        from .mesh import make_mesh
+
+        mesh = make_mesh(n_ranks, axis_names=("blocks",), devices=dev)
+
+        def _body(stack, lo, hi):
+            halod = exchange_batch_halo(stack, halo, 0, lo_edge=lo, hi_edge=hi, fill=fill, axis_name="blocks")
+            return batched_sweep(kernel, (halod,))[0]
+
+        run = spmd.shard_map(_body, mesh, (spmd.P("blocks"), spmd.P(), spmd.P()), spmd.P("blocks"),
+                             name="slab_sweep")
     outs = []
     for start in range(0, n_slabs, batch):
         idxs = list(range(start, min(start + batch, n_slabs)))
@@ -277,8 +309,11 @@ def sharded_slab_sweep(
         else:
             device_pool_mod.record_h2d(feed_bytes)
             stack = stack.to(dev)
-        halod = exchange_batch_halo(stack, halo, 0, lo_edge=lo, hi_edge=hi, fill=fill)
-        out, _ = batched_sweep(kernel, (halod,))
+        if run is None:
+            halod = exchange_batch_halo(stack, halo, 0, lo_edge=lo, hi_edge=hi, fill=fill)
+            out, _ = batched_sweep(kernel, (halod,))
+        else:
+            out = run(stack, lo.to(dev), hi.to(dev))
         out = out[: len(idxs)]
         if not keep_on_device:
             out = out.cpu().numpy()

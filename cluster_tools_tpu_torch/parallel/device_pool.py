@@ -24,7 +24,9 @@ pages addressed by *content*:
   the host, attributed ``degraded:host_staged`` in ``failures.json``.
 
 Arenas are updated in place, so a staged batch must be consumed (its
-lanes gathered from the pool) before the arena stages again: hold
+lanes gathered from the pool) before the arena stages again (the
+arguments of one batch that share a page class share an arena, sized for
+all of them, and staging one never evicts a page another maps): hold
 :attr:`DevicePagePool.lock` from :meth:`DevicePagePool.stage` until the
 lanes are gathered, as the executor does.  On one CUDA stream the gather
 is ordered before any later ``index_copy_``.
@@ -184,18 +186,25 @@ class _DeviceArena:
     def nbytes(self) -> int:
         return self.capacity * self.page_nbytes
 
-    def _take_slot(self) -> int:
+    def _take_slot(self, pinned) -> int:
         if self._free:
             return self._free.pop()
-        # LRU eviction: the oldest content loses its slot; its bytes are
-        # overwritten by this batch's upload
-        _, slot = self.slots.popitem(last=False)
-        bump("device_pool_evictions")
-        return slot
+        # LRU eviction: the oldest content not in use by the batch being
+        # staged loses its slot; its bytes are overwritten by this upload
+        for key, slot in self.slots.items():
+            if slot not in pinned:
+                del self.slots[key]
+                bump("device_pool_evictions")
+                return slot
+        raise DevicePoolExhausted(f"every slot of the {self.page_shape} arena is in use by the batch")
 
-    def stage_pages(self, host_pool: np.ndarray, n_used: int) -> np.ndarray:
+    def stage_pages(self, host_pool: np.ndarray, n_used: int, pinned=None) -> np.ndarray:
         """Map host slots ``[0, n_used)`` to resident slots, uploading only
-        contents the arena does not hold; returns the mapping array."""
+        contents the arena does not hold; returns the mapping array.
+        ``pinned`` (a set, updated here) holds the slots the batch being
+        staged already maps: the arena is updated in place, so they may not
+        be evicted until its lanes are read."""
+        pinned = set() if pinned is None else pinned
         with self._lock:
             mapping = np.zeros(n_used, np.int32)
             miss_slots: List[int] = []
@@ -208,12 +217,13 @@ class _DeviceArena:
                     bump("device_pool_hits")
                     bump("bytes_not_staged", self.page_nbytes)
                 else:
-                    slot = self._take_slot()
+                    slot = self._take_slot(pinned)
                     self.slots[key] = slot
                     bump("device_pool_misses")
                     miss_slots.append(slot)
                     miss_pages.append(host_pool[s])
                 mapping[s] = slot
+                pinned.add(slot)
             if miss_slots:
                 # the pad repeats the last (slot, page) pair: same slot,
                 # same bytes, a benign duplicate write
@@ -288,10 +298,17 @@ class DevicePagePool:
         specs: List[RaggedArgSpec] = []
         pools: List[torch.Tensor] = []
         tables: List[np.ndarray] = []
+        # arguments of one page class share an arena, updated in place: size
+        # it for all of them and pin the batch's slots until it is staged
+        need: Dict[tuple, int] = {}
+        for spec, table in zip(rb.specs, rb.tables):
+            cls = (spec.page_shape, spec.dtype)
+            need[cls] = need.get(cls, 0) + int(table.max()) + 1
+        pinned: Dict[int, set] = {}
         for spec, pool, table in zip(rb.specs, rb.pools, rb.tables):
             n_used = int(table.max()) + 1
-            arena = self._arena_for(spec, n_used, device)
-            mapping = arena.stage_pages(pool, n_used)
+            arena = self._arena_for(spec, need[(spec.page_shape, spec.dtype)], device)
+            mapping = arena.stage_pages(pool, n_used, pinned.setdefault(id(arena), set()))
             specs.append(spec._replace(pool_pages=arena.capacity))
             pools.append(arena.pool)
             tables.append(mapping[table])

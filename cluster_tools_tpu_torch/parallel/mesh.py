@@ -8,10 +8,21 @@ the reference's tests carry one on eight virtual CPU devices of a host.
 Shards are dealt round-robin over the cards of the machine.  A mesh that
 spans processes (:func:`~.multihost.pod_mesh`) also records the process of
 each shard; the shards of one process run there, the rest elsewhere.
+
+The reference sizes a default mesh by ``len(jax.devices())``, and its tests
+get eight devices from XLA's ``--xla_force_host_platform_device_count=8``.
+:func:`visible_shards` is the port's counterpart of that count: the number
+of cards, unless ``CTT_MESH_SHARDS`` asks for that many shards dealt over
+the visible devices (on the CPU: that many shards, else one).  It is not a
+new knob: it is where the CPU tests and a one-card run set the count the
+reference takes from its device list.  :func:`make_mesh` and
+:func:`sibling_mesh` without a shard count, and the fused segmentation
+task, read it.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -83,6 +94,24 @@ class Mesh:
         return f"Mesh({axes}; devices {devs}; processes {self.n_processes})"
 
 
+#: environment variable: the shard count :func:`visible_shards` reports
+ENV_MESH_SHARDS = "CTT_MESH_SHARDS"
+
+
+def visible_shards(device=None) -> int:
+    """The shard count of a default mesh on ``device`` (``None``: the card):
+    ``CTT_MESH_SHARDS`` when set, else the number of cards (one on the
+    CPU).  The counterpart of the reference's ``len(jax.devices())``."""
+    dev = resolve_device(device)
+    env = os.environ.get(ENV_MESH_SHARDS)
+    if env:
+        n = int(env)
+        if n < 1:
+            raise ValueError(f"{ENV_MESH_SHARDS} must be >= 1, got {n}")
+        return n
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
 def _card_devices(n: int) -> List[torch.device]:
     resolve_device("cuda")  # raises without a card
     count = torch.cuda.device_count()
@@ -98,17 +127,17 @@ def make_mesh(n_shards: Optional[int] = None, axis_names: Sequence[str] = ("dp",
     them (a string or ``torch.device``); ``None`` deals the shards
     round-robin over the machine's cards and raises without one.
     ``n_shards`` defaults to the length of a device list, else to the number
-    of cards.  ``grid`` pins the per-axis sizes; otherwise the shards are
-    factored so the spatial (last) axis gets the largest power-of-two share.
+    of cards, and with one device to :func:`visible_shards`.  ``grid`` pins
+    the per-axis sizes; otherwise the shards are factored so the spatial
+    (last) axis gets the largest power-of-two share.
     """
     if devices is None:
         if n_shards is None:
-            resolve_device("cuda")
-            n_shards = torch.cuda.device_count()
+            n_shards = visible_shards("cuda")
         devs = _card_devices(n_shards)
     elif isinstance(devices, (str, torch.device)):
         if n_shards is None:
-            raise ValueError("n_shards is required with a single device")
+            n_shards = visible_shards(devices)
         devs = [resolve_device(devices)] * n_shards
     else:
         devs = [resolve_device(d) for d in devices]
@@ -126,3 +155,15 @@ def make_mesh(n_shards: Optional[int] = None, axis_names: Sequence[str] = ("dp",
 
 def mesh_axis_sizes(mesh: Mesh) -> Dict[str, int]:
     return dict(zip(mesh.axis_names, mesh.grid))
+
+
+#: the reduce tree's sibling axis: the groups of one tree level are dealt
+#: over this 1-D mesh and their labels gathered over it
+SIBLING_AXIS = "sib"
+
+
+def sibling_mesh(n_devices: Optional[int] = None, devices: Union[None, str, torch.device, Sequence] = None) -> Mesh:
+    """1-D mesh of ``n_devices`` shards (default :func:`visible_shards`)
+    with axis :data:`SIBLING_AXIS`: the collective reduce plane's hop
+    fabric.  ``devices`` as in :func:`make_mesh` (``None``: the cards)."""
+    return make_mesh(n_devices, axis_names=(SIBLING_AXIS,), devices=devices)

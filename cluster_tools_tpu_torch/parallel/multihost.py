@@ -14,6 +14,9 @@ Nothing switches backend on a failure.
 :func:`launch_workers` runs an N-process pod on one machine (each worker
 with ``devices_per_process`` shards) and kills every worker's process
 group on timeout; :func:`cc_pod_demo` is its test body.
+:func:`collectives_supported` probes, under a deadline, whether the pod can
+run a collective (the reduce tree's worker group asks before it commits to
+its collective plane).
 """
 
 from __future__ import annotations
@@ -104,6 +107,45 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def collectives_supported(deadline_s: float = 30.0) -> Tuple[bool, str]:
+    """Can this process run a cross-process collective?  ``(supported,
+    reason)``.  One process (no process group) is trivially supported: its
+    collectives are in-process rendezvous.  In a pod, one ``psum`` of ones
+    over a 1-D mesh of every shard (the operation class the collective
+    reduce plane runs) is probed on a thread with ``deadline_s`` of
+    patience, so a wedged probe degrades instead of hanging.  Every process
+    probes the same operation on the same backend, so all of them choose
+    the same plane."""
+    import threading
+
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() <= 1:
+        return True, "single-process runtime"
+    out: Dict[str, object] = {}
+
+    def _probe():
+        try:
+            from . import spmd
+            from .mesh import SIBLING_AXIS
+
+            mesh = pod_mesh(axis_names=(SIBLING_AXIS,))
+            n = mesh.size
+            total = spmd.shard_map(lambda x: spmd.psum(x, SIBLING_AXIS), mesh, spmd.P(SIBLING_AXIS), spmd.P(),
+                                   name="collectives_probe")(torch.ones(n, dtype=torch.float32))
+            ok = float(total.sum()) == float(n)
+            out["result"] = (ok, "ok" if ok else "probe sum mismatch")
+        except Exception as e:
+            out["result"] = (False, f"{type(e).__name__}: {e}"[:200])
+
+    t = threading.Thread(target=_probe, daemon=True)
+    t.start()
+    t.join(timeout=max(1.0, float(deadline_s)))
+    if t.is_alive():
+        return False, f"collective probe exceeded {deadline_s:g}s deadline"
+    return out.get("result", (False, "probe thread died"))
 
 
 def launch_workers(num_processes: int, target: str, devices_per_process: int = 1, timeout: float = 600.0,

@@ -129,8 +129,11 @@ class BaseTask:
         (None: a quarter of MemAvailable less the live handoff bytes; 0:
         off) and ``degrade_wait_s`` go to the executor's admission gate;
         ``memory_handoffs`` and ``device_handoffs`` (default off) turn on
-        task-graph fusion (:mod:`.handoff`).  The others select machinery
-        that is not ported and are refused when turned on."""
+        task-graph fusion (:mod:`.handoff`).  ``solver_shards`` /
+        ``reduce_fanout`` / ``solver_workers`` / ``reduce_plane`` /
+        ``hop_deadline_s`` shard the global solves over the reduce tree
+        (:mod:`..parallel.reduce_tree`).  The others select machinery that
+        is not ported and are refused when turned on."""
         return {
             "max_retries": 0,
             "retry_backoff_s": 1.0,
@@ -157,6 +160,8 @@ class BaseTask:
             "solver_shards": 1,
             "reduce_fanout": 2,
             "solver_workers": 1,
+            "reduce_plane": "auto",
+            "hop_deadline_s": None,
         }
 
     @staticmethod
@@ -189,13 +194,17 @@ class BaseTask:
 
     def run(self):
         from ..io import chunk_cache
+        from ..ops import contraction as contraction_mod
         from ..parallel import device_pool as device_pool_mod
+        from ..parallel import reduce_tree as reduce_tree_mod
         from . import handoff as handoff_mod
 
         self.logger.info(f"start {self.task_name} (target={self.target})")
         io_snap = chunk_cache.snapshot()
         handoff_snap = handoff_mod.snapshot()
         device_snap = device_pool_mod.snapshot()
+        solver_snap = contraction_mod.solver_snapshot()
+        tree_snap = reduce_tree_mod.solve_snapshot()
         t0 = time.perf_counter()
         result = self.run_impl() or {}
         handoff_records = self._finalize_handoffs()
@@ -209,7 +218,8 @@ class BaseTask:
         # merged additively into the run's io_metrics.json
         io_metrics = {}
         for metrics in (chunk_cache.delta(io_snap), handoff_mod.delta(handoff_snap),
-                        device_pool_mod.delta(device_snap)):
+                        device_pool_mod.delta(device_snap), contraction_mod.solver_delta(solver_snap),
+                        reduce_tree_mod.solve_delta(tree_snap)):
             if any(metrics.values()):
                 io_metrics.update(metrics)
         if io_metrics:

@@ -1,5 +1,6 @@
 """Blockwise tasks and workflows of the port: watershed (single- and
 two-pass), connected components, relabel, write and copy, the graph,
-features, costs, multicut and agglomerative-clustering tasks, and the
+features, costs, multicut and agglomerative-clustering tasks, the
 prediction tasks: CNN inference (``inference``) and ilastik
-pixel-classification prediction (``ilastik``)."""
+pixel-classification prediction (``ilastik``), and the fused mesh step
+(``fused``: ``FusedSegmentationWorkflow``)."""

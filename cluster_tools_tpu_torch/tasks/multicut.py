@@ -18,8 +18,8 @@ State between tasks lives in ``tmp_folder/multicut/problem_s<level>.npz``
 original dense node -> current id); the result is the write task's
 assignment table ``mc_assignments.npz`` (sorted uint64 ``keys`` -> uint64
 ``values``).  Solvers of the contraction engine run on the task's device.
-The sharded global solve (``solver_shards > 1``, the reduce tree) is
-ROADMAP Queue A item 10.
+With ``solver_shards > 1`` the global solve shards over the reduce tree
+(:mod:`..parallel.reduce_tree`) by Morton block octants.
 """
 
 from __future__ import annotations
@@ -58,12 +58,6 @@ def assignments_path(tmp_folder: str) -> str:
     return os.path.join(mc_dir(tmp_folder), "mc_assignments.npz")
 
 
-def refuse_sharded_solve(cfg) -> None:
-    if int(cfg.get("solver_shards", 1) or 1) > 1:
-        raise NotImplementedError(
-            "solver_shards > 1 (the sharded reduce-tree solve) is not ported: ROADMAP Queue A item 10")
-
-
 def solver_kwargs(solver, device):
     """The solve's device for the round engine's solvers."""
     return {"device": device} if getattr(solver, "round_engine", False) else {}
@@ -78,6 +72,36 @@ def _load_problem(tmp_folder: str, scale: int):
         return edges.astype(np.int64), costs, np.arange(n_nodes, dtype=np.int64)
     f = handoff.load_arrays(problem_path(tmp_folder, scale))
     return f["edges"].astype(np.int64), f["costs"].astype(np.float64), f["node_labeling"].astype(np.int64)
+
+
+def _octant_node_shards(tmp_folder, cfg, scale, node_labeling, n_nodes, n_shards):
+    """Node -> shard by Morton block octants: the scale-0 blocks (their node
+    sets map through ``node_labeling`` to current ids, so coarser scales
+    shard as well) ordered along the Z-order curve and split into
+    ``n_shards`` contiguous runs.  A node in several blocks takes the first
+    (lowest-Morton) block's shard.  Returns int64 [n_nodes], or None when
+    the grid has no blocks to shard by."""
+    from ..parallel.reduce_tree import morton_argsort
+
+    block_nodes = _scale_block_nodes(tmp_folder, cfg, 0, node_labeling)
+    if not block_nodes:
+        return None
+    shape = handoff.resolve_dataset(cfg["input_path"], cfg["input_key"]).shape
+    blocking_s = Blocking(shape, tuple(cfg["block_shape"]))
+    ids = sorted(block_nodes)
+    pos = np.array([blocking_s.block_grid_position(b) for b in ids])
+    order = morton_argsort(pos)
+    node_shard = np.full(int(n_nodes), -1, np.int64)
+    k = max(1, min(int(n_shards), len(ids)))
+    for rank, oi in enumerate(order):
+        shard = rank * k // len(ids)
+        nodes = block_nodes[ids[oi]]
+        if len(nodes) == 0:
+            continue
+        fresh = nodes[node_shard[nodes] < 0]
+        node_shard[fresh] = shard
+    node_shard[node_shard < 0] = 0  # nodes outside every block: shard 0
+    return node_shard
 
 
 def _scale_block_nodes(tmp_folder, cfg, scale, node_labeling):
@@ -110,22 +134,23 @@ def _scale_block_nodes(tmp_folder, cfg, scale, node_labeling):
     return out
 
 
-def _solver_manifest(energy, edges, labels, solver_delta):
+def _solver_manifest(energy, edges, labels, solver_delta, tree_delta=None, solve_info=None):
     """The solve's observability block (the reference's keys): objective
-    energy, edges in vs surviving inter-cluster edges, contraction rounds,
-    solver calls; unsharded (the reduce tree is not ported)."""
+    energy, edges in vs surviving inter-cluster edges, contraction rounds
+    (the engine's and the reduce tree's), solver calls, and the reduce
+    tree's shape when the solve ran sharded."""
     edges = np.asarray(edges)
     labels = np.asarray(labels)
     edges_out = int((labels[edges[:, 0]] != labels[edges[:, 1]]).sum()) if len(edges) else 0
-    return {
+    out = {
         "energy": float(energy) if energy is not None else None,
         "edges_in": int(len(edges)),
         "edges_out": edges_out,
-        "rounds": int(solver_delta.get("solver_rounds", 0)),
-        "solver_calls": int(solver_delta.get("solver_calls", 0)),
-        "sharded": False,
-        "shards": 1,
+        "rounds": int((solver_delta or {}).get("solver_rounds", 0) + (tree_delta or {}).get("tree_rounds", 0)),
+        "solver_calls": int((solver_delta or {}).get("solver_calls", 0)),
     }
+    out.update(solve_info or {"sharded": False, "shards": 1})
+    return out
 
 
 class SolveSubproblemsBase(BaseTask):
@@ -248,7 +273,16 @@ class SolveGlobalBase(BaseTask):
     """Solve the final reduced problem and emit the node-assignment table
     (reference: ``solve_global.py``).  Params: ``scale`` (the final level),
     ``agglomerator``.  A checkpoint-capable solver (Kernighan-Lin) persists
-    its partition every outer sweep, so a killed solve resumes mid-solve."""
+    its partition every outer sweep, so a killed solve resumes mid-solve.
+
+    With ``solver_shards > 1`` the solve shards over the Morton-octant
+    reduce tree (:mod:`..parallel.reduce_tree`): frontier-aware contraction
+    rounds a shard, boundary edges merged up a ``reduce_fanout``-ary tree,
+    in this process (``reduce_plane``: the collective plane on a sibling
+    mesh, or the packet plane) or over a ``solver_workers``-process group.
+    The configured ``agglomerator`` stays the single-host solver: the
+    ``solver_shards=1`` case and the ``degraded:unsharded_solve``
+    fallback."""
 
     task_name = "solve_global"
 
@@ -257,22 +291,51 @@ class SolveGlobalBase(BaseTask):
         return {"threads_per_job": 1, "device_batch": 1, "agglomerator": "kernighan-lin"}
 
     def run_impl(self):
+        from ..parallel import reduce_tree as reduce_tree_mod
+
         cfg = self.get_config()
-        refuse_sharded_solve(cfg)
         scale = int(cfg.get("scale", 0))
         solver = get_multicut_solver(cfg.get("agglomerator", "kernighan-lin"))
         edges, costs, node_labeling = _load_problem(self.tmp_folder, scale)
         n_nodes = int(node_labeling.max()) + 1 if len(node_labeling) else 0
+        shards = int(cfg.get("solver_shards", 1) or 1)
         solver_snap = contraction_mod.solver_snapshot()
-        ckpt = None
-        solver_kw = solver_kwargs(solver, self.device)
-        if getattr(solver, "supports_checkpoint", False) and len(edges):
-            ckpt = SolverCheckpoint(os.path.join(mc_dir(self.tmp_folder), f"solve_global_s{scale}.ckpt.npz"),
-                                    edges, costs)
-            solver_kw["checkpoint"] = ckpt
-        labels = solver(n_nodes, edges, costs, **solver_kw) if len(edges) else np.zeros(n_nodes, np.int64)
-        if ckpt is not None:
-            ckpt.clear()
+        tree_snap = reduce_tree_mod.solve_snapshot()
+
+        def unsharded():
+            ckpt = None
+            solver_kw = solver_kwargs(solver, self.device)
+            if getattr(solver, "supports_checkpoint", False) and len(edges):
+                ckpt = SolverCheckpoint(os.path.join(mc_dir(self.tmp_folder), f"solve_global_s{scale}.ckpt.npz"),
+                                        edges, costs)
+                solver_kw["checkpoint"] = ckpt
+            labels = solver(n_nodes, edges, costs, **solver_kw) if len(edges) else np.zeros(n_nodes, np.int64)
+            if ckpt is not None:
+                ckpt.clear()
+            return labels
+
+        if shards > 1 and len(edges):
+            # the partition as a thunk: it re-opens block geometry, and a
+            # failure there must degrade, not fail the task
+            labels, solve_info = reduce_tree_mod.solve_with_reduce_tree(
+                n_nodes, edges, costs,
+                node_shard=lambda: _octant_node_shards(self.tmp_folder, cfg, scale, node_labeling, n_nodes, shards),
+                solver_shards=shards,
+                fanout=int(cfg.get("reduce_fanout", 2) or 2),
+                failures_path=self.failures_path,
+                task_name=self.uid,
+                unsharded=unsharded,
+                workers=int(cfg.get("solver_workers", 1) or 1),
+                scratch_dir=os.path.join(mc_dir(self.tmp_folder), "reduce_tree"),
+                max_workers=max(1, self.max_jobs),
+                reduce_plane=str(cfg.get("reduce_plane", "auto") or "auto"),
+                hop_deadline_s=cfg.get("hop_deadline_s"),
+                device=self.device,
+                device_pool_bytes=cfg.get("device_pool_bytes"),
+            )
+        else:
+            labels = unsharded()
+            solve_info = {"sharded": False, "shards": 1}
         final = labels[node_labeling]  # original dense node -> segment
         nodes_table, _, edges0, _ = load_global_graph(self.tmp_folder)
         energy = multicut_energy(edges0.astype(np.int64),
@@ -282,7 +345,8 @@ class SolveGlobalBase(BaseTask):
         return {
             "n_segments": int(final.max()) + 1 if len(final) else 0,
             "energy": energy,
-            "solver": _solver_manifest(energy, edges, labels, contraction_mod.solver_delta(solver_snap)),
+            "solver": _solver_manifest(energy, edges, labels, contraction_mod.solver_delta(solver_snap),
+                                       reduce_tree_mod.solve_delta(tree_snap), solve_info),
         }
 
 
@@ -307,9 +371,9 @@ class MulticutWorkflow(WorkflowBase):
 
         common = dict(tmp_folder=self.tmp_folder, config_dir=self.config_dir, max_jobs=self.max_jobs)
         p = self.params
-        refuse_sharded_solve(p)
         keys = {k: p[k] for k in ("input_path", "input_key", "block_shape", "roi_begin", "roi_end", "agglomerator",
-                                  "solver_shards") if k in p}
+                                  "solver_shards", "reduce_fanout", "solver_workers", "reduce_plane",
+                                  "hop_deadline_s") if k in p}
         deps = list(self.dependencies)
         for s in range(int(p.get("n_scales", 1))):
             t_solve = get_task_cls(mc_mod, "SolveSubproblems", self.target)(

@@ -91,7 +91,8 @@ class MulticutSegmentationWorkflow(WorkflowBase):
             **common, dependencies=[feats], **_pick(p, "beta", "weighting_scheme", "weighting_exponent"))
         mc = mc_mod.MulticutWorkflow(
             **common, target=self.target, dependencies=[costs], input_path=p["ws_path"], input_key=p["ws_key"],
-            **_pick(p, "n_scales", "agglomerator", "solver_shards"), **grid,
+            **_pick(p, "n_scales", "agglomerator", "solver_shards", "reduce_fanout", "solver_workers", "reduce_plane",
+                    "hop_deadline_s"), **grid,
         )
         return [_write(self, common, mc, mc_mod.assignments_path(self.tmp_folder))]
 

@@ -137,3 +137,32 @@ def test_sweep_plane_entry_points_default_to_the_card(monkeypatch):
         BlockwiseExecutor()
     out = sharded_slab_sweep(vol, lambda x: x, extent=4, halo=1, device="cpu")
     assert out.shape == (2, 6, 4, 4)
+
+
+@pytest.mark.parametrize("module", ["parallel/reduce_tree.py", "parallel/mesh.py", "parallel/multihost.py",
+                                    "ops/contraction.py", "tasks/fused.py", "tasks/multicut.py",
+                                    "tasks/agglomerative_clustering.py"])
+def test_reduce_tree_modules_are_checked(module):
+    """The reduce tree's and the fused task's modules are among the files
+    held above."""
+    assert ROOT / "cluster_tools_tpu_torch" / module in PORT_FILES
+
+
+def test_reduce_tree_entry_points_default_to_the_card(monkeypatch):
+    import numpy as np
+
+    from cluster_tools_tpu_torch.parallel.mesh import sibling_mesh, visible_shards
+    from cluster_tools_tpu_torch.parallel.reduce_tree import sharded_solve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("CTT_MESH_SHARDS", raising=False)
+    edges = np.array([[0, 1], [1, 2]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sharded_solve(3, edges, np.ones(2), np.array([0, 0, 1]), reduce_plane="packet")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sibling_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        visible_shards()
+    labels, _ = sharded_solve(3, edges, np.ones(2), np.array([0, 0, 1]), reduce_plane="packet", device="cpu")
+    assert len(set(labels.tolist())) == 1
+    assert visible_shards("cpu") == 1

@@ -210,8 +210,8 @@ def test_slab_sweep_refusals():
         bs.sharded_slab_sweep(vol, smooth, extent=6, halo=1, device="cpu")
     with pytest.raises(ValueError, match="halo"):
         bs.sharded_slab_sweep(vol, smooth, extent=4, halo=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        bs.sharded_slab_sweep(vol, smooth, extent=4, halo=1, n_ranks=2, device="cpu")
+    with pytest.raises(ValueError, match="n_ranks"):
+        bs.sharded_slab_sweep(vol, smooth, extent=4, halo=1, n_ranks=0, device="cpu")
 
 
 # -- the executor -------------------------------------------------------------
@@ -422,3 +422,28 @@ def test_sharded_executor_matches_the_reference():
     assert s["blocks_dispatched"] == j_disp["blocks_dispatched"] == 27
     assert s["batches_dispatched"] == j_disp["batches_dispatched"]
     assert s["ragged_batches"] == j_disp["ragged_batches"]
+
+
+def test_device_pool_args_of_one_page_class_stay_intact():
+    """Two arguments of one page class share an arena that is updated in
+    place: staging the second may not evict a page the first still maps
+    (ROADMAP Queue C, C2).  Each argument alone fills an arena of 16
+    pages."""
+    device_pool.reset()
+    pool = device_pool.get_device_pool(budget=1 << 20)
+    shape, lanes = (8,), 15
+    rng = np.random.default_rng(0)
+    specs, pools, tables, valids = [], [], [], []
+    for _ in range(2):
+        data = np.zeros((16,) + shape, np.int64)
+        data[1:] = rng.integers(0, 1 << 40, (lanes,) + shape)
+        specs.append(block_pool.RaggedArgSpec((1,), shape, "int64", 0, 16))
+        pools.append(data)
+        tables.append(np.arange(1, 1 + lanes, dtype=np.int32)[:, None])
+        valids.append(np.full((lanes, 1), shape[0], np.int32))
+    rb = block_pool.RaggedBatch(specs, pools, tables, valids, n_lanes=lanes, width=lanes, pages_in_use=2 * lanes)
+    sb = pool.stage(rb, "cpu")
+    for a in range(2):
+        got = sb.pools[a][torch.from_numpy(sb.tables[a][:, 0].astype(np.int64))].numpy()
+        np.testing.assert_array_equal(got, pools[a][1:], err_msg=f"argument {a}")
+    device_pool.reset()

@@ -242,15 +242,31 @@ def _tasks(tmp_path):
 
 
 def test_sharded_solves_are_refused(tmp_path):
+    """``solver_shards > 1`` is no longer refused (ROADMAP item 10b): the
+    multicut workflow and the agglomerative task run the reduce tree on
+    ``make_case``, and the multicut recovers the ground truth as the
+    unsharded solve does.  ``tests/test_torch_reduce_tasks.py`` holds both
+    against the JAX package bit for bit."""
     common = _tasks(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pmc.SolveGlobalLocal(**common, input_path="memory://none", input_key="x", solver_shards=2).run()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pac.AgglomerativeClusteringLocal(**common, solver_shards=2).run()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        p_build([pwf.MulticutSegmentationWorkflow(
-            **common, target="local", input_path="memory://none", input_key="x", ws_path="memory://none",
-            ws_key="ws", output_path="memory://none", output_key="seg", skip_ws=True, solver_shards=2)])
+    with open(os.path.join(common["config_dir"], "global.config"), "w") as f:
+        json.dump({"block_shape": [8] * 3}, f)
+    gt, sv, bmap = make_case()
+    path = os.path.join(str(tmp_path), "d.zarr")
+    f = p_reader(path)
+    for key, data in (("bmap", bmap), ("sv", sv)):
+        f.require_dataset(key, shape=data.shape, chunks=(8, 8, 8), dtype=str(data.dtype))[...] = data
+    wf = pwf.MulticutSegmentationWorkflow(**common, target="local", input_path=path, input_key="bmap", ws_path=path,
+                                          ws_key="sv", output_path=path, output_key="seg", skip_ws=True, n_scales=0,
+                                          beta=0.5, agglomerator="gaec_parallel", solver_shards=2)
+    assert p_build([wf])
+    assert_labels_equivalent(np.asarray(p_reader(path)["seg"][:]), gt)
+    ac = pac.AgglomerativeClusteringLocal(**common, dependencies=[], solver_shards=2, threshold=0.5, impl="numpy")
+    ac.run()
+    for task in (pmc.SolveGlobalLocal(**common, input_path=path, input_key="sv", scale=0), ac):
+        doc = json.load(open(os.path.join(common["tmp_folder"], [
+            n for n in os.listdir(common["tmp_folder"])
+            if n.split(".")[0] == task.task_name and n.endswith(".success.json")][0])))
+        assert doc["solver"]["sharded"] is True and doc["solver"]["shards"] == 2, task.task_name
 
 
 def test_lifted_workflow_is_refused(tmp_path):
