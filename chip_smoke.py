@@ -7,7 +7,8 @@ Phases, each one line of output, each raising on failure:
 
 1. card: the device name and ``nvidia-smi`` name / power limit;
 2. build: compile every kernel of ``cluster_tools_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all at once);
+   ``nvcc`` per source, all at once) and, beside them, the host C++ rung
+   (``csrc/ct_native.cpp``, one ``g++``);
 3. kernels: each kernel against its plain PyTorch twin on CUDA tensors,
    exact equality (B1 tiled CCL and B1d, its run-doubling variant, against
    the CCL twins on a smooth mask, on adversarial tiles (all foreground,
@@ -82,8 +83,8 @@ Phases, each one line of output, each raising on failure:
     replayed against its twin and timed), relabel of the two-pass output
     (``1..K``, same partition), and the cc workflow at 256^3 through the
     port's zarr on local disk against its ``memory://`` run.  Per workflow:
-    a warm-up and two timed runs (fresh ``tmp_folder`` each), the median
-    wall time, voxels/s and blocks/s, peak device memory, the executor's
+    a warm-up and one timed run (fresh ``tmp_folder`` each), the wall
+    time, voxels/s and blocks/s, peak device memory, the executor's
     summed load / h2d / kernel (synced) / d2h / store ms, kernel launches
     and remap rungs.  The kernel rows gain ``blockwise_launches`` and
     ``blockwise_ms`` (sums over one run's launches, replayed).  The tasks'
@@ -93,7 +94,7 @@ Phases, each one line of output, each raising on failure:
     volume (64 blocks, batch 8): the single- and two-pass watershed and cc
     with ``sweep_mode="per_block"`` beside phase 10's runs, which must
     have run sharded with the lane-batched kernels (rung ``batched``);
-    every file equal bit for bit; per mode the wall (median of two after a
+    every file equal bit for bit; per mode the wall (one run after a
     warm-up), blocks/s, calls to the device, summed kernel s, peak GB and
     the fixed cost a block; then a ragged tail (``sharded_batch=12``: one
     ragged batch, 8 padding lanes) and one ragged sweep run twice through
@@ -103,12 +104,22 @@ Phases, each one line of output, each raising on failure:
     torch-rung GAEC on the first 256^3 of the main path's watershed labels
     against the numpy oracle; ``MulticutSegmentationWorkflow`` and
     ``AgglomerativeClusteringWorkflow`` on the 512^3 single-pass watershed
-    output of phase 10 (per-task times; the merged graph against the numpy
-    oracle, the segmentation against the assignment table); the default
-    workflow (watershed, Kernighan-Lin) on the first 128^3, and the
-    agglomerating watershed on the first 128^3 (cut from 256^3 to pay for
-    12b) against its ``impl="torch"`` run.  The kernel rows gain
-    ``multicut_launches``;
+    output of phase 10 (per-task times on the host C++ rung beside the same
+    workflow on the Python paths, same segmentation; the merged graph
+    against the numpy oracle, the segmentation against the assignment
+    table); the default workflow (its own watershed, ``gaec_parallel``
+    subproblems, Kernighan-Lin on the host C++ rung) at ``MC_DEFAULT_CROP``^3,
+    block 128^3, with per-task times and the same gates; and the
+    agglomerating watershed on the first 128^3 against its ``impl="torch"``
+    run.  The kernel rows gain ``multicut_launches``;
+12a. native (``phase_native``, in phase 12's ``tmp_folder``): the host C++
+    rung.  Each of its eight functions against the port's Python path on
+    the default workflow's ``NATIVE_CROP``^3 graph, features and reduced
+    problem (labels and sums bit for bit; the EDT against scipy's within
+    rtol 1e-5; the flood against its contract; the mutex watershed's
+    partition on a ``MWS_EDGE``^3 affinity volume), both timed; then
+    union-find, GAEC, Kernighan-Lin on the reduced problem and the feature
+    merge alone on the 512^3 graph;
 12b. reduce-tree (``phase_reduce_tree``, in phase 12's ``tmp_folder``):
     the sharded global solve (ROADMAP 10b) and the fused workflow (12a).
     (a) ``AgglomerativeClusteringWorkflow`` with ``solver_shards=8`` and
@@ -118,7 +129,8 @@ Phases, each one line of output, each raising on failure:
     record, a warm re-solve sending no byte to the card; (b)
     ``SolveGlobal`` (``gaec_parallel``, 8 shards) on both planes, equal,
     energy within 0.1% of the unsharded solve; (c) the same over a
-    two-process worker group (gloo, packet plane), equal to (b); per arm the
+    two-process worker group (gloo, packet plane, the host C++ rung in the
+    workers), equal to (b); per arm the
     wall, levels, rounds, boundary edges, hops, bytes gathered, host syncs
     and h2d bytes.  (d) ``FusedSegmentationWorkflow`` on the main path's
     volume and configuration, fused and split, on 1 shard and 8: ws and cc
@@ -148,7 +160,7 @@ Phases, each one line of output, each raising on failure:
     then ``IlastikPredictionWorkflow`` (block 128^3, halo 12) with a seeded
     linear classifier on the default feature bank and with a seeded forest
     (16 trees of depth 8) on all six ilastik feature ids.  Per workflow a
-    warm-up and two timed runs with the "blockwise" columns; the U-Net's
+    warm-up and one timed run with the "blockwise" columns; the U-Net's
     FLOP count and bound and one block's synced forward; gates: the
     U-Net's output finite in [0, 1], two blocks (interior, far corner)
     equal to the port's CPU forward of the same npz within 2e-2, a float32
@@ -222,8 +234,23 @@ AGG_WS_CROP = 128
 # graph's pages; the tasks' default of 256 MiB would hold none)
 REDUCE_SHARDS = 8
 REDUCE_POOL_BYTES = 8 << 30
-# the default multicut workflow (Kernighan-Lin global solve) with its watershed
-MC_DEFAULT_CROP = 128
+# the default multicut workflow (its own watershed, gaec_parallel subproblems,
+# the Kernighan-Lin global solve on the host C++ rung) at full width
+MC_DEFAULT_CROP = 512
+# the "native" phase: each host C++ function against its Python path on the
+# default workflow's graph, features and reduced problem at this crop (block
+# half of it), the EDT and the flood on a block of this edge, and the mutex
+# watershed on an affinity volume of MWS_EDGE^3
+NATIVE_CROP = 128
+MWS_EDGE = 64
+# three attractive (unit) and three repulsive (long-range) offsets
+MWS_OFFSETS = [[-1, 0, 0], [0, -1, 0], [0, 0, -1], [-4, 0, 0], [0, -4, 0], [0, 0, -4]]
+# the reduce tree's packet plane and worker group as this script measured
+# them before the host C++ rung (one H100 80GB HBM3 at 700 W; PERF.md
+# section 5)
+BEFORE_RUNG_PACKET_S, BEFORE_RUNG_WORKERS_S = 48.908, 16.241
+# the config-4 tasks whose host work the C++ rung takes
+MC_HOST_TASKS = ("merge_sub_graphs", "merge_edge_features", "solve_subproblems", "reduce_problem", "solve_global")
 # the kernels the main path must launch (B1d is a variant nothing selects)
 MAIN_PATH_KERNELS = ("tile_ccl", "tile_ws_propagate", "edt_cascade", "apply_remap")
 # tiles of B2's adversarial fields: small, unaligned rows and odd ty, the main tile
@@ -548,15 +575,13 @@ def bw_run(K, tmp_root: str, tag: str, workflow_cls, block_shape, global_config=
 
 def bw_timed(K, tmp_root: str, tag: str, workflow_cls, block_shape, voxels: int, n_blocks: int,
              phase: str = "blockwise", global_config=None, **params) -> dict:
-    """A warm-up and two timed runs; prints the workflow's line (under
-    ``phase``) and returns the second timed run's record with ``wall_s``
-    the median of the two."""
+    """A warm-up and one timed run (two until the host C++ rung's phases
+    needed the time); prints the workflow's line (under ``phase``) and
+    returns the timed run's record."""
     bw_run(K, tmp_root, tag, workflow_cls, block_shape, global_config, **params)
-    runs = [bw_run(K, tmp_root, tag, workflow_cls, block_shape, global_config, **params) for _ in range(2)]
-    rec = dict(runs[-1], wall_s=float(np.median([r["wall_s"] for r in runs])))
+    rec = bw_run(K, tmp_root, tag, workflow_cls, block_shape, global_config, **params)
     sw = rec["sweep"]
-    log(phase, f"{tag}: {voxels} voxels, {n_blocks} blocks; wall "
-                     + "/".join(f"{r['wall_s']:.3f}" for r in runs) + f" s, median {rec['wall_s']:.3f} s = "
+    log(phase, f"{tag}: {voxels} voxels, {n_blocks} blocks; wall {rec['wall_s']:.3f} s = "
                      f"{voxels / rec['wall_s']:.4g} voxels/s, {n_blocks / rec['wall_s']:.4g} blocks/s; "
                      f"peak {rec['peak_gb']:.2f} GB; executor load {sw.get('load_s', 0) * 1e3:.1f}, "
                      f"h2d {sw.get('h2d_s', 0) * 1e3:.1f}, kernel {sw.get('kernel_s', 0) * 1e3:.1f} (synced), "
@@ -704,7 +729,7 @@ def phase_sweeps(K, mem: str, auto: dict, main_s_per_voxel: float, rows: list, b
     ``sweep_mode="per_block"`` beside the "blockwise" phase's runs, whose
     tasks' default ``"auto"`` must have resolved to ``sharded`` with the
     ``batched`` rung; the output files must be equal bit for bit.  Per mode:
-    the wall (median of two after a warm-up), blocks/s, the calls to the
+    the wall (one run after a warm-up), blocks/s, the calls to the
     device, the summed kernel seconds, peak memory and the fixed cost a
     block (wall a block minus the main path's per-voxel time over the
     block's outer voxels).  Then the ragged tail (``sharded_batch=12``: 64 =
@@ -846,6 +871,54 @@ def wf_run(K, tmp_folder: str, cfg_dir: str, workflow_cls, **params) -> dict:
                 tasks=tasks)
 
 
+def check_assignments(what: str, tmp: str, ws: np.ndarray, seg: np.ndarray) -> None:
+    """The multicut gates: ``seg > 0`` equals ``ws > 0``, and ``seg`` is the
+    workflow's assignment table applied to ``ws`` (on the card)."""
+    from cluster_tools_tpu_torch.tasks.multicut import assignments_path
+
+    a = np.load(assignments_path(tmp))
+    keys = torch.from_numpy(a["keys"].view(np.int64)).cuda()
+    values = torch.from_numpy(a["values"].view(np.int64)).cuda()
+    ws = torch.from_numpy(ws.view(np.int64)).cuda()
+    seg = torch.from_numpy(seg.view(np.int64)).cuda()
+    if not torch.equal(seg > 0, ws > 0):
+        raise AssertionError(f"{what}: seg > 0 differs from ws > 0")
+    idx = torch.searchsorted(keys, ws).clamp_max(keys.numel() - 1)
+    want = torch.where((keys[idx] == ws) & (ws != 0), values[idx], 0)
+    if not torch.equal(seg, want):
+        raise AssertionError(f"{what}: seg is not the assignment table applied to ws")
+
+
+def default_workflow(K, f, mem: str, root: str, cfg_dir: str, edge: int, block: list, ws_cfg: dict, tag: str) -> dict:
+    """The default ``MulticutSegmentationWorkflow`` (its own watershed: B1-B4
+    launch; ``gaec_parallel`` subproblems; Kernighan-Lin global solve) on the
+    first ``edge``^3 of the "blockwise" phase's boundaries, in
+    ``root/tag``: its record (``wf_run``) with the host C++ calls it made
+    (``native``) and its ``tmp`` folder, after the multicut gates."""
+    from cluster_tools_tpu_torch import native
+    from cluster_tools_tpu_torch.workflows import MulticutSegmentationWorkflow
+
+    sub = tuple(slice(0, edge) for _ in range(3))
+    f.require_dataset(f"boundaries_{tag}", shape=(edge,) * 3, chunks=tuple(block),
+                      dtype="float32")[...] = f["boundaries"][sub]
+    tmp = os.path.join(root, tag)
+    native.reset_counts()
+    rec = wf_run(K, tmp, cfg_dir, MulticutSegmentationWorkflow, input_path=mem, input_key=f"boundaries_{tag}",
+                 ws_path=mem, ws_key=f"ws_{tag}", output_path=mem, output_key=f"mc_{tag}", block_shape=block, **ws_cfg)
+    rec["native"], rec["tmp"] = dict(native.COUNTS), tmp
+    missing = [k for k in MAIN_PATH_KERNELS if rec["launches"].get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"multicut ({tag}): the default workflow's watershed launched no {missing}")
+    missing = [k for k in ("union_find", "merge_edge_features", "kernighan_lin", "greedy_additive")
+               if not rec["native"][k]]
+    if missing:
+        raise AssertionError(f"multicut ({tag}): no call to the host C++ {missing}: {rec['native']}")
+    check_assignments(f"multicut ({tag})", tmp, f[f"ws_{tag}"][...], f[f"mc_{tag}"][...])
+    for key in (f"boundaries_{tag}", f"ws_{tag}", f"mc_{tag}"):
+        f._data.pop(key)
+    return rec
+
+
 MC_TASKS = ("initial_sub_graphs", "merge_sub_graphs", "map_edge_ids", "block_edge_features", "merge_edge_features",
             "probs_to_costs", "solve_subproblems", "reduce_problem", "solve_global", "write")
 
@@ -863,21 +936,25 @@ def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: li
        energy is within 2% of the numpy rung's.
     2. ``MulticutSegmentationWorkflow`` on the "blockwise" phase's 512^3
        single-pass watershed (``skip_ws``, ``n_scales=1``,
-       ``agglomerator="gaec_parallel"``, block 128^3): per-task wall times,
-       graph size, energy, rounds, peak memory; the merged graph equals the
-       numpy oracle's, ``seg > 0`` equals ``ws > 0`` and ``seg`` is the
-       assignment table applied to ``ws``.  Then
+       ``agglomerator="gaec_parallel"``, block 128^3), first on the Python
+       paths (``native.force_python()``), then on the host C++ rung: the
+       host tasks' seconds side by side and the same segmentation; per-task
+       wall times, graph size, energy, rounds, peak memory; the merged graph
+       equals the numpy oracle's, ``seg > 0`` equals ``ws > 0`` and ``seg``
+       is the assignment table applied to ``ws``.  Then
        ``AgglomerativeClusteringWorkflow`` in the same ``tmp_folder``
        (graph and features reused).
-    3. The default workflow (Kernighan-Lin global solve, its own
-       watershed: B1-B4 launch) on the first ``MC_DEFAULT_CROP``^3 (block
-       64^3); and the single-pass watershed with
+    3. The default workflow (Kernighan-Lin global solve on the host C++
+       rung, its own watershed: B1-B4 launch) on the first
+       ``MC_DEFAULT_CROP``^3 (block 128^3) with the same gates; and the
+       single-pass watershed with
        ``agglomerate_threshold=0.5`` on the first ``AGG_WS_CROP``^3
        (block 64^3) against its ``impl="torch"`` run, bit for bit.
     Adds ``multicut_launches`` (the kernels' launches in 3's watershed) to
     the kernel rows.  ``then(context)`` runs before the workflows'
     ``tmp_folder`` goes (the "reduce-tree" phase reuses it).
     """
+    from cluster_tools_tpu_torch import native
     from cluster_tools_tpu_torch.io.containers import MemoryContainer, open_container
     from cluster_tools_tpu_torch.ops.contraction import gaec_parallel, solver_delta, solver_snapshot
     from cluster_tools_tpu_torch.ops.multicut import multicut_energy
@@ -940,9 +1017,28 @@ def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: li
         tmp = os.path.join(root, "tmp")
         io = dict(input_path=mem, input_key="boundaries", ws_path=mem, ws_key="ws", skip_ws=True,
                   output_path=mem, block_shape=list(block))
+        # the same workflow on the Python paths (the port before the host C++
+        # rung), then on the rung: per-task seconds side by side, same labels
+        with native.force_python():
+            rec_py = wf_run(K, os.path.join(root, "python-rung"), cfg_dir, MulticutSegmentationWorkflow,
+                            output_key="mc_seg_py", n_scales=1, agglomerator="gaec_parallel", **io)
+        native.reset_counts()
         rec = wf_run(K, tmp, cfg_dir, MulticutSegmentationWorkflow, output_key="mc_seg", n_scales=1,
                      agglomerator="gaec_parallel", **io)
         t = rec["tasks"]
+        mc_counts = dict(native.COUNTS)
+        if not np.array_equal(f["mc_seg"][...], f["mc_seg_py"][...]):
+            raise AssertionError("multicut: the workflow's segmentation on the host C++ rung differs from its "
+                                 "Python paths'")
+        f._data.pop("mc_seg_py")
+        missing = [k for k in ("union_find", "merge_edge_features") if not mc_counts[k]]
+        if missing:
+            raise AssertionError(f"multicut: the workflow made no call to the host C++ {missing}: {mc_counts}")
+        t_py = rec_py["tasks"]
+        log("multicut", "host tasks s, host C++ rung (Python paths, same call): "
+                        + ", ".join(f"{k} {t[k]['runtime_s']:.3f} ({t_py[k]['runtime_s']:.3f})" for k in MC_HOST_TASKS)
+                        + f"; wall {rec['wall_s']:.3f} ({rec_py['wall_s']:.3f}) s; segmentation equal; "
+                        f"native calls {mc_counts}")
         missing = [k for k in MC_TASKS if k not in t]
         if missing:
             raise AssertionError(f"multicut: no success manifest for {missing}")
@@ -963,18 +1059,7 @@ def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: li
             if not np.array_equal(a, b):
                 raise AssertionError(f"multicut: the merged graph's {what} differ from the numpy oracle's")
         t_oracle = time.perf_counter() - t0
-        a = np.load(assignments_path(tmp))
-        keys = torch.from_numpy(a["keys"].view(np.int64)).cuda()
-        values = torch.from_numpy(a["values"].view(np.int64)).cuda()
-        ws = torch.from_numpy(f["ws"][...].view(np.int64)).cuda()
-        seg = torch.from_numpy(f["mc_seg"][...].view(np.int64)).cuda()
-        if not torch.equal(seg > 0, ws > 0):
-            raise AssertionError("multicut: seg > 0 differs from ws > 0")
-        idx = torch.searchsorted(keys, ws).clamp_max(keys.numel() - 1)
-        want = torch.where((keys[idx] == ws) & (ws != 0), values[idx], 0)
-        if not torch.equal(seg, want):
-            raise AssertionError("multicut: seg is not the assignment table applied to ws")
-        del ws, seg, want, idx
+        check_assignments("multicut", tmp, f["ws"][...], f["mc_seg"][...])
         log("multicut", f"merged graph = the numpy oracle's (nodes, uv, sizes; {t_oracle:.1f} s); seg > 0 = ws > 0; "
                         f"seg = the assignment table applied to ws")
         mc_energy = t["solve_global"]["energy"]
@@ -985,28 +1070,19 @@ def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: li
                         f"{ac['n_nodes']} nodes, rounds {ac['solver']['rounds']}, write "
                         f"{rec['tasks']['write']['runtime_s']:.3f} s")
 
-        # ---- 3. the default solver, and the in-block agglomeration, on crops ----
-        c = MC_DEFAULT_CROP
-        sub = tuple(slice(0, c) for _ in range(3))
-        f.require_dataset("boundaries_crop", shape=(c,) * 3, chunks=(c // 2,) * 3,
-                          dtype="float32")[...] = f["boundaries"][sub]
+        # ---- 3. the default workflow, and the in-block agglomeration on a crop ----
         ws_cfg = dict(halo=[32, 32, 32], threshold=0.45, min_seed_distance=2.0)
-        rec = wf_run(K, os.path.join(root, "default"), cfg_dir, MulticutSegmentationWorkflow,
-                     input_path=mem, input_key="boundaries_crop", ws_path=mem, ws_key="ws_crop", output_path=mem,
-                     output_key="mc_crop", block_shape=[c // 2] * 3, **ws_cfg)
-        launches = rec["launches"]
-        missing = [k for k in MAIN_PATH_KERNELS if launches.get(k, 0) == 0]
-        if missing:
-            raise AssertionError(f"multicut: the default workflow's watershed launched no {missing}")
-        seg, ws = f["mc_crop"][...], f["ws_crop"][...]
-        if not np.array_equal(seg > 0, ws > 0):
-            raise AssertionError("multicut (default): seg > 0 differs from ws > 0")
-        t = rec["tasks"]
-        log("multicut", f"default MulticutSegmentationWorkflow (watershed, Kernighan-Lin global solve) on {(c,) * 3}, "
-                        f"block {(c // 2,) * 3}: wall {rec['wall_s']:.3f} s (watershed {t['watershed']['runtime_s']:.3f}, "
-                        f"solve_global {t['solve_global']['runtime_s']:.3f} s); "
-                        f"{t['merge_sub_graphs']['n_nodes']} fragments -> {t['solve_global']['n_segments']} segments; "
-                        f"launches {launches}")
+        default = default_workflow(K, f, mem, root, cfg_dir, MC_DEFAULT_CROP, list(block), ws_cfg, "default")
+        launches, t = default["launches"], default["tasks"]
+        log("multicut", f"default MulticutSegmentationWorkflow (watershed, gaec_parallel subproblems, Kernighan-Lin "
+                        f"global solve on the host C++ rung) on {(MC_DEFAULT_CROP,) * 3}, block {tuple(block)}: wall "
+                        f"{default['wall_s']:.3f} s; tasks " + ", ".join(f"{k} {t[k]['runtime_s']:.3f}"
+                                                                        for k in ("watershed",) + MC_TASKS)
+                        + f" s; {t['merge_sub_graphs']['n_nodes']} fragments, {t['merge_sub_graphs']['n_edges']} "
+                        f"edges -> reduced {t['reduce_problem']['n_nodes']} nodes, {t['reduce_problem']['n_edges']} "
+                        f"edges -> {t['solve_global']['n_segments']} segments, energy {t['solve_global']['energy']:.6g}; "
+                        f"seg > 0 = ws > 0; seg = the assignment table applied to ws; native calls "
+                        f"{default['native']}; launches {launches}")
         for row in rows:
             row["multicut_launches"] = launches.get(row["name"], 0)
 
@@ -1030,8 +1106,225 @@ def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: li
                         f"launches {recs['auto']['launches']}")
         log("multicut", f"phase {time.perf_counter() - t_phase:.1f} s")
         if then is not None:
-            then(dict(root=root, tmp=tmp, io=io, block=block, mc_energy=mc_energy))
+            then(dict(root=root, tmp=tmp, io=io, block=block, mc_energy=mc_energy, cfg_dir=cfg_dir,
+                      ws_cfg=ws_cfg, mc_counts=mc_counts, default_counts=default["native"]))
     del MemoryContainer._registry[mem]
+
+
+def timed(fn):
+    """``(fn(), seconds)`` on the host clock (the host C++ rung runs on the
+    host: no device sync)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def config4_problem(tmp: str) -> dict:
+    """A config-4 run's host problems from its ``tmp_folder``: the merged
+    graph, costs and block feature parts, ReduceProblem's union-find pairs
+    and the reduced (scale 1) problem that SolveGlobal solves."""
+    import glob
+
+    from cluster_tools_tpu_torch.runtime import handoff
+    from cluster_tools_tpu_torch.tasks.costs import costs_path
+    from cluster_tools_tpu_torch.tasks.features import features_path
+    from cluster_tools_tpu_torch.tasks.graph import graph_dir, load_global_graph
+    from cluster_tools_tpu_torch.tasks.multicut import cut_edges_path, problem_path
+
+    nodes, uv, edges, sizes = load_global_graph(tmp)
+    edges = edges.astype(np.int64)
+    cut = handoff.load_arrays(cut_edges_path(tmp, 0))
+    s1 = handoff.load_arrays(problem_path(tmp, 1))
+    files = sorted(glob.glob(os.path.join(graph_dir(tmp), "features_block_*.npz")),
+                   key=lambda x: int(x.rsplit("_", 1)[1].split(".")[0]))
+    parts = []
+    for fn in files:
+        with np.load(fn) as z:
+            parts.append((z["uv"], z["feats"]))
+    return dict(n=len(nodes), uv=uv, edges=edges, sizes=sizes,
+                costs=handoff.load_array(costs_path(tmp)).astype(np.float64),
+                feats=handoff.load_array(features_path(tmp)), parts=parts,
+                pairs=edges[cut["seen"] & ~cut["cut"]], s1_n=int(s1["node_labeling"].max()) + 1,
+                s1_edges=s1["edges"].astype(np.int64), s1_costs=s1["costs"].astype(np.float64))
+
+
+def flood_is_a_watershed(ws: np.ndarray, fg: np.ndarray, seeds: np.ndarray) -> None:
+    """The seeded flood's contract (the reference's own test of it): seeds
+    keep their labels, background stays 0, every foreground voxel of a
+    seeded component is labelled and no other, and each label is one
+    6-connected region."""
+    from scipy import ndimage
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    if not (np.array_equal(ws[seeds > 0], seeds[seeds > 0]) and (ws[~fg] == 0).all()):
+        raise AssertionError("native: ws_flood moved a seed or labelled background")
+    cc, _ = ndimage.label(fg)
+    seeded = np.isin(cc, np.unique(cc[seeds > 0])) & fg
+    if not ((ws[seeded] > 0).all() and (ws[fg & ~seeded] == 0).all()):
+        raise AssertionError("native: ws_flood left a seeded voxel unlabelled or labelled an unseeded one")
+    idx = np.arange(ws.size).reshape(ws.shape)
+    us, vs = [], []
+    for ax in range(3):
+        a = [slice(None)] * 3
+        b = [slice(None)] * 3
+        a[ax], b[ax] = slice(0, -1), slice(1, None)
+        same = (ws[tuple(a)] == ws[tuple(b)]) & (ws[tuple(a)] > 0)
+        us.append(idx[tuple(a)][same])
+        vs.append(idx[tuple(b)][same])
+    u, v = np.concatenate(us), np.concatenate(vs)
+    n_comp, comp = connected_components(coo_matrix((np.ones(len(u), np.uint8), (u, v)), shape=(ws.size,) * 2),
+                                        directed=False)
+    labelled = ws.ravel() > 0
+    if len(np.unique(comp[labelled])) != len(np.unique(ws[ws > 0])):
+        raise AssertionError("native: a ws_flood label is not one connected region")
+
+
+def phase_native(K, vol: torch.Tensor, mem: str, mc: dict) -> None:
+    """The host C++ rung (``cluster_tools_tpu_torch/native.py`` over
+    ``csrc/ct_native.cpp``; ROADMAP item 13), in the "multicut" phase's
+    ``tmp_folder``:
+
+    1. The default workflow on the first ``NATIVE_CROP``^3 (block half of
+       it) makes the inputs.  On its graph, features and reduced problem,
+       each of the eight functions against the port's Python path
+       (``native.force_python()``), both timed: union-find (ReduceProblem's
+       pairs), GAEC (the graph), parallel contraction (GAEC and average
+       linkage on the graph), Kernighan-Lin (the reduced problem, GAEC
+       start), the feature merge (the block parts); labels and sums bit for
+       bit.  The squared EDT of a ``NATIVE_CROP``^3 block of the main
+       path's foreground against scipy's EDT squared (rtol 1e-5, the
+       reference test's tolerance); the flood on that block against the
+       reference test's contract (its Python path, ``watershed_ift``, breaks
+       plateau ties in another order), timed beside ``watershed_ift``; the
+       mutex watershed's constraint loop on a seeded ``MWS_EDGE``^3
+       affinity volume (``MWS_OFFSETS``), the same partition.
+    2. The rung alone at full size on the "multicut" phase's 512^3 graph:
+       union-find, GAEC on the whole graph, Kernighan-Lin and parallel
+       contraction (beside the torch rung on the card) on the reduced global
+       problem, the feature merge (union-find and the merge beside their
+       Python paths).
+    Raises on any inequality, and when a function made no call."""
+    from scipy import ndimage
+
+    from cluster_tools_tpu_torch import native
+    from cluster_tools_tpu_torch.io.containers import open_container
+    from cluster_tools_tpu_torch.ops import contraction, mws, rag
+    from cluster_tools_tpu_torch.ops import multicut as pmc
+    from cluster_tools_tpu_torch.ops.unionfind import union_find_host
+
+    t_phase = time.perf_counter()
+    c = NATIVE_CROP
+    rec = default_workflow(K, open_container(mem), mem, mc["root"], mc["cfg_dir"], c, [c // 2] * 3, mc["ws_cfg"],
+                           "native")
+    pb = config4_problem(rec["tmp"])
+    native.reset_counts()
+    results = []
+
+    def pair(name, run, equal, what):
+        got, t_nat = timed(run)
+        with native.force_python():
+            want, t_py = timed(run)
+        if not equal(got, want):
+            raise AssertionError(f"native: {name} differs from its Python path on {what}")
+        results.append(f"{name} {t_nat:.4f} s (Python {t_py:.4f} s) on {what}")
+        return got
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            return all(np.array_equal(x, y) for x, y in zip(a, b))
+        return np.array_equal(a, b)
+
+    n, e, w = pb["n"], pb["edges"], pb["costs"]
+    graph = f"{n} nodes, {len(e)} edges"
+    pair("union_find", lambda: union_find_host(pb["pairs"], n), same, f"{len(pb['pairs'])} pairs of {n} labels")
+    pair("greedy_additive", lambda: pmc.greedy_additive(n, e, w), same, graph)
+    # the numpy rung is the contraction's Python path
+    got, t_nat = timed(lambda: contraction.gaec_parallel(n, e, w, impl="native"))
+    want, t_py = timed(lambda: contraction.gaec_parallel(n, e, w, impl="numpy"))
+    s = np.maximum(pb["sizes"].astype(np.float64), 1e-12)
+    probs = pb["feats"][:, 0].astype(np.float64)
+    got_a, t_nat_a = timed(lambda: contraction.average_parallel(n, e, probs, s, 0.5, impl="native"))
+    want_a, t_py_a = timed(lambda: contraction.average_parallel(n, e, probs, s, 0.5, impl="numpy"))
+    if not (np.array_equal(got, want) and np.array_equal(got_a, want_a)):
+        raise AssertionError("native: parallel_contract differs from the numpy rung")
+    results.append(f"parallel_contract {t_nat:.4f} s (numpy rung {t_py:.4f} s) GAEC, {t_nat_a:.4f} s ({t_py_a:.4f} s) "
+                   f"average linkage on {graph}")
+    n1, e1, w1 = pb["s1_n"], pb["s1_edges"], pb["s1_costs"]
+    kl = pair("kernighan_lin", lambda: pmc.kernighan_lin(n1, e1, w1), same,
+              f"the reduced problem, {n1} nodes, {len(e1)} edges, GAEC start")
+    merged = pair("merge_edge_features", lambda: rag.merge_feature_lists(pb["uv"], pb["parts"]), same,
+                  f"{len(pb['parts'])} block parts onto {len(pb['uv'])} edges")
+    if not np.array_equal(merged, pb["feats"]):
+        raise AssertionError("native: merge_edge_features differs from the workflow's features")
+
+    block = (vol[0, :c, :c, :c] < 0.45).cpu().numpy()
+    d2, t_nat = timed(lambda: native.edt_sq(block))
+    want, t_py = timed(lambda: ndimage.distance_transform_edt(block))
+    np.testing.assert_allclose(d2, (want * want).astype(np.float32), rtol=1e-5)
+    results.append(f"edt_sq {t_nat:.4f} s (scipy EDT {t_py:.4f} s) on {block.shape}, within rtol 1e-5 of scipy's "
+                   f"squared")
+    dist = np.sqrt(d2)
+    seeds, _ = ndimage.label((ndimage.maximum_filter(dist, size=3) == dist) & block)
+    hmap = np.clip(vol[0, :c, :c, :c].cpu().numpy() * 255, 0, 255).astype(np.uint8)
+    ws, t_nat = timed(lambda: native.ws_flood(hmap, block, seeds.astype(np.int32)))
+    _, t_py = timed(lambda: ndimage.watershed_ift(hmap, seeds.astype(np.int32)))
+    flood_is_a_watershed(ws, block, seeds)
+    results.append(f"ws_flood {t_nat:.4f} s (watershed_ift {t_py:.4f} s) on {block.shape}, {int(seeds.max())} "
+                   f"seeds; the flood's contract holds")
+    m = MWS_EDGE
+    affs = np.random.default_rng(0).random((len(MWS_OFFSETS), m, m, m)).astype(np.float32)
+    u, v, ch = mws.offset_edges((m,) * 3, MWS_OFFSETS)
+    order = np.argsort(-mws._affinity_values(np.asarray(affs, np.float64), MWS_OFFSETS), kind="stable")
+    roots, t_nat = timed(lambda: native.mutex_watershed(m ** 3, u, v, ch < 3, order))
+    py, t_py = timed(lambda: mws.python_constraint_loop(m ** 3, u, v, ch < 3, order))
+    inv_n, inv_p = (np.unique(r, return_inverse=True)[1] for r in (roots, py))
+    if not np.array_equal(inv_n, inv_p):
+        raise AssertionError("native: mutex_watershed's partition differs from the Python loop's")
+    results.append(f"mutex_watershed {t_nat:.4f} s (Python {t_py:.4f} s) on {m}^3, {len(u)} edges, "
+                   f"{len(MWS_OFFSETS)} offsets: {int(inv_n.max()) + 1} clusters, same partition")
+    missing = [k for k, v in native.COUNTS.items() if not v]
+    if missing:
+        raise AssertionError(f"native: no call to {missing} in the comparisons: {native.COUNTS}")
+    log("native", f"the host C++ rung against its Python paths ({NATIVE_CROP}^3 default workflow's graph; "
+                  f"{len(np.unique(kl))} KL segments): " + "; ".join(results))
+
+    # ---- 2. the rung alone at full size ----
+    full = config4_problem(mc["tmp"])
+    n, e, w = full["n"], full["edges"], full["costs"]
+    native.reset_counts()
+    _, t_uf = timed(lambda: union_find_host(full["pairs"], n))
+    with native.force_python():
+        _, t_uf_py = timed(lambda: union_find_host(full["pairs"], n))
+    gaec, t_gaec = timed(lambda: pmc.greedy_additive(n, e, w))
+    n1, e1, w1 = full["s1_n"], full["s1_edges"], full["s1_costs"]
+    kl, t_kl = timed(lambda: pmc.kernighan_lin(n1, e1, w1))
+    # the contraction's rungs on the reduced problem: why the card keeps the
+    # torch rung where the device is the card
+    pc, t_pc = timed(lambda: contraction.gaec_parallel(n1, e1, w1, impl="native"))
+    torch.cuda.synchronize()
+    pc_t, t_pc_t = timed(lambda: contraction.gaec_parallel(n1, e1, w1, impl="torch", device="cuda"))
+    if not np.array_equal(pc, pc_t):
+        raise AssertionError("native: parallel_contract differs from the torch rung on the reduced problem")
+    feats, t_mf = timed(lambda: rag.merge_feature_lists(full["uv"], full["parts"]))
+    with native.force_python():
+        feats_py, t_mf_py = timed(lambda: rag.merge_feature_lists(full["uv"], full["parts"]))
+    if not (np.array_equal(feats, feats_py) and np.array_equal(feats, full["feats"])):
+        raise AssertionError("native: the full-size feature merge differs from its Python path or the workflow's")
+    counts = dict(native.COUNTS)
+    missing = [k for k in ("union_find", "greedy_additive", "kernighan_lin", "parallel_contract", "merge_edge_features")
+               if not counts[k]]
+    if missing:
+        raise AssertionError(f"native: no call to {missing} at full size: {counts}")
+    log("native", f"full size, the multicut phase's 512^3 graph ({n} nodes, {len(e)} edges): union_find {t_uf:.3f} s "
+                  f"(Python {t_uf_py:.3f}) on {len(full['pairs'])} pairs; greedy_additive {t_gaec:.3f} s -> "
+                  f"{int(gaec.max()) + 1} segments, energy {pmc.multicut_energy(e, w, gaec):.6g}; kernighan_lin "
+                  f"{t_kl:.3f} s (GAEC start included) on the reduced problem ({n1} nodes, {len(e1)} edges) -> "
+                  f"{int(kl.max()) + 1} segments, energy {pmc.multicut_energy(e1, w1, kl):.6g}; parallel_contract "
+                  f"(GAEC) on it {t_pc:.3f} s (the torch rung on the card {t_pc_t:.3f} s, same labels, "
+                  f"{int(pc.max()) + 1} segments); merge_edge_features "
+                  f"{t_mf:.3f} s (Python {t_mf_py:.3f}) over {len(full['parts'])} block parts, = the workflow's "
+                  f"features; calls {counts}; phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def tree_line(info: dict, delta: dict, wall: float) -> str:
@@ -1098,8 +1391,11 @@ def phase_reduce_tree(K, vol: torch.Tensor, ref: np.ndarray, mem: str, mc: dict,
     from cluster_tools_tpu_torch.tasks.multicut import SolveGlobalGPU, assignments_path
     from cluster_tools_tpu_torch.workflows import AgglomerativeClusteringWorkflow
 
+    from cluster_tools_tpu_torch import native
+
     t_phase = time.perf_counter()
     tmp, block = mc["tmp"], mc["block"]
+    native.reset_counts()
     saved_env = {k: os.environ.get(k) for k in ("CTT_MESH_SHARDS", "CT_SEED_CCL")}
     os.environ["CTT_MESH_SHARDS"] = str(REDUCE_SHARDS)
     cfg_dir = os.path.join(mc["root"], "cfg-tree")
@@ -1163,7 +1459,9 @@ def phase_reduce_tree(K, vol: torch.Tensor, ref: np.ndarray, mem: str, mc: dict,
                        f"{ac['runtime_s']:.3f} s; " + tree_line(solver, d_tree, ac["runtime_s"])
                        + f", h2d {h2d_cold} B cold; warm re-solve {warm_s:.3f} s, h2d {h2d_warm} B, pool hits "
                        f"{int(device_pool.delta(snap_d)['device_pool_hits'])}; = the in-process packet plane "
-                       f"(max_workers 8) bit for bit: " + tree_line(info_p, d_packet, packet_s)
+                       f"(max_workers 8; a group with no frontier on the torch rung; before the host C++ rung "
+                       f"{BEFORE_RUNG_PACKET_S} s) "
+                       f"bit for bit: " + tree_line(info_p, d_packet, packet_s)
                        + "; no degraded record")
 
     # ---- (b) SolveGlobal on both planes, (c) over a worker group ----
@@ -1201,7 +1499,8 @@ def phase_reduce_tree(K, vol: torch.Tensor, ref: np.ndarray, mem: str, mc: dict,
         raise AssertionError(f"reduce-tree (b, c): degraded records written: {bad}")
     for arm, (_, doc, wall, delta) in solves.items():
         log("reduce-tree", f"({'c' if arm == 'workers' else 'b'}) SolveGlobal gaec_parallel, solver_shards "
-                           f"{REDUCE_SHARDS}, {arm}{' (2 processes, gloo, packet plane)' if arm == 'workers' else ''}: "
+                           f"{REDUCE_SHARDS}, {arm}"
+                           f"{' (2 processes, gloo, packet plane, host C++ rung; before it %s s)' % BEFORE_RUNG_WORKERS_S if arm == 'workers' else ''}: "
                            f"{doc['solver']['edges_in']} edges -> {doc['n_segments']} segments, energy "
                            f"{doc['energy']:.6g}; task {doc['runtime_s']:.3f} s; " + tree_line(doc["solver"], delta, wall))
     log("reduce-tree", f"(b, c) the three arms' labels equal; energy {energy:.6g} against the unsharded "
@@ -1314,7 +1613,10 @@ def phase_reduce_tree(K, vol: torch.Tensor, ref: np.ndarray, mem: str, mc: dict,
             os.environ.pop(k, None)
         else:
             os.environ[k] = v
-    log("reduce-tree", f"phase {time.perf_counter() - t_phase:.1f} s")
+    tree_counts = dict(native.COUNTS)
+    log("reduce-tree", f"phase {time.perf_counter() - t_phase:.1f} s; host C++ calls in this phase {tree_counts} "
+                       f"(worker processes' not counted); in the multicut phase's 512^3 workflow {mc['mc_counts']} and "
+                       f"its default workflow {mc['default_counts']}")
 
 
 # the fusion phase's cc arm: cut from the main path's 512 to 256, since the
@@ -2475,7 +2777,8 @@ def main() -> int:
     secs = build.build_all()
     log("build", "kernels " + ", ".join(
         f"{k} ({ident}) {secs[k]:.1f}s" for k, (ident, _, _) in KERNELS.items()
-    ) + f"; wall {time.perf_counter() - t0:.1f}s")
+    ) + f"; host library {build.HOST_NAME} (g++) {secs[build.HOST_NAME]:.1f}s, {build.host_library_path().name}; "
+        f"wall {time.perf_counter() - t0:.1f}s")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows, vol, ref, ws_crop, main_s_per_voxel = main_phases(K, args, gen)
@@ -2483,7 +2786,8 @@ def main() -> int:
                   * MAIN_SHAPE[3])
     mem, auto = phase_blockwise(K, vol, ref, rows)
     phase_sweeps(K, mem, auto, main_s_per_voxel, rows)
-    phase_multicut(K, vol, ws_crop, mem, rows, then=lambda mc: phase_reduce_tree(K, vol, ref, mem, mc, rows))
+    phase_multicut(K, vol, ws_crop, mem, rows,
+                   then=lambda mc: (phase_native(K, vol, mem, mc), phase_reduce_tree(K, vol, ref, mem, mc, rows)))
     phase_fusion(K, vol, rows)
     phase_inference(K, vol, rows, args.seed)
 

@@ -7,6 +7,12 @@ All sources compile concurrently (one ``nvcc`` each).  Libraries land in
 ``.torch_ext/`` at the repository root (git-ignored), named by a hash of
 the sources and flags, so an unchanged tree reuses its build.
 
+The host C++ rung (``csrc/ct_native.cpp``, bound by :mod:`.native`) is
+built the same way by ``g++`` with the JAX package's own flags
+(:func:`host_library`): it needs no ``nvcc``, so it builds at first use on
+any machine with a C++ compiler, and :func:`build_all` builds it beside the
+kernels.
+
 Importing this module needs no ``nvcc``; :func:`build_all` does.  The
 shards of a mesh launch kernels from threads of one process, so building
 and loading happen under one lock: the first caller builds, the others wait
@@ -47,6 +53,13 @@ NVCC_FLAGS = [
     "-fPIC",
 ]
 
+# the host library: ISO C++17 without fast-math keeps floating-point
+# contraction off, so its float64 sums are the JAX package's library's bits
+HOST_NAME = "ct_native"
+HOST_SOURCE = "ct_native.cpp"
+CXX = "g++"
+CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: Dict[str, float] = {}
 _BUILD_LOCK = threading.RLock()
@@ -72,8 +85,56 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
+def host_library_path() -> Path:
+    """Where the host library of the current source and flags lives."""
+    h = hashlib.sha1()
+    h.update((CSRC / HOST_SOURCE).read_bytes())
+    h.update(" ".join([CXX, *CXX_FLAGS]).encode())
+    return BUILD_DIR / f"lib{HOST_NAME}_{h.hexdigest()[:12]}.so"
+
+
+def _spawn(name: str, cmd, path: Path) -> tuple:
+    """Start one compiler writing a process-unique temp file (renamed into
+    ``path`` once it succeeds, so no reader sees a partial library)."""
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        proc = subprocess.Popen([*cmd, "-o", str(tmp)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        raise RuntimeError(f"{name} build failed: cannot run {cmd[0]!r}: {e}") from e
+    return proc, tmp, path, time.perf_counter()
+
+
+def _finish(procs: Dict[str, tuple], what: str) -> None:
+    failed = []
+    for name, (proc, tmp, path, t0) in procs.items():
+        out, _ = proc.communicate()
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (rc {proc.returncode}) ---\n{out}")
+            continue
+        os.replace(tmp, path)
+    if failed:
+        raise RuntimeError(f"{what} build failed:\n" + "\n".join(failed))
+
+
+def _host_cmd() -> list:
+    return [CXX, *CXX_FLAGS, str(CSRC / HOST_SOURCE)]
+
+
+def host_library() -> Path:
+    """The host library's path, compiling it with ``g++`` at first use.
+    Raises with the compiler's output when the build fails."""
+    with _BUILD_LOCK:
+        path = host_library_path()
+        if not path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            _finish({HOST_NAME: _spawn(HOST_NAME, _host_cmd(), path)}, "host library")
+        return path
+
+
 def build_all() -> Dict[str, float]:
-    """Compile every missing kernel library concurrently; load them all.
+    """Compile every missing kernel library and the host library
+    concurrently; load the kernels.
 
     Returns seconds per library (0.0 when a cached build was reused).
     Raises with the compiler's output when any build fails.
@@ -84,32 +145,20 @@ def build_all() -> Dict[str, float]:
 
 def _build_all() -> Dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    missing = [name for name in SOURCES if name not in _LIBS and not _lib_path(name).exists()]
     for name in SOURCES:
-        if name in _LIBS:
-            continue
-        path = _lib_path(name)
-        if path.exists():
+        if name not in _LIBS and name not in missing:
             BUILD_SECONDS[name] = 0.0
-            continue
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
-        procs[name] = (
-            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp,
-            path,
-            time.perf_counter(),
-        )
-    failed = []
-    for name, (proc, tmp, path, t0) in procs.items():
-        out, _ = proc.communicate()
-        BUILD_SECONDS[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc rc {proc.returncode}) ---\n{out}")
-            continue
-        os.replace(tmp, path)
-    if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    nvcc = nvcc_path() if missing else None
+    procs = {}
+    host = host_library_path()
+    if host.exists():
+        BUILD_SECONDS[HOST_NAME] = 0.0
+    else:
+        procs[HOST_NAME] = _spawn(HOST_NAME, _host_cmd(), host)
+    for name in missing:
+        procs[name] = _spawn(name, [nvcc, *NVCC_FLAGS, str(CSRC / SOURCES[name])], _lib_path(name))
+    _finish(procs, "CUDA kernel and host library")
     for name in SOURCES:
         if name not in _LIBS:
             _LIBS[name] = _bind(name, ctypes.CDLL(str(_lib_path(name))))

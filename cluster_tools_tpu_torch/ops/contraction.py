@@ -29,18 +29,20 @@ Rungs (``impl``):
   group in the order of the stable sort, which is the numpy rung's order
   (``sum_by_key``), so the priorities compare the same bits and the rung
   gives the numpy rung's labels, on every run and on either device;
+- ``"native"`` the same rounds in the host C++ rung
+  (``csrc/ct_native.cpp:ct_parallel_contract`` through
+  :func:`..native.parallel_contract`), on the host whatever ``device``
+  says, as the reference's does;
 - ``"heap"`` the sequential solvers of :mod:`.multicut` /
   :mod:`.agglomeration`;
 - ``"auto"`` resolves to ``"torch"`` when the solve's device is a CUDA
-  device, else to ``"numpy"``.
+  device, else to ``"native"`` (the reference's choice where its library
+  loads), and to ``"numpy"`` inside ``native.force_python()``.
 
 :func:`lane_frontier_rounds` is the reduce tree's level program for one
 group (the reference's vmapped ``lane_frontier_rounds``): the same rounds
 with frontier abstention on fixed-capacity lanes, in plain torch on the
 lane's device.
-
-The reference's host C++ rung (``impl="native"``) is not ported: ROADMAP
-Queue A item 13.
 """
 
 from __future__ import annotations
@@ -51,10 +53,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..device import resolve_device
-
-NATIVE_REFUSAL = ("impl='native' (the host C++ contraction rung, native/ct_native.cpp) is not ported: "
-                  "ROADMAP Queue A item 13")
 
 # -- process-wide solver metrics (snapshot/delta, as the task runtime reads
 # them around a solve); ``solver_rounds`` is counted by the numpy and torch
@@ -88,12 +88,12 @@ def _record_solver_metrics(**deltas) -> None:
 
 
 def _resolve_impl(impl: str, device=None) -> str:
-    if impl == "native":
-        raise NotImplementedError(NATIVE_REFUSAL)
     if impl == "auto":
-        return "torch" if resolve_device(device).type == "cuda" else "numpy"
-    if impl not in ("numpy", "torch"):
-        raise ValueError(f"unknown impl {impl!r} (expected auto, numpy, torch or heap)")
+        if resolve_device(device).type == "cuda":
+            return "torch"
+        return "native" if native.available() else "numpy"
+    if impl not in ("numpy", "torch", "native"):
+        raise ValueError(f"unknown impl {impl!r} (expected auto, numpy, torch, native or heap)")
     return impl
 
 
@@ -400,14 +400,16 @@ def parallel_contraction(n_nodes: int, edges: np.ndarray, payload: np.ndarray, m
     edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
     if mode not in ("max", "min"):
         raise ValueError(f"mode must be 'max' or 'min', got {mode!r}")
-    if impl == "native":
-        raise NotImplementedError(NATIVE_REFUSAL)
     if n_nodes == 0 or len(edges) == 0:
         return np.arange(n_nodes, dtype=np.int64)
     resolved = _resolve_impl(impl, device)
     payload = np.asarray(payload, dtype=np.float64).reshape(len(edges), -1)
     if resolved == "torch":
         labels = _contract_rounds_torch(n_nodes, edges, payload, mode, threshold, device)
+    elif resolved == "native":
+        labels = native.parallel_contract(n_nodes, edges, payload, mode == "max", threshold)
+        if labels is None:
+            raise RuntimeError("impl='native' inside native.force_python(): the host C++ rung is switched off")
     else:
         labels = _contract_rounds_numpy(n_nodes, edges, payload, mode, threshold)
     _record_solver_metrics(

@@ -15,10 +15,10 @@ reference's solver core behind ``utils/segmentation_utils.py``'s registry.
 - :func:`multicut_energy` -- the objective, the sum of the costs of cut
   edges (costs > 0 attractive, < 0 repulsive; minimised).
 
-The reference calls its host C++ library for GAEC and KL when it is
-built; the port carries only their Python paths, which compute the same
-labels (the C++ rung is ROADMAP Queue A item 13).  The lifted solvers
-wait for item 12.
+GAEC and KL run in the host C++ rung (:mod:`..native`), as the
+reference's do where its library loads; their Python paths, which compute
+the same labels, run inside ``native.force_python()``.  The lifted solvers
+wait for ROADMAP item 12.
 
 Sign convention matches ``probs_to_costs``: ``w = log((1-p)/p)``.
 """
@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 from zipfile import BadZipFile
 
+from .. import native
 from .rag import unique_pairs
 
 
@@ -126,11 +127,16 @@ def greedy_additive(
     Tie-breaking is deterministic and documented: heap entries are
     ``(-cost, u, v)`` tuples, so among equal-cost edges the smallest
     ``(u, v)`` endpoint pair (current cluster representatives at push time)
-    contracts first.
+    contracts first.  The host C++ rung (``ct_greedy_additive``) orders its
+    heap identically.
     """
     n_nodes = int(n_nodes)
     edges = np.asarray(edges, dtype=np.int64)
     costs = np.asarray(costs, dtype=np.float64)
+
+    labels = native.greedy_additive(n_nodes, edges, costs, stop_cost)
+    if labels is not None:
+        return labels
 
     # union-find
     parent = np.arange(n_nodes, dtype=np.int64)
@@ -362,6 +368,9 @@ def kernighan_lin(
         return _relabel_consecutive(labels)
 
     if checkpoint is None:
+        refined = native.kernighan_lin(n_nodes, edges, costs, labels, max_outer=max_outer, epsilon=epsilon)
+        if refined is not None:
+            return _relabel_consecutive(refined)
         return _kernighan_lin_python(
             n_nodes, edges, costs, labels, max_outer, epsilon
         )
@@ -374,9 +383,11 @@ def kernighan_lin(
     if resumed is None:
         checkpoint.save(labels, 0, prev_e)
     for sweep in range(start_sweep, max_outer):
-        refined = _kernighan_lin_python(
-            n_nodes, edges, costs, labels.copy(), 1, epsilon
-        )
+        refined = native.kernighan_lin(n_nodes, edges, costs, labels.copy(), max_outer=1, epsilon=epsilon)
+        if refined is None:
+            refined = _kernighan_lin_python(
+                n_nodes, edges, costs, labels.copy(), 1, epsilon
+            )
         e = multicut_energy(edges, costs, refined)
         labels = np.asarray(refined, np.int64)
         checkpoint.save(labels, sweep + 1, e)
@@ -394,8 +405,8 @@ def _kernighan_lin_python(
     max_outer: int = 20,
     epsilon: float = 1e-9,
 ) -> np.ndarray:
-    """Pure-Python KL sweeps.  Mutates ``labels`` and returns a relabelled
-    copy."""
+    """Pure-Python KL sweeps, the host C++ rung's parity oracle.  Mutates
+    ``labels`` and returns a relabelled copy."""
     adj: List[List[Tuple[int, float]]] = [[] for _ in range(n_nodes)]
     for (u, v), w in zip(edges, costs):
         if u == v:

@@ -33,6 +33,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..device import as_tensor, resolve_device
 
 # per-edge accumulated statistics, in column order
@@ -329,9 +330,13 @@ def merge_feature_lists(uv_global: np.ndarray, parts) -> np.ndarray:
     :data:`FEATURE_NAMES`.  Mean is count-weighted; min/max are reduced;
     counts are summed; variance merges through the streaming (Chan)
     parallel combine (running mean + second moment about it).  Edges absent
-    from all parts get zeros.  (The reference takes its C++ helper when it
-    is built; this is its Python path.)
+    from all parts get zeros.  The sums run in the host C++ rung
+    (:func:`..native.merge_edge_features`); the Python path below runs
+    inside ``native.force_python()``.
     """
+    merged = native.merge_edge_features(parts, uv_global)
+    if merged is not None:
+        return _finish_features(*merged)
     m = len(uv_global)
     mean = np.zeros(m, np.float64)
     m2 = np.zeros(m, np.float64)
@@ -369,6 +374,13 @@ def merge_feature_lists(uv_global: np.ndarray, parts) -> np.ndarray:
         np.minimum.at(mn, ids, f[:, 1])
         np.maximum.at(mx, ids, f[:, 2])
         cnt[ids] = ntot
+    return _finish_features(mean, m2, mn, mx, cnt)
+
+
+def _finish_features(mean, m2, mn, mx, cnt) -> np.ndarray:
+    """The merged columns from the running sums: variance = M2 / count;
+    zeros where no part had the edge."""
+    m = len(cnt)
     has = cnt > 0
     var = np.zeros(m, np.float64)
     var[has] = np.maximum(m2[has] / cnt[has], 0.0)

@@ -4,7 +4,7 @@ Port of ``cluster_tools_tpu/ops/unionfind.py::union_find``: repeat
 scatter-min hooking of each pair's larger root onto its smaller root, then
 full path compression, until stable.  Each label ends at its component's
 minimum label.  :func:`union_find_host` is the host path with the same
-contract (scipy's sparse connected components).
+contract (the host C++ union-find; scipy under ``native.force_python``).
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from ..device import as_tensor, resolve_device
 
 
@@ -55,15 +56,19 @@ def union_find(pairs, n_labels: int, device=None) -> torch.Tensor:
 
 def union_find_host(pairs: np.ndarray, n_labels: int) -> np.ndarray:
     """Host path of :func:`union_find`: each label mapped to the minimum
-    label of its component (int64), by scipy's sparse connected components.
-    (The reference takes its native C++ union-find when built, else this;
-    both compute the same function.)"""
-    from scipy.sparse import coo_matrix
-    from scipy.sparse.csgraph import connected_components
-
+    label of its component (int64), by the host C++ union-find
+    (:func:`..native.union_find`), or by scipy's sparse connected
+    components inside :func:`..native.force_python`."""
     pairs = np.asarray(pairs)
     if pairs.size == 0:
         return np.arange(n_labels, dtype=np.int64)
+    roots = native.union_find(pairs.astype(np.int64, copy=False), n_labels)
+    if roots is not None:
+        return roots
+
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
     g = coo_matrix((np.ones(len(pairs), dtype=np.uint8), (pairs[:, 0], pairs[:, 1])),
                    shape=(n_labels, n_labels))
     _, comp = connected_components(g, directed=False)

@@ -54,6 +54,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..utils import function_utils as fu
 
 #: env knobs of the worker-group driver (inherited by the workers)
@@ -74,12 +75,11 @@ class ShardedSolveError(RuntimeError):
 
 
 def _host_impl(impl: Optional[str] = None) -> str:
-    """Concrete host-side contraction rung, never ``auto``: ``numpy``.  The
-    reference picks its C++ rung where the library loads; the port's is
-    ROADMAP item 13, so until then the host rung is numpy."""
+    """Concrete host-side contraction rung, never ``auto``: the host C++
+    rung (``native``), or ``numpy`` inside ``native.force_python()``."""
     if impl and impl not in ("auto", "host"):
         return impl
-    return "numpy"
+    return "native" if native.available() else "numpy"
 
 
 # -- process-wide solver metrics (snapshot/delta: the task runtime merges a
@@ -701,8 +701,9 @@ def sharded_solve(n_nodes: int, edges: np.ndarray, payload: np.ndarray, node_sha
 
     ``solver(n, edges, payload, frontier, lifted_edges, lifted_payload) ->
     labels`` runs once per tree node (default :func:`default_tree_solver`
-    on ``device``).  A level's group solves fan out on ``max_workers``
-    threads; the result does not depend on their completion order.
+    on ``device``: the torch rung on the card, the host C++ rung on the
+    CPU).  A level's group solves fan out on ``max_workers`` threads; the
+    result does not depend on their completion order.
 
     ``reduce_plane`` (``CT_REDUCE_PLANE`` overrides): ``collective`` demands
     the :class:`CollectiveReducePlane` on a sibling mesh of
@@ -1050,7 +1051,8 @@ def solve_over_workers(n_nodes: int, edges: np.ndarray, payload: np.ndarray, nod
         "fanout": int(fanout),
         "mode": mode,
         "threshold": float(threshold),
-        "impl": impl or "host",
+        # resolved in this process, so force_python() here reaches the workers
+        "impl": _host_impl(impl),
         "reduce_plane": str(reduce_plane),
         "hop_deadline_s": _hop_deadline_s(hop_deadline_s),
         "device_pool_bytes": device_pool_bytes,

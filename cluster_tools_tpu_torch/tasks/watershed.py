@@ -13,7 +13,12 @@ Kernels: ``impl`` ``auto`` (the default), ``cuda`` or ``torch`` runs the
 tiled watershed (``ops/tile_ws.py``: kernels B1-B4 on the card with
 ``auto``/``cuda``, their twins with ``torch``); ``legacy``, 2-D mode and
 connectivity above 1 run ``ops/watershed.py``.  The reference's
-``pallas``/``xla`` mean ``auto`` here.  On the tiled route without a
+``pallas``/``xla`` mean ``auto`` here.  ``host`` (single-pass, 3-D,
+connectivity 1, no ``size_filter``, ``agglomerate_threshold`` or
+``sigma_seeds``) runs :func:`..ops.host.host_dt_watershed` per block on a
+thread pool: the original per-job compute, on the CPU by design even when a
+card is present (the host C++ EDT and flood release the interpreter lock,
+so ``max_jobs`` threads overlap).  On the tiled route without a
 ``size_filter`` the kernel carries a lane-batched form
 (``kernel.batched``: :func:`..ops.tile_ws.dt_watershed_lanes`), so a
 sharded sweep runs a whole batch of blocks in one call; the other routes
@@ -94,15 +99,11 @@ class _WsTaskBase(BaseTask):
 
     def _impl(self, cfg) -> str:
         impl = str(cfg.get("impl", "auto"))
-        if impl == "host":
-            raise NotImplementedError(
-                "impl='host' (per-job scipy watershed, ops/host.py) is not ported: ROADMAP Queue A item 11"
-            )
         if impl in ("pallas", "xla"):
             self.logger.info(f"impl={impl!r} is the reference's kernel route; the port runs 'auto'")
             impl = "auto"
-        if impl not in ("auto", "cuda", "torch", "legacy"):
-            raise ValueError(f"unknown impl {impl!r} (expected auto, cuda, torch or legacy)")
+        if impl not in ("auto", "cuda", "torch", "legacy", "host"):
+            raise ValueError(f"unknown impl {impl!r} (expected auto, cuda, torch, legacy or host)")
         return impl
 
     def _kernel_params(self, cfg):
@@ -239,6 +240,10 @@ class WatershedBase(_WsTaskBase):
             bnd_stash.pop(block.block_id, None)
             self.log_block_success(block.block_id)
 
+        if impl == "host":
+            self._run_host(cfg, kp, two_d, size_filter, agg_thr, [b for b in blocks_all if b.block_id not in done],
+                           load, store)
+            return {"n_blocks": len(block_ids), "n_outer": n_outer, "overflow_blocks": []}
         sweep = BlockwiseExecutor.for_task(self.target, cfg, self.max_jobs).map_blocks(
             kernel, blocks_all, load, store, on_block_done=block_done,
             done_block_ids=done, validate_fn=validate_labels, failures_path=self.failures_path,
@@ -246,6 +251,36 @@ class WatershedBase(_WsTaskBase):
         )
         return {"n_blocks": len(block_ids), "n_outer": n_outer, "overflow_blocks": sorted(overflow_blocks),
                 "sweep": sweep}
+
+    def _run_host(self, cfg, kp, two_d, size_filter, agg_thr, todo, load, store) -> None:
+        """``impl="host"``: the reference's per-job host watershed
+        (:func:`..ops.host.host_dt_watershed`), one block a thread of a
+        ``max_jobs`` pool, with no device and no executor.  Options it has
+        no counterpart for are refused, not approximated."""
+        if two_d:
+            raise NotImplementedError("impl='host' is 3-D only")
+        if size_filter > 0 or agg_thr is not None:
+            raise NotImplementedError("impl='host' does not support size_filter / agglomerate_threshold -- use the "
+                                      "device impls")
+        if float(kp.get("sigma_seeds") or 0.0) > 0:
+            raise NotImplementedError("impl='host' does not support sigma_seeds")
+        if int(kp.get("connectivity", 1)) != 1:
+            raise NotImplementedError("impl='host' supports connectivity=1 only")
+        from concurrent.futures import ThreadPoolExecutor
+
+        from ..ops.host import host_dt_watershed
+
+        def host_block(block):
+            b, m = load(block)
+            lab = host_dt_watershed(b, threshold=float(kp["threshold"]), dt_max_distance=kp.get("dt_max_distance"),
+                                    min_seed_distance=float(kp.get("min_seed_distance", 0.0)), mask=m,
+                                    sampling=kp.get("sampling"))
+            store(block, (lab, False))
+            self.log_block_success(block.block_id)
+
+        with ThreadPoolExecutor(max(1, self.max_jobs)) as pool:
+            # list() raises the first block's exception
+            list(pool.map(host_block, todo))
 
 
 class WatershedLocal(WatershedBase):
@@ -277,6 +312,11 @@ class TwoPassWatershedBase(_WsTaskBase):
             raise NotImplementedError("two_d=True is not supported for the two-pass watershed; use the "
                                       "single-pass watershed for per-slice segmentation")
         impl = self._impl(cfg)
+        if impl == "host":
+            # pass one would flood on the host while this pass runs the seeded
+            # device kernel: two flood semantics in one label space
+            raise NotImplementedError("impl='host' is not supported for two-pass watershed -- the seeded "
+                                      "continuation only exists as a device kernel")
         block_ids = [b for b in block_ids if sum(blocking.block_grid_position(b)) % 2 == 1]
         done = set(self.blocks_done())
         blocks_all = [blocking.get_block(b, halo) for b in block_ids]

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import cluster_tools_tpu.native as native
+import cluster_tools_tpu_torch.native as pnative
 import cluster_tools_tpu.ops.contraction as J
 import cluster_tools_tpu.ops.multicut as jmc
 import cluster_tools_tpu_torch.ops.contraction as P
@@ -102,7 +103,7 @@ def test_average_and_heap_on_unambiguous(seed):
     want = j_average(n, edges, probs, sizes, 0.5)
     np.testing.assert_array_equal(P.average_parallel(n, edges, probs, sizes, 0.5, impl="torch", device="cpu"), want)
     np.testing.assert_array_equal(P.average_parallel(n, edges, probs, sizes, 0.5, impl="heap"), want)
-    with native.force_python():
+    with native.force_python(), pnative.force_python():
         np.testing.assert_array_equal(P.gaec_parallel(n, edges, planted(seed=seed)[2], impl="heap"),
                                       jmc.greedy_additive(n, edges, planted(seed=seed)[2]))
 
@@ -182,10 +183,16 @@ def test_cuda_torch_rung_sums_and_labels_equal_the_numpy_rung(cuda):
 
 def test_refusals():
     n, edges, costs = grid_rag(g=4, seed=0)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        P.gaec_parallel(n, edges, costs, impl="native")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        P.average_parallel(n, edges, costs, impl="native", device="cpu")
+    # the host C++ rung runs (on the host, whatever the device) and is
+    # switched off only by force_python, where it raises like the reference
+    np.testing.assert_array_equal(P.gaec_parallel(n, edges, costs, impl="native"),
+                                  P.gaec_parallel(n, edges, costs, impl="numpy"))
+    probs = np.abs(costs) / (1 + np.abs(costs))
+    np.testing.assert_array_equal(P.average_parallel(n, edges, probs, impl="native", device="cpu"),
+                                  P.average_parallel(n, edges, probs, impl="numpy"))
+    with pnative.force_python():
+        with pytest.raises(RuntimeError, match="force_python"):
+            P.gaec_parallel(n, edges, costs, impl="native")
     with pytest.raises(ValueError, match="mode"):
         P.parallel_contraction(2, np.array([[0, 1]]), np.ones((1, 1)), "sideways", 0.0)
     with pytest.raises(ValueError, match="unknown impl"):

@@ -202,10 +202,11 @@ REFUSED = [
     # refused here until task-graph fusion was ported, runs in NOW_PORTED
     ("cc", {"allow_block_split": True}, {}, "item 11"),
     ("cc", {"block_deadline_s": 5.0}, {}, "item 11"),
-    ("ws", {}, {"impl": "host"}, "item 11"),
+    # impl="host" runs (tests/test_torch_host.py); its refusals stay
+    ("ws", {}, {"impl": "host", "sigma_seeds": 1.0}, "sigma_seeds"),
     # the in-block agglomeration is single-pass only, as in the reference
     ("ws", {}, {"agglomerate_threshold": 0.3, "pass_parity": 0}, "pass_parity"),
-    ("ws2", {}, {"impl": "host"}, "item 11"),
+    ("ws2", {}, {"impl": "host"}, "two-pass"),
     ("ws2", {}, {"agglomerate_threshold": 0.3}, "two_pass"),
 ]
 

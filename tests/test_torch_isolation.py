@@ -166,3 +166,24 @@ def test_reduce_tree_entry_points_default_to_the_card(monkeypatch):
     labels, _ = sharded_solve(3, edges, np.ones(2), np.array([0, 0, 1]), reduce_plane="packet", device="cpu")
     assert len(set(labels.tolist())) == 1
     assert visible_shards("cpu") == 1
+
+
+@pytest.mark.parametrize("module", ["native.py", "build.py", "ops/host.py", "ops/mws.py", "ops/unionfind.py",
+                                    "ops/multicut.py", "ops/rag.py", "ops/contraction.py", "parallel/reduce_tree.py",
+                                    "tasks/watershed.py"])
+def test_host_rung_modules_are_checked(module):
+    """The host C++ rung's bindings and callers are among the files held
+    above, and the library's source is the port's own."""
+    assert ROOT / "cluster_tools_tpu_torch" / module in PORT_FILES
+    assert (ROOT / "cluster_tools_tpu_torch" / "csrc" / "ct_native.cpp").exists()
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_names_no_path_under_native(path):
+    """No port module builds a path to the JAX package's library or its
+    source (``native/ct_native.cpp``, ``native/libct_native.so``): the port
+    builds its own copy into ``.torch_ext/``."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    consts = [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+    bad = [c for c in consts if "libct_native.so" in c or c.lstrip("./").startswith("native/")]
+    assert not bad, f"{path.name} names {bad}"

@@ -3,9 +3,10 @@
 package's, on the CPU.
 
 Mirrors ``tests/test_multicut.py``: on identical ``(n_nodes, edges,
-costs)`` every registry key must give the reference's labels exactly.  The
-reference runs its Python paths (``native.force_python``), the ones the
-port carries; its contraction rungs resolve to numpy there.
+costs)`` every registry key must give the reference's labels exactly.  Both
+packages run their Python paths (each one's ``native.force_python``); the
+contraction rungs resolve to numpy there.  The host C++ solvers are held
+against each other in ``tests/test_torch_native.py``.
 """
 
 import numpy as np
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 import cluster_tools_tpu.native as native
+import cluster_tools_tpu_torch.native as pnative
 import cluster_tools_tpu.ops.multicut as J
 import cluster_tools_tpu_torch.ops.multicut as P
 from cluster_tools_tpu.ops.agglomeration import average_agglomeration as j_average
@@ -61,7 +63,8 @@ def test_registry_solver_matches_reference(key, inst):
     with native.force_python():
         want = j_solver(key)(n, edges, costs)
     fn = p_solver(key)
-    got = fn(n, edges, costs, **_device_kw(fn))
+    with pnative.force_python():
+        got = fn(n, edges, costs, **_device_kw(fn))
     assert got.dtype == np.int64
     np.testing.assert_array_equal(got, want)
     if getattr(fn, "round_engine", False):
@@ -73,7 +76,9 @@ def test_solvers_beside_the_registry_match_reference():
     with native.force_python():
         want_kl = J.kernighan_lin(n, edges, costs, init_labels=np.arange(n), max_outer=3)
         want_moves = J.greedy_node_moves(n, edges, costs, init_labels=np.zeros(n, np.int64), max_passes=3)
-    np.testing.assert_array_equal(P.kernighan_lin(n, edges, costs, init_labels=np.arange(n), max_outer=3), want_kl)
+    with pnative.force_python():
+        got_kl = P.kernighan_lin(n, edges, costs, init_labels=np.arange(n), max_outer=3)
+    np.testing.assert_array_equal(got_kl, want_kl)
     np.testing.assert_array_equal(
         P.greedy_node_moves(n, edges, costs, init_labels=np.zeros(n, np.int64), max_passes=3), want_moves)
     lab = np.random.default_rng(0).integers(0, 9, n)
@@ -120,12 +125,13 @@ def test_kl_checkpoint_kill_and_resume(tmp_path):
     with native.force_python():
         want = J.kernighan_lin(n, e, c, checkpoint=J.SolverCheckpoint(str(tmp_path / "ref.npz"), e, c))
     path = str(tmp_path / "kl.ckpt.npz")
-    with pytest.raises(_KillAfter):
-        P.kernighan_lin(n, e, c, checkpoint=_KillingCheckpoint(P.SolverCheckpoint(path, e, c), die_after=2))
-    resume = P.SolverCheckpoint(path, e, c)
-    st = resume.load()
-    assert st is not None and st[1] >= 1, "no persisted sweep to resume from"
-    np.testing.assert_array_equal(P.kernighan_lin(n, e, c, checkpoint=resume), want)
+    with pnative.force_python():
+        with pytest.raises(_KillAfter):
+            P.kernighan_lin(n, e, c, checkpoint=_KillingCheckpoint(P.SolverCheckpoint(path, e, c), die_after=2))
+        resume = P.SolverCheckpoint(path, e, c)
+        st = resume.load()
+        assert st is not None and st[1] >= 1, "no persisted sweep to resume from"
+        np.testing.assert_array_equal(P.kernighan_lin(n, e, c, checkpoint=resume), want)
     resume.clear()
     assert resume.load() is None
     # a checkpoint of another problem does not seed a resume

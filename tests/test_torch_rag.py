@@ -5,15 +5,19 @@ Mirrors ``tests/test_rag.py``: seeded label blocks (numpy) go through both
 packages; ``uv``, ``sizes``, ``nodes``, counts, min and max must be equal,
 the mean within rtol 1e-5 a block and 1e-4 after the merge, the variance
 within rtol 1e-2, and the fused costs within rtol 1e-3, atol 1e-4 -- the
-reference tests' own tolerances.  The reference's feature merge runs its
-Python path (``native.force_python``), the only one the port carries.
+reference tests' own tolerances.  Both feature merges run their Python
+paths (each package's ``native.force_python``); the host C++ merges are
+held against each other in ``tests/test_torch_native.py``.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
 import torch
 
 import cluster_tools_tpu.native as native
+import cluster_tools_tpu_torch.native as pnative
 import cluster_tools_tpu.ops.rag as J
 import cluster_tools_tpu_torch.ops.rag as P
 
@@ -186,14 +190,16 @@ def test_blockwise_merge_matches_reference(large):
     uv_j, sz_j = J.merge_edge_lists(parts["jax"][0])
     np.testing.assert_array_equal(uv_p, uv_j)
     np.testing.assert_array_equal(sz_p, sz_j)
-    f_p = P.merge_feature_lists(uv_p, parts["port"][1])
+    with pnative.force_python():
+        f_p = P.merge_feature_lists(uv_p, parts["port"][1])
+        f_p_ref_parts = P.merge_feature_lists(uv_j, parts["jax"][1])
     with native.force_python():
         f_j = J.merge_feature_lists(uv_j, parts["jax"][1])
     np.testing.assert_array_equal(f_p[:, 1:4], f_j[:, 1:4])
     np.testing.assert_allclose(f_p[:, 0], f_j[:, 0], rtol=1e-4)
     np.testing.assert_allclose(f_p[:, 4], f_j[:, 4], rtol=1e-2, atol=1e-6)
     # and the same merge of the reference's own parts is the reference's
-    np.testing.assert_array_equal(P.merge_feature_lists(uv_j, parts["jax"][1]), f_j)
+    np.testing.assert_array_equal(f_p_ref_parts, f_j)
 
 
 def test_merge_variance_large_mean():
@@ -215,10 +221,17 @@ def test_merge_variance_large_mean():
 
 def test_merge_feature_lists_refuses_duplicates_and_old_formats():
     uv = np.array([[1, 2], [3, 4]], np.uint64)
-    with pytest.raises(ValueError, match="duplicate"):
+    # the Python path's vectorized update would keep one of two duplicate
+    # rows, so it refuses them; the host C++ rung merges row by row, so a
+    # part with a duplicate row is the two rows' parts merged in turn
+    with pnative.force_python(), pytest.raises(ValueError, match="duplicate"):
         P.merge_feature_lists(uv, [(uv[[0, 0]], np.ones((2, 5), np.float32))])
-    with pytest.raises(ValueError, match="expected"):
-        P.merge_feature_lists(uv, [(uv, np.ones((2, 4), np.float32))])
+    f = np.array([[0.2, 0.1, 0.3, 2, 0.01], [0.6, 0.5, 0.9, 3, 0.02]], np.float32)
+    np.testing.assert_array_equal(P.merge_feature_lists(uv, [(uv[[0, 0]], f)]),
+                                  P.merge_feature_lists(uv, [(uv[[0]], f[:1]), (uv[[0]], f[1:])]))
+    for force in (pnative.force_python, contextlib.nullcontext):
+        with force(), pytest.raises(ValueError, match="expected"):
+            P.merge_feature_lists(uv, [(uv, np.ones((2, 4), np.float32))])
 
 
 @pytest.mark.parametrize("high", [2**20, 2**40])

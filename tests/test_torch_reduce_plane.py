@@ -15,8 +15,8 @@ CPU, against the JAX package.
 - ``_wait_npz``'s three cases, and the two worker-group cases (two
   processes over gloo on the CPU), equal to the reference's packet plane.
 
-The contraction ``impl`` is pinned to ``numpy`` on the reference side
-(``native.force_python()``)."""
+The contraction ``impl`` is pinned to ``numpy`` on both sides (each
+package's ``native.force_python()``)."""
 
 import json
 import subprocess
@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import cluster_tools_tpu.native as native
+import cluster_tools_tpu_torch.native as pnative
 from cluster_tools_tpu.ops.contraction import lane_frontier_rounds as j_lane
 from cluster_tools_tpu.parallel import reduce_tree as jrt
 from cluster_tools_tpu.utils.synthetic import grid_rag
@@ -42,7 +43,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture(autouse=True)
 def _python_reference():
-    with native.force_python():
+    with native.force_python(), pnative.force_python():
         yield
 
 

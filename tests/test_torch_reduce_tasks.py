@@ -9,8 +9,9 @@ As in that file, the port is fed the reference's ``graph/costs.npy``
 (multicut) or ``graph/features.npy`` (agglomeration), so the solves see the
 same float inputs; the assignment tables, the written segmentations, the
 solver manifests' tree blocks and the reduce-tree counters in
-``io_metrics.json`` must then be equal.  The reference runs its Python
-solver paths (``native.force_python``); the watershed modes are pinned.
+``io_metrics.json`` must then be equal.  Both packages run their
+Python solver paths (each one's ``native.force_python``); the watershed
+modes are pinned.
 """
 
 import json
@@ -23,6 +24,7 @@ import scipy.ndimage as ndi
 import torch
 
 import cluster_tools_tpu.native as native
+import cluster_tools_tpu_torch.native as pnative
 from cluster_tools_tpu.runtime.task import build as j_build
 from cluster_tools_tpu.tasks.watershed import WatershedWorkflow as JWS
 from cluster_tools_tpu.utils.volume_utils import file_reader as j_reader
@@ -131,7 +133,8 @@ def run(root, side, kind, case, feed=None):
         with native.force_python():
             assert s["build"]([wf]), tag
     else:
-        assert s["build"]([wf]), tag
+        with pnative.force_python():
+            assert s["build"]([wf]), tag
     return d
 
 

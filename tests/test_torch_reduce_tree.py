@@ -5,7 +5,7 @@ frontier contraction, the in-process sharded solve in max and min mode
 across pool widths, the degenerate single shard, the degrade ladder through
 a raising partition thunk, the counters), each on the same numpy inputs
 through both packages, with the contraction ``impl`` pinned to ``numpy`` on
-both sides (the reference under ``native.force_python()``).  Labels and
+both sides (each package under its ``native.force_python()``).  Labels and
 integer counters are compared bit for bit; the only tolerance is the
 reference's own 0.1% energy gap to the single-host solve."""
 
@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 import cluster_tools_tpu.native as native
+import cluster_tools_tpu_torch.native as pnative
 from cluster_tools_tpu.ops.contraction import gaec_parallel as j_gaec_parallel
 from cluster_tools_tpu.parallel import reduce_tree as jrt
 from cluster_tools_tpu.utils.synthetic import grid_rag
@@ -30,7 +31,7 @@ COUNTERS = ("sharded_solves", "unsharded_fallbacks", "solve_shards", "solve_leve
 
 @pytest.fixture(autouse=True)
 def _python_reference():
-    with native.force_python():
+    with native.force_python(), pnative.force_python():
         yield
 
 

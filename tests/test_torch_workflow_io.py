@@ -24,6 +24,7 @@ import scipy.ndimage as ndi
 import torch
 
 import cluster_tools_tpu.native as native
+import cluster_tools_tpu_torch.native as pnative
 from cluster_tools_tpu.runtime.task import build as j_build
 from cluster_tools_tpu.tasks.connected_components import ConnectedComponentsWorkflow as JCC
 from cluster_tools_tpu.tasks.watershed import WatershedWorkflow as JWS
@@ -93,7 +94,7 @@ def _run(root, kind, side, fmt="zarr", cache_on=True):
         return d, tag, path
     cls = {"ws": PWS, "ws2": PWS, "cc": PCC, "mc": pwf.MulticutSegmentationWorkflow}[kind]
     chunk_cache.configure()
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, pnative.force_python():
         mp.setenv("CTT_CHUNK_CACHE", "1" if cache_on else "0")
         assert p_build([_workflow(kind, cls, d, path, tag)]), tag
     return d, tag, path

@@ -17,8 +17,9 @@ reads its own zarr (tensorstore for JAX, the port's numpy zarr).
   segmentation equal the reference's bit for bit.
 - Unfed, the segmentation equals the reference's up to a bijection.
 
-The reference runs its Python solver paths (``native.force_python``);
-the modes of its watershed are pinned.  The agglomerative ``impl`` is
+Both packages run their Python solver paths (each one's
+``native.force_python``), except in the default-workflow case, where both
+run their host C++ rungs; the modes of its watershed are pinned.  The agglomerative ``impl`` is
 pinned in both configs (``numpy`` in the reference, ``torch`` in the port).
 """
 
@@ -32,6 +33,7 @@ import scipy.ndimage as ndi
 import torch
 
 import cluster_tools_tpu.native as native
+import cluster_tools_tpu_torch.native as pnative
 from cluster_tools_tpu.runtime.task import build as j_build
 from cluster_tools_tpu.utils.volume_utils import file_reader as j_reader
 from cluster_tools_tpu.workflows import AgglomerativeClusteringWorkflow as JAC
@@ -103,13 +105,14 @@ def _find(task, cls_name):
     return None
 
 
-def run(root, side, kind, case, feed=None):
+def run(root, side, kind, case, feed=None, native_rung=False):
     """One workflow of ``kind`` ("mc" or "ac") on ``side``; with ``feed`` (a
     tmp_folder of the reference) the port first builds the chain up to the
     solver's input, overwrites that artifact with the reference's, then
-    builds the whole workflow.  Returns the run's directory."""
+    builds the whole workflow.  Each side runs its Python solver paths, or
+    with ``native_rung`` its host C++ rung.  Returns the run's directory."""
     bkey, params, block = CASES[case]
-    tag = f"{kind}-{case}-{side}" + ("-fed" if feed else "")
+    tag = f"{kind}-{case}-{side}" + ("-fed" if feed else "") + ("-native" if native_rung else "")
     d = os.path.join(root, tag)
     os.makedirs(os.path.join(d, "cfg"))
     with open(os.path.join(d, "cfg", "global.config"), "w") as f:
@@ -127,11 +130,14 @@ def run(root, side, kind, case, feed=None):
             ("features.npy", "EdgeFeaturesWorkflow")
         assert s["build"]([_find(wf, producer)])
         shutil.copy(os.path.join(feed, "tmp", "graph", artifact), os.path.join(d, "tmp", "graph", artifact))
-    if side == "jax":
+    if native_rung:
+        assert s["build"]([wf]), tag
+    elif side == "jax":
         with native.force_python():
             assert s["build"]([wf]), tag
     else:
-        assert s["build"]([wf]), tag
+        with pnative.force_python():
+            assert s["build"]([wf]), tag
     return d
 
 
@@ -189,6 +195,24 @@ def test_multicut_fed_the_reference_costs_is_bit_equal(root, ref, case):
     seg = _seg(root, "port", dp)
     np.testing.assert_array_equal(seg, _seg(root, "jax", dj))
     assert seg.dtype == np.uint64 and len(np.unique(seg)) > 1
+
+
+def test_default_workflow_on_the_native_rungs_is_bit_equal(root):
+    """The default workflow (its own watershed, ``gaec_parallel``
+    subproblems, the Kernighan-Lin global solve) with both packages on their
+    host C++ rungs, the port fed the reference's costs: equal assignments
+    and segmentation."""
+    dj = run(root, "jax", "mc", "watershed32", native_rung=True)
+    pnative.reset_counts()
+    dp = run(root, "port", "mc", "watershed32", feed=dj, native_rung=True)
+    assert pnative.COUNTS["kernighan_lin"] >= 1 and pnative.COUNTS["parallel_contract"] >= 1, pnative.COUNTS
+    assert pnative.COUNTS["merge_edge_features"] >= 1 and pnative.COUNTS["union_find"] >= 1, pnative.COUNTS
+    for name in ("keys", "values"):
+        a, b = (np.load(os.path.join(d, "tmp", "multicut", "mc_assignments.npz"))[name] for d in (dj, dp))
+        np.testing.assert_array_equal(b, a)
+    seg = _seg(root, "port", dp)
+    np.testing.assert_array_equal(seg, _seg(root, "jax", dj))
+    assert len(np.unique(seg)) > 1
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
