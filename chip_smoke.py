@@ -100,6 +100,27 @@ Phases, each one line of output, each raising on failure:
     ragged batch, 8 padding lanes) and one ragged sweep run twice through
     the device page pool (the second sends fewer bytes to the card), each
     equal to the per-block file.  The kernel rows gain ``sweep_launches``;
+11a. faults (``phase_faults``; alone with ``--only faults``): faults,
+    traces and integrity on the card (ROADMAP item 11a).  The 512^3
+    single-pass watershed of phase 10 (block 128^3, ``auto``) in turns
+    plain (``CTT_CHECKSUMS=0``), with checksums (the default) and hardened
+    (checksums, ``CTT_TRACE``, ``block_deadline_s``), twice each: the
+    checksum and tracing costs and the trace's top spans; under one
+    ``CTT_FAULTS`` spec (a load hang far past the deadline, a kernel NaN,
+    an ``io_write`` bit flip, a ``dispatch`` OOM): every fault's record and
+    resolution in ``failures.json``, at least one speculative duplicate;
+    from the port's zarr on local disk with checksums on (a sidecar a
+    block) and off (none), on the first 256^3 (cut for time), then an
+    ``io_read`` bit flip healed on read by lineage repair (the block
+    recomputed on the card); each equal to phase 10's labels (the disk
+    arms to their own 256^3 ``memory://`` run) bit for bit, each run
+    launching B1-B4.  Then the U-Net
+    without GroupNorm (bfloat16, halo 24, a 256^3 ROI, cut from 384^3 for time) with
+    ``allow_block_split`` under a full-block ``compute`` OOM: every block
+    split, equal to its unsplit run within 2e-2.  Each arm prints its wall,
+    check and counters (speculated, split, repaired, sidecars written,
+    trace events, dropped events).  The kernel rows gain
+    ``faults_launches`` (by arm);
 12. multicut: BASELINE config 4 (``phase_multicut``): the fused RAG and the
     torch-rung GAEC on the first 256^3 of the main path's watershed labels
     against the numpy oracle; ``MulticutSegmentationWorkflow`` and
@@ -812,6 +833,309 @@ def phase_sweeps(K, mem: str, auto: dict, main_s_per_voxel: float, rows: list, b
     for row in rows:
         row["sweep_launches"] = {t: auto[t]["launches"].get(row["name"], 0) for t in cases}
     log("sweeps", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# the "faults" phase: the watchdog's deadline and the injected load hang
+# (far past it), the blocks each fault targets on the 4 x 4 x 4 grid of
+# 128^3 blocks (Morton batches of 8: block 8 leads the third batch), and
+# the split inference arm's region of interest, halo and OOM gate
+FAULTS_DEADLINE_S = 1.5
+FAULTS_HANG_S = 4.0
+FAULT_BLOCKS = dict(hang=21, nan=42, flip=7, dispatch=8, read_rot=5)
+# the from-disk arm runs on the volume's first DISK_EDGE^3 (cut from 512^3
+# to keep the smoke under 900 s), against its own memory:// run
+DISK_EDGE = 256
+DISPATCH_BATCH = [8, 9, 12, 13, 24, 25, 28, 29]
+# (the U-Net without GroupNorm: its receptive radius is 22 at depth 2; the
+# ROI, cut from 384^3 to 256^3 to keep the smoke under 900 s, keeps every
+# block's halo in the volume, and sub-blocks of 64^3 have at most 112^3
+# outer voxels against the full blocks' 152^3 or more)
+SPLIT = dict(block=(128, 128, 128), roi=((0, 0, 0), (256, 256, 256)), halo=24, min_voxels=2_000_000,
+             model={"name": "unet3d", "norm": None})
+
+
+def fault_run(K, root: str, tag: str, workflow_cls, block, env=None, spec=None, global_config=None,
+              **params) -> dict:
+    """One run of a port workflow on the card under ``env`` (CTT_* names,
+    restored after) and the fault ``spec`` (the injector reset after): wall
+    (ended by a device sync), kernel launches, the sweep summaries, the
+    ``failures.json`` records, the trace's summary and counters, and the
+    ``tmp_folder`` (kept for the caller's checks)."""
+    from cluster_tools_tpu_torch.runtime import faults, trace
+    from cluster_tools_tpu_torch.runtime.task import build as run_dag
+    from cluster_tools_tpu_torch.utils import function_utils as fu
+
+    d = tempfile.mkdtemp(prefix=f"{tag}-", dir=root)
+    os.makedirs(os.path.join(d, "cfg"))
+    with open(os.path.join(d, "cfg", "global.config"), "w") as fh:
+        json.dump(dict({"block_shape": list(block)}, **(global_config or {})), fh)
+    tmp = os.path.join(d, "tmp")
+    env = dict(env or {})
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    trace.reset()
+    faults.configure(spec)
+    try:
+        wf = workflow_cls(tmp_folder=tmp, config_dir=os.path.join(d, "cfg"), max_jobs=8, block_shape=list(block),
+                          **params)
+        K.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = run_dag([wf])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        tstats = trace.stats()
+    finally:
+        faults.reset()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        trace.reset()
+    if not ok:
+        logs = "".join(open(os.path.join(tmp, f)).read()[-3000:] for f in sorted(os.listdir(tmp)) if f.endswith(".log"))
+        raise AssertionError(f"faults {tag}: the workflow failed; task logs:\n{logs}")
+    manifests = [json.load(open(os.path.join(tmp, f))) for f in sorted(os.listdir(tmp)) if f.endswith(".success.json")]
+    doc = fu.read_json_if_valid(fu.failures_path(tmp)) or {"records": []}
+    summary_path = os.path.join(tmp, "trace_summary.json")
+    return dict(wall_s=wall, launches=launches, sweeps=[m["sweep"] for m in manifests if "sweep" in m],
+                records=doc["records"], tmp=tmp, trace_stats=tstats,
+                trace_summary=json.load(open(summary_path)) if os.path.exists(summary_path) else None)
+
+
+def fault_line(tag: str, rec: dict, check: str, sidecars: int, repaired: int = 0) -> None:
+    sw = rec["sweeps"]
+    ts = rec["trace_stats"]
+    log("faults", f"{tag}: wall {rec['wall_s']:.3f} s; {check}; speculated "
+                  f"{sum(x.get('n_speculated', 0) for x in sw)}, split {sum(x.get('n_split', 0) for x in sw)}, "
+                  f"repaired {repaired}, sidecars written {sidecars}, trace events "
+                  f"{ts['spans'] + ts['instants']}, dropped events {ts['dropped']}; launches {rec['launches']}")
+
+
+def require_kernels(tag: str, launches: dict) -> None:
+    missing = [k for k in MAIN_PATH_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"faults {tag}: the run launched no {missing}")
+
+
+def phase_faults(K, vol: torch.Tensor, mem: str, rows: list, block=(128, 128, 128)) -> None:
+    """Faults, traces and integrity on the card (ROADMAP item 11a): the
+    512^3 ``WatershedWorkflow`` of the "blockwise" phase (block 128^3, halo
+    32, ``sweep_mode`` auto: 8 blocks a call, B1-B4 on the card) in four
+    arms, each equal to that phase's labels bit for bit:
+
+    1. plain (``CTT_CHECKSUMS=0``), checksums on (the default), and
+       hardened (checksums, ``CTT_TRACE`` and ``block_deadline_s``): the
+       checksum and tracing costs;
+    2. faults: one spec with a load hang far past the deadline, a kernel
+       NaN, an ``io_write`` bit flip and a ``dispatch`` OOM; every fault
+       attributed in ``failures.json`` with its resolution and at least
+       one speculative duplicate;
+    3. from disk (the first ``DISK_EDGE``^3 of the volume, against its own
+       ``memory://`` run): the watershed from the port's zarr on local disk
+       with checksums on (a sidecar a block) and off (none), then an
+       ``io_read`` bit flip on a stored block that the verifying reader
+       catches and lineage repair heals (the block recomputed on the card);
+    4. split inference: ``InferenceWorkflow`` (the full-width U-Net without
+       GroupNorm, bfloat16, block 128^3, halo 24 over its receptive radius
+       of 22, an ROI of 256^3 whose halos hold data: ``SPLIT``) with
+       ``allow_block_split`` under a full-block ``compute`` OOM, split into
+       sub-blocks and equal to its unsplit run within 2e-2.
+
+    Each arm prints its wall, check and counters; the phase prints the
+    traced arm's top spans.  The kernel rows gain ``faults_launches``."""
+    from cluster_tools_tpu_torch.io.containers import open_container
+    from cluster_tools_tpu_torch.models import UNet3D
+    from cluster_tools_tpu_torch.runtime import faults, repair
+    from cluster_tools_tpu_torch.tasks.inference import InferenceWorkflow, save_checkpoint
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedWorkflow
+    from cluster_tools_tpu_torch.utils.volume_utils import Blocking
+
+    t_phase = time.perf_counter()
+    os.environ["CT_FILL_MODE"], os.environ["CT_TIER_MODE"] = "capacity", "cond"
+    f = open_container(mem)
+    yardstick = f["ws"][...]
+    shape = yardstick.shape
+    blocking = Blocking(shape, block)
+    ws_cfg = dict(halo=[32, 32, 32], threshold=0.45, dt_max_distance=32.0, min_seed_distance=2.0)
+    io = dict(input_path=mem, input_key="boundaries", output_path=mem)
+    arm_launches = {}
+
+    def equal(tag, key, container=f, want=yardstick, what="the blockwise phase's"):
+        got = container[key][...]
+        if not np.array_equal(got, want):
+            raise AssertionError(f"faults {tag}: labels differ from {what} at {int((got != want).sum())} voxels")
+        return f"labels equal {what} bit for bit"
+
+    with tempfile.TemporaryDirectory(prefix="faults-") as root:
+        # ---- 1. the costs of checksums and tracing, in turns ----
+        arms = {"plain": ({"CTT_CHECKSUMS": "0"}, {}),
+                "checksums": ({"CTT_CHECKSUMS": "1"}, {}),
+                "hardened": ({"CTT_CHECKSUMS": "1", "CTT_TRACE": "1"}, {"block_deadline_s": FAULTS_DEADLINE_S})}
+        walls = {tag: [] for tag in arms}
+        for tag in ("plain", "checksums", "hardened", "hardened", "checksums", "plain"):
+            env, gc = arms[tag]
+            rec = fault_run(K, root, f"ws-{tag}", WatershedWorkflow, block, env, global_config=gc,
+                            output_key=f"ws_{tag}", **ws_cfg, **io)
+            require_kernels(tag, rec["launches"])
+            # counted before the check's whole read, which adopts a digest
+            # where a product store has none
+            sidecars = len(f[f"ws_{tag}"].checksum_regions())
+            check = equal(tag, f"ws_{tag}")
+            if rec["records"]:
+                raise AssertionError(f"faults {tag}: a fault-free run left records {rec['records']}")
+            if sidecars != (0 if tag == "plain" else blocking.n_blocks):
+                raise AssertionError(f"faults {tag}: {sidecars} sidecars for 64 blocks")
+            fault_line(tag, rec, check, sidecars)
+            walls[tag].append(rec["wall_s"])
+            arm_launches[tag] = rec["launches"]
+            if tag == "hardened" and len(walls[tag]) == 1:
+                top = sorted(rec["trace_summary"]["sites"].items(), key=lambda kv: -kv[1]["total_s"])[:6]
+                log("faults", "hardened trace top spans: " + "; ".join(
+                    f"{k} n={v['count']} total {v['total_s']:.3f} s p50 {v['p50_ms']:.2f} ms "
+                    f"p99 {v['p99_ms']:.2f} ms" for k, v in top))
+            del f._data[f"ws_{tag}"]
+        mean = {tag: sum(w) / len(w) for tag, w in walls.items()}
+        log("faults", "walls in turns " + ", ".join(f"{t} {w}" for t, w in walls.items()) + f"; checksum cost "
+                      f"{mean['checksums'] - mean['plain']:+.3f} s ({mean['checksums'] / mean['plain'] - 1:+.1%}) "
+                      f"over plain {mean['plain']:.3f} s; tracing and the watchdog "
+                      f"{mean['hardened'] - mean['checksums']:+.3f} s ({mean['hardened'] / mean['checksums'] - 1:+.1%})"
+                      " (means of two)")
+
+        # ---- 2. faults ----
+        spec = {"faults": [
+            {"site": "load", "kind": "hang", "blocks": [FAULT_BLOCKS["hang"]], "seconds": FAULTS_HANG_S,
+             "fail_attempts": 1, "tasks": ["watershed"]},
+            {"site": "kernel", "kind": "nan", "blocks": [FAULT_BLOCKS["nan"]], "tasks": ["watershed"]},
+            {"site": "io_write", "kind": "corrupt", "blocks": [FAULT_BLOCKS["flip"]], "tasks": ["watershed"]},
+            {"site": "dispatch", "kind": "oom", "blocks": [FAULT_BLOCKS["dispatch"]], "tasks": ["watershed"]},
+        ]}
+        rec = fault_run(K, root, "ws-faulted", WatershedWorkflow, block, {"CTT_TRACE": "1"}, spec,
+                        {"block_deadline_s": FAULTS_DEADLINE_S}, output_key="ws_faulted", **ws_cfg, **io)
+        require_kernels("faulted", rec["launches"])
+        check = equal("faulted", "ws_faulted")
+        by_block = {r["block_id"]: r for r in rec["records"] if r.get("block_id") is not None}
+        want = {FAULT_BLOCKS["hang"]: "hung", FAULT_BLOCKS["nan"]: "validate", FAULT_BLOCKS["flip"]: "corrupt"}
+        for b, site in want.items():
+            if b not in by_block or site not in by_block[b]["sites"] or not by_block[b]["resolved"]:
+                raise AssertionError(f"faults faulted: block {b} has no resolved {site!r} record: {by_block.get(b)}")
+        if by_block[FAULT_BLOCKS["flip"]]["sites"] != {"corrupt": 1, "store": 1}:
+            raise AssertionError(f"faults faulted: the flipped block's record {by_block[FAULT_BLOCKS['flip']]}")
+        unsharded = sorted(b for b, r in by_block.items() if r.get("resolution") == "degraded:unsharded")
+        if unsharded != DISPATCH_BATCH or any(by_block[b]["sites"] != {"dispatch": 1, "oom": 1} for b in unsharded):
+            raise AssertionError(f"faults faulted: degraded:unsharded blocks {unsharded}, expected {DISPATCH_BATCH}")
+        if not all(r["resolved"] for r in rec["records"]):
+            raise AssertionError(f"faults faulted: unresolved records {rec['records']}")
+        n_spec = sum(x.get("n_speculated", 0) for x in rec["sweeps"])
+        if n_spec < 1:
+            raise AssertionError("faults faulted: no speculative duplicate ran")
+        fault_line("faulted", rec, check + f"; records: hung block {FAULT_BLOCKS['hang']} "
+                   f"{by_block[FAULT_BLOCKS['hang']]['sites']}, NaN block {FAULT_BLOCKS['nan']} validate, flipped "
+                   f"block {FAULT_BLOCKS['flip']} corrupt+store, batch {DISPATCH_BATCH} degraded:unsharded",
+                   len(f["ws_faulted"].checksum_regions()))
+        arm_launches["faulted"] = rec["launches"]
+        del f._data["ws_faulted"]
+
+        # ---- 3. from disk: sidecars on and off, and read rot healed ----
+        dshape = (DISK_EDGE,) * 3
+        dblocking = Blocking(dshape, block)
+        crop = tuple(slice(0, e) for e in dshape)
+        b_np = np.ascontiguousarray(vol.reshape(shape)[crop].cpu().numpy())
+        f.require_dataset("boundaries_disk", shape=dshape, chunks=block, dtype="float32")[...] = b_np
+        ref_rec = fault_run(K, root, "disk-yardstick", WatershedWorkflow, block, input_path=mem,
+                            input_key="boundaries_disk", output_path=mem, output_key="ws_disk_ref", **ws_cfg)
+        disk_ref = f["ws_disk_ref"][...]
+        disk = os.path.join(root, "faults.zarr")
+        t0 = time.perf_counter()
+        src = open_container(disk).require_dataset("boundaries", shape=dshape, chunks=block, dtype="float32")
+        # a chunk a write, 8 at a time (zlib drops the interpreter lock)
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(lambda i: src.__setitem__(dblocking.get_block(i).bb, b_np[dblocking.get_block(i).bb]),
+                          range(dblocking.n_blocks)))
+        del b_np
+        t_write = time.perf_counter() - t0
+        dio = dict(input_path=disk, input_key="boundaries", output_path=disk)
+        repaired0 = repair.stats()["repaired"]
+        for tag, env in (("disk-checksums", {"CTT_CHECKSUMS": "1"}), ("disk-plain", {"CTT_CHECKSUMS": "0"})):
+            key = tag.replace("-", "_")
+            rec = fault_run(K, root, tag, WatershedWorkflow, block, env, output_key=key, **ws_cfg, **dio)
+            require_kernels(tag, rec["launches"])
+            side_dir = os.path.join(disk, key, ".ctt_checksums")
+            sidecars = len(os.listdir(side_dir)) if os.path.isdir(side_dir) else 0
+            check = equal(tag, key, open_container(disk), disk_ref, f"its {DISK_EDGE}^3 memory:// run "
+                                                                    f"({ref_rec['wall_s']:.3f} s)")
+            if sidecars != (dblocking.n_blocks if tag == "disk-checksums" else 0):
+                raise AssertionError(f"faults {tag}: {sidecars} sidecar files")
+            fault_line(tag, rec, check + (f" (the zarr written in {t_write:.2f} s)" if tag == "disk-checksums" else ""),
+                       sidecars)
+            arm_launches[tag] = rec["launches"]
+            if tag == "disk-checksums":
+                checked = rec
+        # the stored block rots at the read site; the verifying reader
+        # catches it and lineage repair recomputes the block on the card
+        out = open_container(disk)["disk_checksums"]
+        b = dblocking.get_block(FAULT_BLOCKS["read_rot"])
+        faults.configure({"faults": [{"site": "io_read", "kind": "corrupt", "blocks": [b.block_id]}]})
+        K.reset_counts()
+        t0 = time.perf_counter()
+        try:
+            with faults.block_context(b.block_id):
+                healed = out[b.bb]
+        finally:
+            faults.reset()
+        t_heal = time.perf_counter() - t0
+        heal_launches = dict(K.LAUNCHES)
+        if not np.array_equal(healed, disk_ref[b.bb]) or not np.array_equal(out[...], disk_ref):
+            raise AssertionError("faults read-rot: the healed read differs from the memory:// run's labels")
+        repaired = repair.stats()["repaired"] - repaired0
+        from cluster_tools_tpu_torch.utils import function_utils as fu
+
+        recs = [r for r in fu.read_json_if_valid(fu.failures_path(checked["tmp"]))["records"]
+                if r.get("resolution") == "repaired:lineage"]
+        if repaired != 1 or not recs or recs[0]["block_id"] != b.block_id:
+            raise AssertionError(f"faults read-rot: repaired {repaired}, records {recs}")
+        require_kernels("read-rot repair", heal_launches)
+        log("faults", f"read-rot: block {b.block_id}'s stored bytes flipped at the read site, caught by the "
+                      f"verifying reader and healed by lineage repair in {t_heal:.3f} s (the block recomputed "
+                      f"on the card: launches {heal_launches}); repaired {repaired}, record repaired:lineage; the "
+                      "whole file equals its memory:// run")
+        arm_launches["read-rot"] = heal_launches
+        del f._data["ws_disk_ref"], f._data["boundaries_disk"]
+
+        # ---- 4. split inference ----
+        spec_model = {k: v for k, v in SPLIT["model"].items() if k != "name"}
+        model = UNet3D(**spec_model)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        ckpt = os.path.join(root, "unet_nonorm.npz")
+        save_checkpoint(ckpt, model)
+        (lo, hi), sblock = SPLIT["roi"], SPLIT["block"]
+        inf = dict(input_path=mem, input_key="boundaries", output_path=mem, checkpoint_path=ckpt,
+                   model=SPLIT["model"], halo=[SPLIT["halo"]] * 3, normalize_range=[0.0, 1.0],
+                   allow_block_split=True, roi_begin=list(lo), roi_end=list(hi))
+        ref_rec = fault_run(K, root, "unet-unsplit", InferenceWorkflow, sblock, output_key="pred_unsplit", **inf)
+        split_spec = {"faults": [{"site": "compute", "kind": "oom", "min_voxels": SPLIT["min_voxels"],
+                                  "fail_attempts": 10 ** 6, "tasks": ["inference"]}]}
+        rec = fault_run(K, root, "unet-split", InferenceWorkflow, sblock, spec=split_spec, output_key="pred_split",
+                        **inf)
+        roi = (slice(None),) + tuple(slice(a, b) for a, b in zip(lo, hi))
+        a, r = torch.from_numpy(f["pred_split"][roi]).cuda(), torch.from_numpy(f["pred_unsplit"][roi]).cuda()
+        err = float((a - r).abs().max())
+        del a, r
+        n_roi = int(np.prod([(b - a) // s for a, b, s in zip(lo, hi, sblock)]))
+        split_recs = [r for r in rec["records"] if r.get("resolution") == "degraded:split"]
+        if not err <= 2e-2 or len(split_recs) != n_roi or ref_rec["records"]:
+            raise AssertionError(f"faults split: max err {err}, {len(split_recs)} split records of {n_roi} blocks")
+        fault_line("unet-split", rec, f"unsplit wall {ref_rec['wall_s']:.3f} s; {n_roi} blocks split into "
+                   f"sub-blocks (degraded:split, depth {max(r['split_depth'] for r in split_recs)}), equal to the "
+                   f"unsplit run within {err:.3g} (atol 2e-2, bfloat16)", len(f["pred_split"].checksum_regions()))
+        del f._data["pred_split"], f._data["pred_unsplit"]
+    for row in rows:
+        row["faults_launches"] = {arm: n.get(row["name"], 0) for arm, n in arm_launches.items()}
+    log("faults", f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def oracle_graph(ds, shape, block):
@@ -2756,9 +3080,37 @@ def phase_sharded(K, args, rows: list, main_s: float) -> None:
     log("sharded", f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def faults_alone(K, args) -> None:
+    """``--only faults``: the main path's volume, the "blockwise" phase's
+    single-pass watershed of it (the yardstick, one run) and the "faults"
+    phase."""
+    from cluster_tools_tpu_torch.io.containers import open_container
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedWorkflow
+    from cluster_tools_tpu_torch.utils.synthetic import synthetic_boundaries
+
+    os.environ["CT_FILL_MODE"], os.environ["CT_TIER_MODE"] = "capacity", "cond"
+    vol = synthetic_boundaries(MAIN_SHAPE, torch.Generator(device="cuda").manual_seed(args.seed))
+    mem = "memory://blockwise"
+    block = (128, 128, 128)
+    f = open_container(mem)
+    f.require_dataset("boundaries", shape=vol.shape[-3:], chunks=block, dtype="float32")[...] = \
+        vol.reshape(vol.shape[-3:]).cpu().numpy()
+    with tempfile.TemporaryDirectory(prefix="faults-yardstick-") as root:
+        rec = bw_run(K, root, "ws", WatershedWorkflow, block, input_path=mem, input_key="boundaries",
+                     output_path=mem, output_key="ws", halo=[32, 32, 32], threshold=0.45, dt_max_distance=32.0,
+                     min_seed_distance=2.0)
+    log("faults", f"yardstick: the single-pass watershed in {rec['wall_s']:.3f} s, launches {rec['launches']}")
+    rows = [{"name": k} for k in KERNELS]
+    phase_faults(K, vol, mem, rows)
+    log("faults", "launches by arm: " + json.dumps({r["name"]: r["faults_launches"] for r in rows}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=["faults"], default=None,
+                    help="build the kernels and run one phase alone (faults: on its own 512^3 watershed "
+                         "yardstick); prints no kernels or result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2780,12 +3132,18 @@ def main() -> int:
     ) + f"; host library {build.HOST_NAME} (g++) {secs[build.HOST_NAME]:.1f}s, {build.host_library_path().name}; "
         f"wall {time.perf_counter() - t0:.1f}s")
 
+    if args.only == "faults":
+        faults_alone(K, args)
+        log("done", f"{time.perf_counter() - t_start:.1f}s")
+        print(nvidia_smi())
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows, vol, ref, ws_crop, main_s_per_voxel = main_phases(K, args, gen)
     phase_sharded(K, args, rows, main_s_per_voxel * (MAIN_SHAPE[1] + 2 * MAIN_CFG["halo"]) * MAIN_SHAPE[2]
                   * MAIN_SHAPE[3])
     mem, auto = phase_blockwise(K, vol, ref, rows)
     phase_sweeps(K, mem, auto, main_s_per_voxel, rows)
+    phase_faults(K, vol, mem, rows)
     phase_multicut(K, vol, ws_crop, mem, rows,
                    then=lambda mc: (phase_native(K, vol, mem, mc), phase_reduce_tree(K, vol, ref, mem, mc, rows)))
     phase_fusion(K, vol, rows)

@@ -29,8 +29,8 @@ budget subtracts it.
 
 The counters (:data:`STAT_KEYS`) are process-wide; the task runtime
 snapshots them around each task and merges the delta into
-``io_metrics.json``.  The reference's trace instant on a stall fallback
-belongs to the tracing plane (ROADMAP Queue A item 11a) and is not ported.
+``io_metrics.json``; a stall fallback is also a ``chunk_cache.stall_fallback``
+trace instant.
 """
 
 from __future__ import annotations
@@ -231,6 +231,11 @@ class ChunkCache:
         with self._lock:
             self.stats["stall_fallbacks"] += 1
             self.stats["bytes_from_storage"] += int(nbytes)
+        # the wedged storage read shows on the timeline next to the block
+        # whose patience it burned
+        from ..runtime import trace as trace_mod
+
+        trace_mod.instant("chunk_cache.stall_fallback", nbytes=int(nbytes))
 
     @property
     def cached_bytes(self) -> int:

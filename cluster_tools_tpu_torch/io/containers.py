@@ -41,18 +41,32 @@ file is opened; it bypasses the chunk cache, as in the reference, and its
 async calls return futures already resolved.  Without ``h5py`` (the card's
 machine has none) opening such a file raises ``ImportError``.
 ``memory://`` datasets live in a process-wide registry, as in the
-reference.  The reference's fault-injection and checksum hooks and its
-verify-on-read are ROADMAP Queue A item 11a.
+reference.
+
+Data integrity, as in the reference: every stored region gets a CRC32
+digest *sidecar*, one JSON file a region under ``<dataset>/.ctt_checksums/``
+for zarr and N5 (the reference's bytes, so either package verifies the
+other's stores) and in memory for ``memory://`` and handoffs, written
+after the data lands; a write that overlaps a recorded region drops its
+stale digest.  Every read goes through the verifying reader
+(:func:`..io.verified.postread`): a region with a digest is checked, a
+mismatch evicts the cached chunks and asks lineage repair
+(:mod:`..runtime.repair`) to recompute the block, and a product store
+without a sidecar falls under the missing-sidecar policy.  The fault
+injector's ``io_read``/``io_write`` sites (errors, hangs, bit flips and
+sidecar loss) sit in every read and write, the async ones included: they
+fire at issue, and ``read_async``/``write_async`` verify and record on
+``.result()``.  ``CTT_CHECKSUMS=0`` turns the sidecars off.  HDF5 has no
+sidecars (one shared file has no place for them) and no ``verify_region``.
+The label of a ``memory://`` dataset is ``memory://<path>:<key>`` where
+the reference's is ``memory://`` for all of them, so lineage repair keys
+two memory stores apart.
 
 :class:`HandoffDataset` is the in-memory twin of a chunked dataset that
 the task-graph fusion layer (:mod:`..runtime.handoff`) hands from a
-producer task to its consumers.  The port's stores carry no digest
-sidecars (the reference's ``.ctt_checksums/`` and ``io/verified.py`` are
-item 11a), so a handoff's integrity rests on in-memory CRC32 region
-digests: every region write records one, ``verify_region`` checks it, and
-:meth:`HandoffDataset.spill` reads every chunk it wrote back from the
-store and holds it against the CRC32 of the in-memory bytes before it
-releases them.
+producer task to its consumers, with in-memory digests (read site
+``handoff``); its spill writes through the real dataset, which records a
+sidecar a region and is verified back (read site ``spill``).
 """
 
 from __future__ import annotations
@@ -70,6 +84,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 
 from . import chunk_cache as _chunk_cache
+# async completion hooks (verify, record the digest) map the futures
+from .prefetch import _MappedFuture as _WrappedFuture
 
 _ZARR_EXTS = (".zarr", ".zr")
 _N5_EXTS = (".n5",)
@@ -78,6 +94,306 @@ _H5_EXTS = (".h5", ".hdf5", ".hdf")
 _N5_DTYPES = ("uint8", "uint16", "uint32", "uint64", "int8", "int16", "int32", "int64", "float32", "float64")
 # the keys of an N5 dataset's attributes.json that are its metadata
 _N5_META_KEYS = ("dimensions", "blockSize", "dataType", "compression")
+
+
+_faults_mod = None
+
+
+def _faults():
+    global _faults_mod
+    if _faults_mod is None:
+        from ..runtime import faults as _fm
+
+        _faults_mod = _fm
+    return _faults_mod
+
+
+def _inject(site: str, voxels: Optional[int] = None) -> Optional[int]:
+    """The fault injector's ``io_read``/``io_write`` hook: a no-op unless an
+    injector is configured.  The block id comes from the executor's
+    thread-local :func:`~..runtime.faults.block_context` and is returned so
+    an async completion reuses it; ``voxels`` (the write's element count)
+    feeds the ``min_voxels`` gate of resource faults."""
+    fm = _faults()
+    block_id = fm.current_block_id()
+    fm.get_injector().maybe_fail(site, block_id, voxels=voxels)
+    return block_id
+
+
+def _hang(site: str, block_id: Optional[int]) -> None:
+    _faults().get_injector().maybe_hang(site, block_id)
+
+
+def checksums_enabled() -> bool:
+    """Digest sidecars on stored regions (default on); ``CTT_CHECKSUMS=0``
+    turns them off."""
+    return os.environ.get("CTT_CHECKSUMS", "1").lower() not in ("0", "false", "off")
+
+
+class ChunkCorruptionError(RuntimeError):
+    """A stored region's bytes no longer match its digest sidecar."""
+
+    def __init__(self, label: str, region, expected, actual):
+        self.label = label
+        self.region = tuple(region)
+        self.expected = expected
+        self.actual = actual
+        super().__init__(
+            f"chunk corruption in {label} region " + "x".join(f"[{a}:{b}]" for a, b in self.region)
+            + f": stored digest {expected}, read digest {actual}"
+        )
+
+
+def _norm_region(bb, shape) -> Optional[Tuple[Tuple[int, int], ...]]:
+    """``((start, stop), ...)`` of a box of step-1 slices (an Ellipsis
+    allowed), or None for any other index: an integer or fancy index has no
+    region identity to checksum."""
+    if bb is Ellipsis:
+        return tuple((0, int(s)) for s in shape)
+    if isinstance(bb, slice):
+        bb = (bb,)
+    if not isinstance(bb, tuple):
+        return None
+    if any(b is Ellipsis for b in bb):
+        i = next(j for j, b in enumerate(bb) if b is Ellipsis)
+        bb = bb[:i] + (slice(None),) * (len(shape) - len(bb) + 1) + bb[i + 1:]
+    if len(bb) < len(shape):
+        bb = bb + (slice(None),) * (len(shape) - len(bb))
+    if len(bb) != len(shape):
+        return None
+    out = []
+    for sl, n in zip(bb, shape):
+        if not isinstance(sl, slice) or sl.step not in (None, 1):
+            return None
+        start, stop, _ = sl.indices(int(n))
+        out.append((int(start), max(int(start), int(stop))))
+    return tuple(out)
+
+
+def _region_shape(region) -> Tuple[int, ...]:
+    return tuple(b - a for a, b in region)
+
+
+def _regions_overlap(r1, r2) -> bool:
+    return len(r1) == len(r2) and all(a1 < b2 and a2 < b1 for (a1, b1), (a2, b2) in zip(r1, r2))
+
+
+def _crc(arr: np.ndarray) -> int:
+    return zlib.crc32(np.ascontiguousarray(arr).tobytes())
+
+
+class _ChecksumIndex:
+    """Digest sidecars: one JSON file a region under ``<dataset>/.ctt_checksums/``
+    (``r_<a>-<b>_...json``, holding ``algo``, ``crc``, ``dtype`` and ``shape``)
+    or a dict in memory (``dirpath`` None).  The set of on-disk regions is
+    seeded by one ``listdir`` at the first write and kept up to date after,
+    so the overlap scan of a write walks a set, not the directory."""
+
+    def __init__(self, dirpath: Optional[str] = None):
+        self._dir = dirpath
+        self._mem: Optional[Dict] = {} if dirpath is None else None
+        self._fs_keys: Optional[set] = None
+        self._lock = threading.Lock()
+
+    def _known_regions(self) -> set:
+        """The regions with an on-disk sidecar (call under ``_lock``)."""
+        if self._fs_keys is None:
+            keys = set()
+            if self._dir is not None and os.path.isdir(self._dir):
+                for fname in os.listdir(self._dir):
+                    r = self._parse(fname)
+                    if r is not None:
+                        keys.add(r)
+            self._fs_keys = keys
+        return self._fs_keys
+
+    @staticmethod
+    def _key(region) -> str:
+        return "r_" + "_".join(f"{a}-{b}" for a, b in region)
+
+    @staticmethod
+    def _parse(name: str):
+        if not (name.startswith("r_") and name.endswith(".json")):
+            return None
+        try:
+            return tuple((int(p.split("-")[0]), int(p.split("-")[1])) for p in name[2:-len(".json")].split("_"))
+        except (ValueError, IndexError):
+            return None
+
+    def record(self, region, value: np.ndarray) -> None:
+        entry = {"algo": "crc32", "crc": _crc(value), "dtype": value.dtype.str, "shape": list(value.shape)}
+        self.invalidate_overlaps(region)
+        if self._mem is not None:
+            with self._lock:
+                self._mem[region] = entry
+            return
+        os.makedirs(self._dir, exist_ok=True)
+        path = os.path.join(self._dir, self._key(region) + ".json")
+        tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+        with open(tmp, "w") as f:
+            json.dump(entry, f)
+        os.replace(tmp, path)
+        with self._lock:
+            self._known_regions().add(region)
+
+    def lookup(self, region) -> Optional[Dict]:
+        if self._mem is not None:
+            with self._lock:
+                return self._mem.get(region)
+        try:
+            with open(os.path.join(self._dir, self._key(region) + ".json")) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    def invalidate_overlaps(self, region) -> None:
+        """Drop the digests of regions that ``region`` overlaps: a partial
+        overwrite makes them stale."""
+        if self._mem is not None:
+            with self._lock:
+                for r in [r for r in self._mem if _regions_overlap(r, region)]:
+                    del self._mem[r]
+            return
+        with self._lock:
+            known = self._known_regions()
+            hits = [r for r in known if _regions_overlap(r, region)]
+            for r in hits:
+                known.discard(r)
+        for r in hits:
+            try:
+                os.unlink(os.path.join(self._dir, self._key(r) + ".json"))
+            except OSError:
+                pass
+
+    def drop(self, region) -> None:
+        """Delete one region's sidecar (the injected sidecar loss)."""
+        if self._mem is not None:
+            with self._lock:
+                self._mem.pop(region, None)
+            return
+        with self._lock:
+            self._known_regions().discard(region)
+        try:
+            os.unlink(os.path.join(self._dir, self._key(region) + ".json"))
+        except OSError:
+            pass
+
+    def regions(self) -> list:
+        """Every region with a sidecar; on disk, from the directory, so
+        sidecars other handles wrote count."""
+        if self._mem is not None:
+            with self._lock:
+                return list(self._mem)
+        out = []
+        if self._dir is not None and os.path.isdir(self._dir):
+            for fname in os.listdir(self._dir):
+                r = self._parse(fname)
+                if r is not None:
+                    out.append(r)
+        return out
+
+
+def _flip_first_byte(value) -> np.ndarray:
+    bad = np.ascontiguousarray(value).copy()
+    if bad.size and bad.dtype.itemsize:
+        bad.reshape(-1).view(np.uint8)[0] ^= 0x01
+    return bad
+
+
+class _ChecksumOps:
+    """The digest behaviour of a dataset: subclasses give ``_read_back(bb)``
+    (a raw read past cache and hooks), ``_write_raw(bb, value)`` (a raw
+    write, no sidecar), ``shape``, ``_checksums`` and ``_label``."""
+
+    #: the read site of typed ``corrupt:<site>`` errors (io/verified.py):
+    #: "storage", "memory", "handoff", or "spill" for a handoff's spilled copy
+    _read_site = "storage"
+
+    def _after_write(self, bb, value: np.ndarray, block_id) -> None:
+        """Record the region's digest, then any injected silent corruption:
+        a flipped stored byte, or (``mode='sidecar'``) the fresh sidecar
+        deleted."""
+        region = _norm_region(bb, self.shape)
+        if region is not None and checksums_enabled():
+            if value.shape == _region_shape(region):
+                self._checksums.record(region, value)
+            else:
+                # a broadcast fill has no digest, but any earlier one is stale
+                self._checksums.invalidate_overlaps(region)
+        elif region is None:
+            # an integer or fancy index records no digest either; the
+            # digests its box overlaps (all of them, for a fancy index) are
+            # stale.  The reference keeps them; the port drops them, so a
+            # later whole-region read does not raise a false corruption
+            try:
+                box, _ = _region(bb, self.shape)
+            except (IndexError, TypeError, ValueError):
+                box = tuple((0, int(n)) for n in self.shape)
+            self._checksums.invalidate_overlaps(box)
+        mode = _faults().get_injector().chunk_corrupt("io_write", block_id)
+        if mode == "sidecar":
+            if region is not None:
+                self._checksums.drop(region)
+        elif mode:
+            self._write_raw(bb, _flip_first_byte(value))
+
+    def _apply_read_rot(self, bb, block_id) -> None:
+        """Injected at-rest damage at the read site: one stored byte of the
+        region flipped (sidecar untouched), or its sidecar deleted."""
+        mode = _faults().get_injector().chunk_corrupt("io_read", block_id)
+        if not mode:
+            return
+        region = _norm_region(bb, self.shape)
+        if region is None:
+            return
+        if mode == "sidecar":
+            self._checksums.drop(region)
+            return
+        raw = np.asarray(self._read_back(bb))
+        if raw.size and raw.dtype.itemsize:
+            # _write_raw evicts the cached chunks: the rot lives on storage
+            self._write_raw(bb, _flip_first_byte(raw))
+
+    def _postread(self, bb, arr: np.ndarray, evict=None) -> np.ndarray:
+        """The verifying reader's tail of every read (:func:`..io.verified.postread`)."""
+        from . import verified as _verified
+
+        return _verified.postread(self, bb, arr, evict=evict)
+
+    def _verify_read(self, bb, arr: np.ndarray) -> None:
+        if not checksums_enabled():
+            return
+        region = _norm_region(bb, self.shape)
+        if region is None:
+            return
+        entry = self._checksums.lookup(region)
+        if entry is None:
+            return
+        if list(entry.get("shape", [])) != list(arr.shape) or entry.get("dtype") != arr.dtype.str:
+            return  # a stale sidecar (shape or dtype drifted) verifies nothing
+        actual = _crc(arr)
+        if actual != entry.get("crc"):
+            raise ChunkCorruptionError(self._label, region, entry.get("crc"), actual)
+
+    def verify_region(self, bb) -> None:
+        """Read a stored region back past the cache and check it against its
+        sidecar; raises :class:`ChunkCorruptionError` on a mismatch, no-op
+        without a sidecar."""
+        if not checksums_enabled():
+            return
+        region = _norm_region(bb, self.shape)
+        if region is None or self._checksums.lookup(region) is None:
+            return
+        self._verify_read(bb, np.asarray(self._read_back(bb)))
+
+    def checksum_regions(self) -> list:
+        """Every region with a digest sidecar."""
+        return self._checksums.regions()
+
+    def checksum_entry(self, bb) -> Optional[Dict]:
+        """The sidecar entry of ``bb``'s exact region, or None."""
+        region = _norm_region(bb, self.shape)
+        return None if region is None else self._checksums.lookup(region)
 
 
 def _clamp_chunks(chunks, shape):
@@ -216,14 +532,17 @@ class _CachedReadPlan:
         self.steps = steps
 
 
-class _ChunkedDataset:
+class _ChunkedDataset(_ChecksumOps):
     """A chunked array on the local filesystem with numpy ``__getitem__`` /
     ``__setitem__`` over basic indices, reads assembled through the chunk
-    cache.  Subclasses read and write one chunk, clipped to the volume
-    (:meth:`_load_chunk`, :meth:`_store_chunk`)."""
+    cache, digest sidecars under ``<path>/.ctt_checksums/``.  Subclasses
+    read and write one chunk, clipped to the volume (:meth:`_load_chunk`,
+    :meth:`_store_chunk`)."""
 
-    def __init__(self, path: str, shape, chunks, dtype, fill_value, attrs_path: str):
+    def __init__(self, path: str, shape, chunks, dtype, fill_value, attrs_path: str, label: str = ""):
         self.path = path
+        self._checksums = _ChecksumIndex(os.path.join(path, ".ctt_checksums"))
+        self._label = label or path
         self.shape = tuple(int(s) for s in shape)
         self.chunks = tuple(int(c) for c in chunks)
         self.dtype = np.dtype(dtype)
@@ -319,36 +638,55 @@ class _ChunkedDataset:
         array from hits, owned chunks and the waits.  A wait that outlives
         :func:`~.chunk_cache.stall_wait_s` reads its chunk from storage
         itself.  After the first failed chunk the remaining waits are
-        skipped and that error is raised."""
+        skipped and that error is raised.  One ``chunk_cache.assemble`` span
+        a read (its hit/miss/wait composition in the args while tracing),
+        a ``chunk_cache.wait`` span around each wait on another reader."""
+        from ..runtime import trace as trace_mod
+
         cache = _chunk_cache.get_chunk_cache()
-        for key, _box, kind, token in plan.steps:
-            if kind == cache.OWNER:
-                try:
-                    value = self._chunk_or_fill(key[1])
-                except BaseException as e:
-                    cache.fail(key, token, e)
+        if trace_mod.enabled():
+            n_hits = sum(1 for step in plan.steps if step[2] == cache.HIT)
+            n_waits = sum(1 for step in plan.steps if step[2] == cache.WAIT)
+            assemble_span = trace_mod.span("chunk_cache.assemble", n_chunks=len(plan.steps), hits=n_hits,
+                                           misses=len(plan.steps) - n_hits - n_waits, waits=n_waits)
+        else:
+            assemble_span = trace_mod.span("chunk_cache.assemble")
+        with assemble_span:
+            for key, _box, kind, token in plan.steps:
+                if kind == cache.OWNER:
+                    try:
+                        value = self._chunk_or_fill(key[1])
+                    except BaseException as e:
+                        cache.fail(key, token, e)
+                    else:
+                        cache.complete(key, token, value)
+            patience = _chunk_cache.stall_wait_s()
+            region = plan.region
+            out = np.empty(tuple(hi - lo for lo, hi in region), self.dtype)
+            for key, box, kind, handle in plan.steps:
+                if kind == cache.HIT:
+                    chunk = handle
                 else:
-                    cache.complete(key, token, value)
-        patience = _chunk_cache.stall_wait_s()
-        region = plan.region
-        out = np.empty(tuple(hi - lo for lo, hi in region), self.dtype)
-        for key, box, kind, handle in plan.steps:
-            if kind == cache.HIT:
-                chunk = handle
-            else:
-                try:
-                    chunk = cache.wait(handle, timeout=patience)
-                except _chunk_cache.ChunkWaitTimeout:
-                    chunk = self._chunk_or_fill(key[1])
-                    cache.record_stall_fallback(chunk.nbytes)
-            src, dst = [], []
-            for (ra, rb), (ca, cb) in zip(region, box):
-                lo, hi = max(ra, ca), min(rb, cb)
-                src.append(slice(lo - ca, hi - ca))
-                dst.append(slice(lo - ra, hi - ra))
-            out[tuple(dst)] = chunk[tuple(src)]
+                    try:
+                        if kind == cache.WAIT:
+                            with trace_mod.span("chunk_cache.wait"):
+                                chunk = cache.wait(handle, timeout=patience)
+                        else:
+                            chunk = cache.wait(handle, timeout=patience)
+                    except _chunk_cache.ChunkWaitTimeout:
+                        chunk = self._chunk_or_fill(key[1])
+                        cache.record_stall_fallback(chunk.nbytes)
+                src, dst = [], []
+                for (ra, rb), (ca, cb) in zip(region, box):
+                    lo, hi = max(ra, ca), min(rb, cb)
+                    src.append(slice(lo - ca, hi - ca))
+                    dst.append(slice(lo - ra, hi - ra))
+                out[tuple(dst)] = chunk[tuple(src)]
         cache.record_served(out.nbytes)
         return out
+
+    def _evict_plan(self, plan: _CachedReadPlan) -> None:
+        _chunk_cache.get_chunk_cache().invalidate([key for key, _b, _k, _h in plan.steps])
 
     def _invalidate_cached_region(self, region) -> None:
         """Evict every cached chunk ``region`` overlaps and doom their
@@ -356,7 +694,15 @@ class _ChunkedDataset:
         it was off must not outlive a write."""
         _chunk_cache.get_chunk_cache().invalidate([key for key, _box in self._chunk_cover(region)])
 
-    def __getitem__(self, bb) -> np.ndarray:
+    def _read_back(self, bb) -> np.ndarray:
+        """``bb`` from storage past the cache: what ``verify_region`` and
+        lineage repair must check."""
+        region, squeeze = _region(bb, self.shape)
+        out = self._read_direct(region)
+        return out.squeeze(axis=squeeze) if squeeze else out
+
+    def _read(self, bb):
+        """``(array, cache plan or None)`` of ``bb``, no hooks."""
         region, squeeze = _region(bb, self.shape)
         plan = self._begin_cached_read(bb)
         if plan is None:
@@ -364,14 +710,34 @@ class _ChunkedDataset:
             _chunk_cache.get_chunk_cache().record_direct(out.nbytes)
         else:
             out = self._finish_cached_read(plan)
-        return out.squeeze(axis=squeeze) if squeeze else out
+        return (out.squeeze(axis=squeeze) if squeeze else out), plan
 
-    def read_async(self, bb) -> Future:
-        """A future of ``self[bb]``, read on the I/O pool."""
-        return _submit(self.__getitem__, bb)
+    def _verified(self, bb, read) -> np.ndarray:
+        out, plan = read
+        # a failed digest check must not leave the bad chunks resident
+        return self._postread(bb, out, evict=None if plan is None else (lambda: self._evict_plan(plan)))
+
+    def __getitem__(self, bb) -> np.ndarray:
+        bid = _inject("io_read")
+        _hang("io_read", bid)
+        self._apply_read_rot(bb, bid)
+        return self._verified(bb, self._read(bb))
+
+    def read_async(self, bb):
+        """A future of ``self[bb]``: the fault hooks fire here, the read runs
+        on the I/O pool, and ``.result()`` verifies it."""
+        bid = _inject("io_read")
+        self._apply_read_rot(bb, bid)
+
+        def finish(read):
+            _hang("io_read", bid)
+            return self._verified(bb, read)
+
+        return _WrappedFuture(_submit(self._read, bb), finish)
 
     # -- writes ------------------------------------------------------------
-    def __setitem__(self, bb, value) -> None:
+    def _write_raw(self, bb, value) -> None:
+        """Write ``value`` to the chunks of ``bb``: no hooks, no sidecar."""
         region, squeeze = _region(bb, self.shape)
         shape = tuple(hi - lo for lo, hi in region)
         kept = tuple(s for ax, s in enumerate(shape) if ax not in squeeze)
@@ -392,10 +758,25 @@ class _ChunkedDataset:
             # landed before the error
             self._invalidate_cached_region(region)
 
-    def write_async(self, bb, value) -> Future:
-        """A future of ``self[bb] = value``, written on the I/O pool from a
-        copy of ``value``."""
-        return _submit(self.__setitem__, bb, np.array(value, dtype=self.dtype))
+    def __setitem__(self, bb, value) -> None:
+        bid = _inject("io_write", voxels=getattr(value, "size", None))
+        _hang("io_write", bid)
+        value = np.asarray(value, dtype=self.dtype)
+        self._write_raw(bb, value)
+        self._after_write(bb, value, bid)
+
+    def write_async(self, bb, value):
+        """A future of ``self[bb] = value``: the fault hook fires here, the
+        write runs on the I/O pool from a copy of ``value``, and
+        ``.result()`` records the region's sidecar."""
+        bid = _inject("io_write", voxels=getattr(value, "size", None))
+        value = np.array(value, dtype=self.dtype)
+
+        def finish(_):
+            _hang("io_write", bid)
+            self._after_write(bb, value, bid)
+
+        return _WrappedFuture(_submit(self._write_raw, bb, value), finish)
 
     # -- attributes --------------------------------------------------------
     @property
@@ -414,11 +795,11 @@ class _ChunkedDataset:
 class ZarrDataset(_ChunkedDataset):
     """One zarr v2 array on the local filesystem."""
 
-    def __init__(self, path: str, meta: dict):
+    def __init__(self, path: str, meta: dict, label: str = ""):
         disk_dtype = np.dtype(meta["dtype"])
         dtype = disk_dtype.newbyteorder("=")
         super().__init__(path, meta["shape"], meta["chunks"], dtype, _fill_from_json(meta.get("fill_value"), dtype),
-                         os.path.join(path, ".zattrs"))
+                         os.path.join(path, ".zattrs"), label)
         self._disk_dtype = disk_dtype
         self._order = meta.get("order", "C")
         if self._order not in ("C", "F"):
@@ -468,12 +849,12 @@ class N5Dataset(_ChunkedDataset):
     """One N5 dataset on the local filesystem, presented in C order (the
     stored axis order reversed)."""
 
-    def __init__(self, path: str, attrs: dict):
+    def __init__(self, path: str, attrs: dict, label: str = ""):
         if attrs.get("dataType") not in _N5_DTYPES:
             raise NotImplementedError(f"{path}: N5 dataType {attrs.get('dataType')!r}")
         dtype = np.dtype(attrs["dataType"])
         super().__init__(path, attrs["dimensions"][::-1], attrs["blockSize"][::-1], dtype, dtype.type(0),
-                         os.path.join(path, "attributes.json"))
+                         os.path.join(path, "attributes.json"), label)
         self._disk_dtype = dtype.newbyteorder(">")
         comp = attrs.get("compression") or {"type": "raw"}
         kind = comp.get("type")
@@ -551,8 +932,9 @@ class ZarrContainer:
         return os.path.join(self.path, key, "attributes.json" if self.is_n5 else ".zarray")
 
     def _open(self, key: str, meta: dict) -> _ChunkedDataset:
-        path = os.path.join(self.path, key)
-        return N5Dataset(path, meta) if self.is_n5 else ZarrDataset(path, meta)
+        # the reference's label: the container's path and the key
+        path, label = os.path.join(self.path, key), f"{self.path}:{key}"
+        return N5Dataset(path, meta, label) if self.is_n5 else ZarrDataset(path, meta, label)
 
     def create_dataset(self, key: str, shape: Sequence[int], chunks: Sequence[int], dtype,
                        compression: Optional[str] = "gzip", exist_ok: bool = True,
@@ -644,7 +1026,8 @@ class ZarrContainer:
 
 class _H5Dataset:
     """An ``h5py`` dataset behind the surface of the chunked datasets; no
-    chunk cache (as in the reference)."""
+    chunk cache and no digest sidecars, so no ``verify_region`` (as in the
+    reference); the fault hooks fire as on every dataset."""
 
     def __init__(self, ds):
         self._ds = ds
@@ -658,16 +1041,20 @@ class _H5Dataset:
         return tuple(self._ds.chunks) if self._ds.chunks else tuple(self._ds.shape)
 
     def __getitem__(self, bb):
+        bid = _inject("io_read")
+        _hang("io_read", bid)
         return self._ds[bb]
 
     def __setitem__(self, bb, value):
+        bid = _inject("io_write", voxels=getattr(value, "size", None))
+        _hang("io_write", bid)
         self._ds[bb] = value
 
     def read_async(self, bb) -> Future:
-        return _resolved(self._ds[bb])
+        return _resolved(self[bb])
 
     def write_async(self, bb, value) -> Future:
-        self._ds[bb] = value
+        self[bb] = value
         return _resolved(None)
 
     @property
@@ -723,22 +1110,47 @@ class H5Container:
         self._f.close()
 
 
-class MemoryDataset:
-    """A ``memory://`` dataset: a numpy array behind the dataset surface."""
+class MemoryDataset(_ChecksumOps):
+    """A ``memory://`` dataset: a numpy array behind the dataset surface,
+    its digests in memory (read site ``memory``)."""
 
-    def __init__(self, arr: np.ndarray, chunks: Tuple[int, ...]):
+    _read_site = "memory"
+
+    def __init__(self, arr: np.ndarray, chunks: Tuple[int, ...], label: str = "memory://"):
         self._arr = arr
         self.chunks = chunks
+        self._checksums = _ChecksumIndex(None)
+        self._label = label
 
     shape = property(lambda self: self._arr.shape)
     dtype = property(lambda self: self._arr.dtype)
     ndim = property(lambda self: self._arr.ndim)
 
-    def __getitem__(self, bb):
+    def _read_back(self, bb):
         return self._arr[bb].copy()
 
+    def _write_raw(self, bb, value):
+        self._arr[bb] = value
+
+    def __getitem__(self, bb):
+        bid = _inject("io_read")
+        _hang("io_read", bid)
+        self._apply_read_rot(bb, bid)
+        return self._postread(bb, self._arr[bb].copy())
+
     def __setitem__(self, bb, value):
-        self._arr[bb] = np.asarray(value, dtype=self._arr.dtype)
+        bid = _inject("io_write", voxels=getattr(value, "size", None))
+        _hang("io_write", bid)
+        value = np.asarray(value, dtype=self._arr.dtype)
+        self._arr[bb] = value
+        self._after_write(bb, value, bid)
+
+    def read_async(self, bb) -> Future:
+        return _resolved(self[bb])
+
+    def write_async(self, bb, value) -> Future:
+        self[bb] = value
+        return _resolved(None)
 
 
 class MemoryContainer:
@@ -767,7 +1179,7 @@ class MemoryContainer:
                 ds = self._data[key]
                 _check_existing(key, ds.shape, ds.dtype, shape, dtype, have_chunks=ds.chunks, want_chunks=chunks)
                 return ds
-            ds = MemoryDataset(np.full(tuple(shape), fill_value, dtype=dtype), tuple(chunks))
+            ds = MemoryDataset(np.full(tuple(shape), fill_value, dtype=dtype), tuple(chunks), f"{self.path}:{key}")
             self._data[key] = ds
             return ds
 
@@ -790,30 +1202,7 @@ class MemoryContainer:
         pass
 
 
-class ChunkCorruptionError(RuntimeError):
-    """A region's bytes no longer match the CRC32 digest taken when they
-    were written (or, for a spill, when they left memory)."""
-
-    def __init__(self, label: str, region, expected, actual):
-        self.label = label
-        self.region = tuple(region)
-        self.expected = expected
-        self.actual = actual
-        super().__init__(
-            f"chunk corruption in {label} region " + "x".join(f"[{a}:{b}]" for a, b in self.region)
-            + f": stored digest {expected}, read digest {actual}"
-        )
-
-
-def _crc(arr: np.ndarray) -> int:
-    return zlib.crc32(np.ascontiguousarray(arr).tobytes())
-
-
-def _regions_overlap(r1, r2) -> bool:
-    return len(r1) == len(r2) and all(a1 < b2 and a2 < b1 for (a1, b1), (a2, b2) in zip(r1, r2))
-
-
-class HandoffDataset:
+class HandoffDataset(_ChecksumOps):
     """A ``memory://``-backed handoff twin of a chunked storage dataset.
 
     Producer tasks write blocks into host RAM through the port's dataset
@@ -821,21 +1210,25 @@ class HandoffDataset:
     returning a copy, ``__setitem__``), and consumers resolve the live
     handle through :mod:`..runtime.handoff` instead of opening the store.
 
-    - **Integrity**: each write of a whole box records the CRC32 of the
-      written bytes for that region (a partial overwrite drops the digests
-      it overlaps); :meth:`verify_region` re-reads a region and checks it.
+    - **Fault hooks**: every read and write carries the ``io_read`` /
+      ``io_write`` injection and hang hooks, as on storage.
+    - **Integrity**: writes record in-memory CRC32 region digests (read site
+      ``handoff``); :meth:`verify_region` and the executor's
+      ``region_verifier`` check them, injected corruption included.
     - **Spill**: :meth:`spill` writes the array chunk by chunk through the
-      real dataset's write path (``store_factory()``), reads every chunk
-      back against the CRC32 of its in-memory bytes, then sends every later
-      access to the stored copy and releases the RAM.  After a spill,
-      storage is the single source of truth.
+      real dataset's write path (``store_factory()``; a sidecar a region),
+      verifies every region back, then sends every later access to the
+      stored copy (read site ``spill``) and releases the RAM.  After a
+      spill, storage is the single source of truth.
     """
+
+    _read_site = "handoff"
 
     def __init__(self, shape, chunks, dtype, store_factory, label: str, fill_value: int = 0):
         shape = tuple(int(s) for s in shape)
         self._arr: Optional[np.ndarray] = np.full(shape, fill_value, dtype=np.dtype(dtype))
         self.chunks = _clamp_chunks(chunks, shape)
-        self._digests: Dict[tuple, int] = {}
+        self._checksums = _ChecksumIndex(None)
         self._lock = threading.Lock()
         self._label = label
         self._store_factory = store_factory
@@ -861,53 +1254,68 @@ class HandoffDataset:
 
     ndim = property(lambda self: len(self.shape))
 
+    def _read_back(self, bb):
+        arr = self._arr
+        return self._spilled_ds._read_back(bb) if arr is None else arr[bb].copy()
+
+    def _write_raw(self, bb, value):
+        arr = self._arr
+        if arr is None:
+            self._spilled_ds._write_raw(bb, value)
+        else:
+            arr[bb] = value
+
     def __getitem__(self, bb):
         arr = self._arr
         if arr is None:
             return self._spilled_ds[bb]
-        return arr[bb].copy()
+        bid = _inject("io_read")
+        _hang("io_read", bid)
+        self._apply_read_rot(bb, bid)
+        return self._postread(bb, arr[bb].copy())
 
     def __setitem__(self, bb, value):
         arr = self._arr
         if arr is None:
             self._spilled_ds[bb] = value
             return
+        bid = _inject("io_write", voxels=getattr(value, "size", None))
+        _hang("io_write", bid)
         value = np.asarray(value, dtype=arr.dtype)
         arr[bb] = value
-        region, squeeze = _region(bb, arr.shape)
-        whole = not squeeze and value.shape == tuple(b - a for a, b in region)
+        self._after_write(bb, value, bid)
         with self._lock:
-            for r in [r for r in self._digests if _regions_overlap(r, region)]:
-                del self._digests[r]
-            if whole:
-                self._digests[region] = _crc(value)
             self.not_stored_bytes += int(value.nbytes)
         from ..runtime import handoff as _handoff
 
         _handoff.get_registry().bump("bytes_not_stored", int(value.nbytes))
 
-    def verify_region(self, bb) -> None:
-        """Check a written region against its digest; raises
-        :class:`ChunkCorruptionError` on a mismatch, no-op where no digest
-        was recorded (or after a spill, whose read-back already checked the
-        stored bytes)."""
+    def read_async(self, bb) -> Future:
         arr = self._arr
         if arr is None:
+            return self._spilled_ds.read_async(bb)
+        return _resolved(self[bb])
+
+    def write_async(self, bb, value) -> Future:
+        arr = self._arr
+        if arr is None:
+            return self._spilled_ds.write_async(bb, value)
+        self[bb] = value
+        return _resolved(None)
+
+    def verify_region(self, bb) -> None:
+        if self._arr is None:
+            verify = getattr(self._spilled_ds, "verify_region", None)
+            if verify is not None:
+                verify(bb)
             return
-        region, _ = _region(bb, arr.shape)
-        with self._lock:
-            want = self._digests.get(region)
-        if want is None:
-            return
-        got = _crc(arr[tuple(slice(a, b) for a, b in region)])
-        if got != want:
-            raise ChunkCorruptionError(self._label, region, want, got)
+        super().verify_region(bb)
 
     def spill(self) -> int:
         """Flush to the storage spill path and delegate from now on.  Every
-        chunk goes through the real dataset's write path and is read back
-        against the CRC32 of its in-memory bytes before the RAM is released.
-        Returns the bytes freed (0 when already spilled or spilling)."""
+        chunk goes through the real dataset's write path (a digest sidecar a
+        region) and is verified back before the RAM is released.  Returns
+        the bytes freed (0 when already spilled or spilling)."""
         with self._lock:
             if self._spill_started:
                 return 0
@@ -915,13 +1323,15 @@ class HandoffDataset:
         try:
             arr = self._arr
             ds = self._store_factory()
+            regions = []
             for begin in itertools.product(*[range(0, s, c) for s, c in zip(arr.shape, self.chunks)]):
                 bb = tuple(slice(b, min(b + c, s)) for b, c, s in zip(begin, self.chunks, arr.shape))
-                want = _crc(arr[bb])
                 ds[bb] = arr[bb]
-                got = _crc(np.asarray(ds[bb], dtype=arr.dtype))
-                if got != want:
-                    raise ChunkCorruptionError(f"{self._label} (spill)", [(s.start, s.stop) for s in bb], want, got)
+                regions.append(bb)
+            verify = getattr(ds, "verify_region", None)
+            if verify is not None:
+                for bb in regions:
+                    verify(bb)
         except BaseException:
             # a half-written flush stays retriable: the next attempt
             # re-writes every region
@@ -929,6 +1339,12 @@ class HandoffDataset:
                 self._spill_started = False
             raise
         freed = int(arr.nbytes)
+        # the spilled copy keeps the handoff's product identity: its reads
+        # carry the "spill" site, and the producer's sidecar policy travels
+        ds._read_site = "spill"
+        pol = getattr(self, "_product_policy", None)
+        if pol is not None:
+            ds._product_policy = pol
         # publish the delegate before dropping the array: concurrent readers
         # hold either the array (still valid bytes) or see the stored copy
         self._spilled_ds = ds

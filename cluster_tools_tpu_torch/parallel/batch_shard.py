@@ -36,6 +36,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..runtime import trace as trace_mod
 from . import device_pool as device_pool_mod
 
 
@@ -309,15 +310,21 @@ def sharded_slab_sweep(
         else:
             device_pool_mod.record_h2d(feed_bytes)
             stack = stack.to(dev)
-        if run is None:
-            halod = exchange_batch_halo(stack, halo, 0, lo_edge=lo, hi_edge=hi, fill=fill)
-            out, _ = batched_sweep(kernel, (halod,))
-        else:
-            out = run(stack, lo.to(dev), hi.to(dev))
-        out = out[: len(idxs)]
-        if not keep_on_device:
-            out = out.cpu().numpy()
-            device_pool_mod.record_d2h(int(out.nbytes))
+        # one span a slab batch; it ends after the copy back (or, with the
+        # result kept on the card and tracing on, after a sync)
+        with trace_mod.span("shard.slab_batch", start=start, n_slabs=len(idxs),
+                            feed="device" if on_device else "host"):
+            if run is None:
+                halod = exchange_batch_halo(stack, halo, 0, lo_edge=lo, hi_edge=hi, fill=fill)
+                out, _ = batched_sweep(kernel, (halod,))
+            else:
+                out = run(stack, lo.to(dev), hi.to(dev))
+            out = out[: len(idxs)]
+            if not keep_on_device:
+                out = out.cpu().numpy()
+                device_pool_mod.record_d2h(int(out.nbytes))
+            elif trace_mod.enabled() and out.device.type == "cuda":
+                torch.cuda.synchronize(out.device)
         outs.append(out)
     if keep_on_device:
         return torch.cat(outs, dim=0)

@@ -315,15 +315,27 @@ class DevicePagePool:
         bump("device_batches_staged")
         return StagedBatch(specs, pools, tables, list(rb.valids), rb.width)
 
-    def stage(self, rb: RaggedBatch, device) -> StagedBatch:
-        """Stage ``rb`` against the resident arenas on ``device``.  On
-        ``torch.OutOfMemoryError``: evict every arena, retry once, then
+    def stage(self, rb: RaggedBatch, device, block_id: Optional[int] = None) -> StagedBatch:
+        """Stage ``rb`` against the resident arenas on ``device``.  On a
+        resource error (``torch.OutOfMemoryError``, or the fault injector's
+        ``h2d`` OOM for ``block_id``): evict every arena, retry once, then
         raise :class:`DevicePoolExhausted`."""
+        from ..runtime import faults as faults_mod
+        from ..runtime.executor import classify_resource_error
+
         device = torch.device(device)
+        injector = faults_mod.get_injector()
         for attempt in (0, 1):
             try:
+                # an injected OOM at page upload: the resident allocation
+                # does not fit
+                injector.maybe_fail("h2d", block_id, voxels=rb.nbytes)
                 return self._stage(rb, device)
-            except torch.OutOfMemoryError as e:
+            except DevicePoolExhausted:
+                raise
+            except Exception as e:
+                if classify_resource_error(e) is None:
+                    raise
                 self.evict_all()
                 if device.type == "cuda":
                     torch.cuda.empty_cache()

@@ -247,12 +247,22 @@ def worker_main() -> None:
 
     import torch.distributed as dist
 
-    initialize(os.environ[_ENV_COORD], int(os.environ[_ENV_NPROC]), int(os.environ[_ENV_PID]),
-               device=os.environ.get(_ENV_DEVICE, "cuda"))
-    mod_name, fn_name = os.environ[_ENV_TARGET].split(":")
+    from ..runtime import trace as trace_mod
+
+    pid = int(os.environ[_ENV_PID])
+    target = os.environ[_ENV_TARGET]
+    initialize(os.environ[_ENV_COORD], int(os.environ[_ENV_NPROC]), pid, device=os.environ.get(_ENV_DEVICE, "cuda"))
+    mod_name, fn_name = target.split(":")
     try:
-        getattr(importlib.import_module(mod_name), fn_name)()
+        # the worker's lifetime span, on when the launcher exported
+        # CTT_TRACE=<dir>; flushed on the failure path too
+        with trace_mod.span("worker.main", worker=pid, target=target):
+            getattr(importlib.import_module(mod_name), fn_name)()
     finally:
+        try:
+            trace_mod.flush()
+        except Exception:
+            pass
         dist.destroy_process_group()
 
 

@@ -37,10 +37,17 @@ degrades to it with a ``degraded:unsharded_solve`` record in
 ``failures.json``.  The collective plane's failures degrade to the packet
 plane first (``degraded:packet_plane``).
 
-Not ported yet: the fault injector's ``solve`` and ``hop`` sites and the
-trace spans and instants (ROADMAP item 11a; a note marks each place), and
-lifted edges through the tree (item 12: the port has no lifted solver, so a
-group with lifted edges raises).
+Faults and traces, as in the reference: a ``solve`` fault at the task
+entry degrades to the unsharded solve (inside a worker, targeted by worker
+id, it SIGKILLs the worker); a ``hop`` fault (at the plane's init, or a
+hang or error at a level) degrades to the packet plane.  Spans:
+``solve.level_solve``/``level_merge``/``group``/``collective_level`` in
+process, ``solve.worker``/``hop_wait`` in a worker and
+``solve.worker_group`` around the group; instants ``degraded:packet_plane``
+and ``degraded:unsharded_solve``.  A traced driver hands its shard
+directory to the workers (``CTT_TRACE``).  Not ported: lifted edges
+through the tree (item 12: the port has no lifted solver, so a group with
+lifted edges raises).
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..runtime import trace as trace_mod
 from ..utils import function_utils as fu
 
 #: env knobs of the worker-group driver (inherited by the workers)
@@ -451,11 +459,12 @@ def _device_lock(device: torch.device) -> threading.Lock:
 def _record_packet_degrade(failures_path: Optional[str], task_name: str, err: BaseException,
                            record: bool = True) -> None:
     """Attribute one collective -> packet degradation: the
-    ``packet_fallbacks`` counter and, when ``record``, a resolved
-    ``failures.json`` record at the ``hop`` site.  ``record`` is False only
-    for ``reduce_plane='auto'`` passing the plane by up front.  (The trace
-    instant ``degraded:packet_plane`` belongs to ROADMAP item 11a.)"""
+    ``packet_fallbacks`` counter, a ``degraded:packet_plane`` trace
+    instant and, when ``record``, a resolved ``failures.json`` record at
+    the ``hop`` site.  ``record`` is False only for ``reduce_plane='auto'``
+    passing the plane by up front."""
     _record_solve_metrics(packet_fallbacks=1)
+    trace_mod.instant("degraded:packet_plane", task=task_name, error=f"{type(err).__name__}: {err}"[:200])
     if not record or not failures_path:
         return
     try:
@@ -492,7 +501,11 @@ class CollectiveReducePlane:
                  device=None, mesh=None, device_pool_bytes: Optional[int] = None):
         if os.environ.get(_ENV_COLLECTIVES_OFF):
             raise ShardedSolveError(f"collectives force-disabled ({_ENV_COLLECTIVES_OFF})")
-        # (the ``hop`` fault site's init rung belongs to ROADMAP item 11a)
+        # the init rung of the ``hop`` fault site: the plane refuses to
+        # wire up
+        from ..runtime import faults as faults_mod
+
+        faults_mod.get_injector().maybe_fail("hop")
         if mode not in ("max", "min"):
             raise ShardedSolveError(f"unsupported mode {mode!r}")
         if int(k) not in (1, 2):
@@ -630,19 +643,24 @@ class CollectiveReducePlane:
     def _dispatch(self, probs: List[tuple], level: int, deadline: float) -> np.ndarray:
         from .device_pool import get_device_pool
 
+        from ..runtime import faults as faults_mod
+
         rb, Wn = self._marshal(probs)
+        injector = faults_mod.get_injector()
         box: Dict[str, object] = {}
         stop = threading.Event()
 
         def run():
             try:
-                # (the ``hop`` fault site's hang and error belong to ROADMAP
-                # item 11a)
+                # hop chaos: a hang is a wedged interconnect the deadline
+                # must notice, an error a failed collective
+                injector.maybe_hang("hop", block_id=level)
+                injector.maybe_fail("hop", block_id=level)
                 pool = get_device_pool(self.device_pool_bytes)
                 # the arenas update in place: hold the pool until the lanes
                 # have been read out of it
                 with pool.lock:
-                    sb = pool.stage(rb, self.mesh.devices[0])
+                    sb = pool.stage(rb, self.mesh.devices[0], block_id=level)
                     tabs = torch.from_numpy(np.concatenate(sb.tables, axis=1).astype(np.int64))
                     labels, rounds = self._program(Wn, stop)(*sb.pools, tabs)
                     box["labels"] = labels.cpu().numpy()
@@ -652,8 +670,11 @@ class CollectiveReducePlane:
                 box["error"] = e
 
         t = threading.Thread(target=run, name=f"collective-hop-l{level}", daemon=True)
-        t.start()
-        t.join(timeout=deadline)
+        # the span ends at the join: the lanes were read back to the host
+        # (a sync) inside the thread
+        with trace_mod.span("solve.collective_level", level=level, groups=len(probs), devices=self.ndev):
+            t.start()
+            t.join(timeout=deadline)
         if t.is_alive():
             # a stranded program cannot be cancelled mid-kernel: it stops at
             # its lanes' next round boundary and releases the device pool
@@ -768,8 +789,8 @@ def sharded_solve(n_nodes: int, edges: np.ndarray, payload: np.ndarray, node_sha
         edges_in = len(state.edges)
         results: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         internal_total = 0
-        # (the level's trace spans belong to ROADMAP item 11a; a clock here)
-        t0 = time.perf_counter()
+        # the level spans are the solve_s/merge_s clocks
+        solve_span = trace_mod.begin("solve.level_solve", level=li, groups=len(groups), edges_in=int(edges_in))
         level_plane = "host"
         if plane is not None:
             try:
@@ -787,8 +808,9 @@ def sharded_solve(n_nodes: int, edges: np.ndarray, payload: np.ndarray, node_sha
                 internal_total = 0
         if level_plane == "host":
 
-            def run_group(gi, _groups=groups):
-                members, labels, n_int = _solve_group(state, _groups[gi], solver)
+            def run_group(gi, _groups=groups, _li=li):
+                with trace_mod.span("solve.group", level=_li, group=gi):
+                    members, labels, n_int = _solve_group(state, _groups[gi], solver)
                 with merge_lock:
                     results[gi] = (members, labels)
                 return n_int
@@ -798,11 +820,11 @@ def sharded_solve(n_nodes: int, edges: np.ndarray, payload: np.ndarray, node_sha
                     internal_total = sum(pool.map(run_group, range(len(groups))))
             else:
                 internal_total = sum(run_group(gi) for gi in range(len(groups)))
-        t_solve = time.perf_counter() - t0
+        t_solve = solve_span.end()
 
-        t0 = time.perf_counter()
+        merge_span = trace_mod.begin("solve.level_merge", level=li)
         _apply_level(state, groups, results)
-        t_merge = time.perf_counter() - t0
+        t_merge = merge_span.end()
         info["levels"].append({
             "level": li,
             "groups": len(groups),
@@ -917,10 +939,16 @@ def reduce_worker_main() -> None:
         traceback.print_exc()
         sys.stderr.flush()
         sys.stdout.flush()
+        try:
+            # a failing worker's shard is the one the post-mortem needs
+            trace_mod.flush()
+        except Exception:
+            pass
         os.kill(os.getpid(), signal_mod.SIGKILL)
 
 
 def _reduce_worker_body() -> None:
+    from ..runtime import faults as faults_mod
     from . import multihost
     from .mesh import SIBLING_AXIS
 
@@ -931,6 +959,9 @@ def _reduce_worker_body() -> None:
     # boot-time pid record: siblings probe it to fail fast on this worker's
     # death (_wait_npz)
     fu.atomic_write_json(_worker_pid_path(scratch, pid), {"os_pid": os.getpid()})
+    # the worker's lifetime span: tracing is on when the driver exported
+    # CTT_TRACE=<its shard directory>
+    worker_span = trace_mod.begin("solve.worker", worker=pid, workers=n_workers)
 
     with open(os.path.join(scratch, "meta.json")) as f:
         meta = json.load(f)
@@ -940,8 +971,15 @@ def _reduce_worker_body() -> None:
         node_shard = f["node_shard"].astype(np.int64)
         ledges = f["lifted_edges"].astype(np.int64) if "lifted_edges" in f.files else None
         lpayload = f["lifted_payload"].astype(np.float64) if "lifted_payload" in f.files else None
-    # (the ``solve`` fault site, a worker lost mid-reduce, belongs to ROADMAP
-    # item 11a)
+    # a ``solve`` fault targeted at this worker id is a host lost
+    # mid-reduce: die like hardware, so the siblings see a lost hop and the
+    # driver degrades
+    try:
+        faults_mod.get_injector().maybe_fail("solve", block_id=pid)
+    except Exception:
+        import signal as signal_mod
+
+        os.kill(os.getpid(), signal_mod.SIGKILL)
 
     n_nodes = int(meta["n_nodes"])
     # the tree-node solves are host work here: the numpy rung, never the card
@@ -981,28 +1019,45 @@ def _reduce_worker_body() -> None:
             # worker failure; the driver retries on the packet plane.
             results, _ = plane.solve_level(state, groups, level=li, deadline_s=hop_deadline)
             _apply_level(state, groups, results)
+            _flush_trace_quietly()
             continue
         for gi in range(len(groups)):
             if _group_owner(li, gi, n_workers) != pid:
                 continue
-            members, labels, n_int = _solve_group(state, groups[gi], solver)
+            with trace_mod.span("solve.group", level=li, group=gi, worker=pid):
+                members, labels, n_int = _solve_group(state, groups[gi], solver)
             _publish_npz(_packet_path(scratch, li, gi), members=members, labels=labels, n_internal=np.int64(n_int))
         # the level deadline is armed after this worker's own solves: a dead
         # group fails within one patience window, not one a hop
         level_deadline = time.monotonic() + hop_wait_s
         results = {}
         for gi in range(len(groups)):
-            pkt = _wait_npz(_packet_path(scratch, li, gi), hop_wait_s, deadline=level_deadline,
-                            owner_pid_path=_worker_pid_path(scratch, _group_owner(li, gi, n_workers)))
+            # one span an awaited packet: the hop latency, by worker and level
+            with trace_mod.span("solve.hop_wait", level=li, group=gi, worker=pid):
+                pkt = _wait_npz(_packet_path(scratch, li, gi), hop_wait_s, deadline=level_deadline,
+                                owner_pid_path=_worker_pid_path(scratch, _group_owner(li, gi, n_workers)))
             results[gi] = (pkt["members"].astype(np.int64), pkt["labels"].astype(np.int64))
         _apply_level(state, groups, results)
+        # each level's flush rewrites the whole shard: a worker killed at
+        # level N leaves its spans through level N-1
+        _flush_trace_quietly()
 
     if pid == 0:
         _publish_npz(os.path.join(scratch, "result.npz"), labels=_final_labels(state),
                      boundary_edges_root=np.int64(len(state.edges)),
                      plane_used=np.str_("collective" if plane is not None else "packet"),
                      plane_reason=np.str_(plane_reason))
+    worker_span.end()
+    _flush_trace_quietly()
     print(f"REDUCE_TREE_OK pid={pid} workers={n_workers}", flush=True)
+
+
+def _flush_trace_quietly() -> None:
+    """A tracing write failure never fails a healthy worker."""
+    try:
+        trace_mod.flush()
+    except Exception:
+        pass
 
 
 def solve_over_workers(n_nodes: int, edges: np.ndarray, payload: np.ndarray, node_shard: np.ndarray, *,
@@ -1067,27 +1122,34 @@ def solve_over_workers(n_nodes: int, edges: np.ndarray, payload: np.ndarray, nod
         # extra_env over os.environ)
         _ENV_WAIT: str(hop_wait_s if hop_wait_s is not None else os.environ.get(_ENV_WAIT, DEFAULT_HOP_WAIT_S)),
     }
-    t0 = time.perf_counter()
+    if trace_mod.enabled() and trace_mod.trace_dir():
+        # a traced driver hands the workers its shard directory: the value
+        # both turns their tracing on and pins the directory
+        extra_env[trace_mod.ENV_VAR] = trace_mod.trace_dir()
+    group_span = trace_mod.begin("solve.worker_group", workers=int(n_workers), shards=n_shards)
     try:
         results = launch_workers(int(n_workers), "cluster_tools_tpu_torch.parallel.reduce_tree:reduce_worker_main",
                                  timeout=timeout, extra_env=extra_env,
                                  device="cpu" if str(reduce_plane) == "packet" else device)
     except TimeoutError as e:
+        group_span.end(error=True)
         raise ShardedSolveError(f"worker group timed out: {e}") from e
     failed = [(pid, rc, (err or "")[-500:]) for pid, (rc, _, err) in enumerate(results) if rc != 0]
     if failed:
+        group_span.end(error=True)
         raise ShardedSolveError("worker(s) died during the sharded solve: "
                                 + "; ".join(f"pid {p} rc={rc}" for p, rc, _ in failed)
                                 + "\n" + "\n".join(t for _, _, t in failed))
     result_path = os.path.join(scratch_dir, "result.npz")
     if not os.path.exists(result_path):
+        group_span.end(error=True)
         raise ShardedSolveError("worker group finished without a result packet")
     with np.load(result_path, allow_pickle=False) as f:
         labels = f["labels"].astype(np.int64)
         root_edges = int(f["boundary_edges_root"]) if "boundary_edges_root" in f.files else 0
         plane_used = str(f["plane_used"]) if "plane_used" in f.files else "packet"
         plane_reason = str(f["plane_reason"]) if "plane_reason" in f.files else ""
-    wall = time.perf_counter() - t0
+    wall = group_span.end()
     levels = reduce_tree_levels(n_shards, fanout)
     info = {
         "sharded": True,
@@ -1133,15 +1195,17 @@ def solve_with_reduce_tree(n_nodes: int, edges: np.ndarray, payload: np.ndarray,
 
     ``reduce_plane``/``hop_deadline_s``/``device_pool_bytes`` configure the
     level engine (see :func:`sharded_solve`); ``collective`` rides the
-    ladder collective -> packet -> unsharded, each rung attributed.  (The ``solve`` fault site
-    and the ``degraded:unsharded_solve`` trace instant belong to ROADMAP
-    item 11a.)
+    ladder collective -> packet -> unsharded, each rung attributed.  The
+    fault injector's ``solve`` site fires first, inside the ladder.
     """
     shards = int(solver_shards or 1)
     if shards <= 1 or node_shard is None or int(n_nodes) == 0 or len(edges) == 0:
         return unsharded(), {"sharded": False, "shards": 1}
     no_partition = False
     try:
+        from ..runtime import faults as faults_mod
+
+        faults_mod.get_injector().maybe_fail("solve")
         if callable(node_shard):
             node_shard = node_shard()
             if node_shard is None:
@@ -1187,6 +1251,7 @@ def solve_with_reduce_tree(n_nodes: int, edges: np.ndarray, payload: np.ndarray,
         if no_partition:
             return unsharded(), {"sharded": False, "shards": 1}
         _record_solve_metrics(unsharded_fallbacks=1)
+        trace_mod.instant("degraded:unsharded_solve", task=task_name, error=f"{type(e).__name__}: {e}"[:200])
         try:
             fu.record_failures(failures_path, task_name, [{
                 "block_id": None,

@@ -1,5 +1,7 @@
 """Blockwise executor: a per-block kernel over a list of blocks, with
-prefetching IO, retries and a failure manifest.
+prefetching IO, retries, a failure manifest and the hardening of the
+reference (hung-block watchdog, speculation, degrade-and-split, post-store
+verification, drain).
 
 Port of ``cluster_tools_tpu/runtime/executor.py::BlockwiseExecutor.map_blocks``
 on one device.  Two sweep shapes, bit-identical to each other:
@@ -19,16 +21,44 @@ on one device.  Two sweep shapes, bit-identical to each other:
   ``ragged``), staged through the device-resident page pool
   (:mod:`..parallel.device_pool`, ``device_pool``) when that is on.
 
-Loads and stores retry with capped exponential backoff; a block whose
-load, kernel, validation or store still fails is quarantined and re-run
-once, alone, after the sweep (a block that failed for want of memory or
-disk first waits up to ``degrade_wait_s`` for headroom,
-``degraded:backpressure``).  A sharded batch whose call raises
-``torch.OutOfMemoryError`` re-runs its blocks one by one through the same
-kernel (``degraded:unsharded``); any other error quarantines its blocks as
-on the per-block path.  Every failure lands in ``failures.json`` and a
-RuntimeError names every block still failed at the end.  A kernel error is
-never answered by running another implementation.
+Failures, as in the reference (the fault injector's ``load``, ``compute``,
+``dispatch``, ``store`` and ``kernel`` sites sit where the reference's do,
+so one ``CTT_FAULTS`` spec gives the same ``failures.json`` records in both
+packages).  Loads and stores retry with capped exponential backoff; a
+resource error (OOM, ENOSPC) is not retried at the same size.  A block
+whose load, kernel, validation or store still fails is quarantined and
+re-run once, alone, after the sweep.  A sharded batch whose call fails
+(site ``dispatch``) quarantines its blocks, which the quarantine pass runs
+one by one through the same kernel (``degraded:unsharded``).  A resource-
+starved block first waits up to ``degrade_wait_s`` for headroom
+(``degraded:backpressure``); with ``splittable`` it is then re-run as
+halo-correct sub-blocks down to ``min_block_shape`` (``degraded:split``).
+Sub-blocks never enter a stacked batch: the port runs them one a call (the
+reference packs a split parent's sub-blocks into ragged batches on the
+sharded path; the records are the same).  ``block_deadline_s`` arms a
+watchdog: a load, compute or store past the deadline is recorded ``hung``
+and quarantined, and a speculative duplicate of the block runs alone on the
+device; the first result wins and a later one must agree bit for bit
+(:class:`~.supervision.FirstWins`).  ``store_verify_fn``
+(:func:`region_verifier`) re-reads each stored region against its digest
+sidecar, so a corruption is re-stored (retry) or recomputed (quarantine),
+and registers the block's lineage for repair.  A drain (SIGTERM/SIGUSR1)
+stops claiming batches and raises :class:`~.supervision.DrainInterrupt`
+once the running work is stored.  Every failure lands in
+``failures.json``; a RuntimeError names every block still failed at the
+end.  A kernel error is never answered by running another implementation.
+
+Device work and threads: every call of the kernel, the primary's and a
+speculative duplicate's, holds one dispatch lock and ends with a device
+sync, so their stream work is ordered and a duplicate's outputs are on the
+host before the digest compare.  An injected hang fires before the lock,
+so a duplicate never queues behind it.  The spans are the reference's
+(``executor.sweep``/``load``/``h2d``/``dispatch``/``d2h``/``store``/
+``batch_wait``/``speculate``), with one difference in what they time: the
+port's ``executor.dispatch`` span ends after that sync, so it carries the
+device time, and ``executor.d2h`` is the copy back alone (the reference's
+dispatch ends at the asynchronous launch and its ``d2h`` waits for the
+device).
 
 ``load_fn`` may return futures (anything with ``.result()``, such as
 ``read_async`` through :func:`~..io.prefetch.async_loader`): a batch's
@@ -47,17 +77,13 @@ host memory (below ``MEM_HEADROOM_FRACTION`` available) or the disk under
 the failure manifest (below ``DISK_HEADROOM_FRACTION`` free) runs low;
 low host memory first flushes completed handoffs to storage
 (:func:`~.handoff.spill_for_headroom`).
-
-Not ported (ROADMAP Queue A item 11), and refused when asked for: the
-hung-block watchdog and speculation (``block_deadline_s``),
-degrade-and-split (``splittable=True``) and post-store checksum
-verification (``store_verify_fn``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import errno
+import itertools
 import os
 import threading
 import time
@@ -70,13 +96,18 @@ import torch
 
 from ..device import resolve_device
 from ..io import chunk_cache as chunk_cache_mod
+from ..io.containers import ChunkCorruptionError
 from ..parallel import block_pool as block_pool_mod
 from ..parallel import device_pool as device_pool_mod
 from ..parallel.batch_shard import batched_sweep, ragged_sweep, resolve_sharded_batch, use_sharded_sweep
 from ..utils import function_utils as fu
 from ..utils.volume_utils import Block
+from . import faults as faults_mod
 from . import handoff as handoff_mod
-from .supervision import disk_free_fraction, host_mem_available_bytes, host_mem_available_fraction
+from . import trace as trace_mod
+from .supervision import (DrainInterrupt, FirstWins, Watchdog, array_digest, disk_free_fraction, drain_reason,
+                          drain_requested, host_mem_available_bytes, host_mem_available_fraction,
+                          install_drain_handler)
 
 TARGET_DEVICES = {"local": "cpu", "gpu": "cuda"}
 # the admission gate's floors: host memory available, and disk free under
@@ -178,12 +209,10 @@ def classify_resource_error(exc: BaseException) -> Optional[str]:
     return None
 
 
-def _refuse(what: str, item: int) -> None:
-    raise NotImplementedError(f"{what} is not ported: ROADMAP Queue A item {item}")
-
-
 def sweep_config(cfg) -> Dict[str, Any]:
-    """The ``map_blocks`` knobs a blockwise task takes from its config."""
+    """The ``map_blocks`` knobs a blockwise task takes from its config, as
+    the reference's tasks pass them; each call site adds its own
+    ``store_verify_fn`` and ``splittable``."""
     return dict(
         schedule=str(cfg.get("block_schedule") or "morton"),
         sweep_mode=str(cfg.get("sweep_mode") or "auto"),
@@ -192,7 +221,7 @@ def sweep_config(cfg) -> Dict[str, Any]:
         device_pool=str(cfg.get("device_pool") or "auto"),
         device_pool_bytes=cfg.get("device_pool_bytes"),
         block_deadline_s=cfg.get("block_deadline_s"),
-        splittable=bool(cfg.get("allow_block_split")),
+        watchdog_period_s=cfg.get("watchdog_period_s"),
         degrade_wait_s=float(cfg.get("degrade_wait_s", 5.0)),
         inflight_byte_budget=cfg.get("inflight_byte_budget"),
     )
@@ -211,6 +240,80 @@ def _lane(out, j: int, crop=None):
         return {k: _lane(v, j, crop) for k, v in out.items()}
     leaf = out[j]
     return crop(j, leaf) if crop is not None else leaf
+
+
+class SubBlock(Block):
+    """A degrade-split fragment of a parent block (same ``block_id``).
+    Load and store callbacks that pad to one batch shape can detect these
+    (:func:`is_sub_block`) and size buffers per block: sub-blocks never
+    enter a stacked batch."""
+
+
+def is_sub_block(block: Block) -> bool:
+    return isinstance(block, SubBlock)
+
+
+def split_block(block: Block, halo: Optional[Sequence[int]] = None,
+                min_shape: Optional[Sequence[int]] = None) -> Optional[List[Block]]:
+    """Split ``block``'s inner region into up to 2^d halo-correct
+    sub-blocks (each axis halved where both halves stay >= ``min_shape``).
+
+    Sub-blocks keep the parent's ``block_id`` and get outer boxes of
+    ``sub_inner ± halo`` clamped to the parent's outer box.  ``halo``
+    defaults to the parent's own per-axis halo (the larger of its two
+    sides).  Returns None when no axis can split."""
+    nd = len(block.begin)
+    if halo is None:
+        halo = tuple(max(b - ob, oe - e) for b, ob, e, oe in zip(block.begin, block.outer_begin, block.end,
+                                                                  block.outer_end))
+    halo = tuple(int(h) for h in halo)
+    min_shape = tuple(max(1, int(m)) for m in (min_shape or (1,) * nd))
+    axes_intervals = []
+    any_cut = False
+    for ax in range(nd):
+        lo, hi = block.begin[ax], block.end[ax]
+        half = (hi - lo) // 2
+        if half >= min_shape[ax] and (hi - lo) - half >= min_shape[ax]:
+            axes_intervals.append([(lo, lo + half), (lo + half, hi)])
+            any_cut = True
+        else:
+            axes_intervals.append([(lo, hi)])
+    if not any_cut:
+        return None
+    subs = []
+    for combo in itertools.product(*axes_intervals):
+        begin = tuple(c[0] for c in combo)
+        end = tuple(c[1] for c in combo)
+        outer_begin = tuple(max(ob, b - h) for ob, b, h in zip(block.outer_begin, begin, halo))
+        outer_end = tuple(min(oe, e + h) for oe, e, h in zip(block.outer_end, end, halo))
+        subs.append(SubBlock(block.block_id, begin, end, outer_begin, outer_end))
+    return subs
+
+
+def region_verifier(dataset, bb_of: Optional[Callable[[Block], Any]] = None) -> Optional[Callable[[Block], None]]:
+    """A ``store_verify_fn`` for :meth:`BlockwiseExecutor.map_blocks` from a
+    dataset with digest sidecars: read the block's stored region back and
+    raise :class:`~..io.containers.ChunkCorruptionError` if it no longer
+    matches.  None for datasets without sidecars (HDF5), so call sites
+    wire it unconditionally.  Wiring one also marks the dataset a product
+    store (:func:`~..io.verified.mark_product`), and the callable carries
+    ``.dataset`` and ``.bb_of`` so the executor registers each verified
+    block's lineage (:mod:`.repair`)."""
+    verify = getattr(dataset, "verify_region", None)
+    if verify is None:
+        return None
+    from ..io import verified as verified_mod
+
+    verified_mod.mark_product(dataset)
+    if bb_of is None:
+        bb_of = lambda block: block.bb  # noqa: E731
+
+    def store_verify(block: Block) -> None:
+        verify(bb_of(block))
+
+    store_verify.dataset = dataset
+    store_verify.bb_of = bb_of
+    return store_verify
 
 
 class BlockwiseExecutor:
@@ -245,20 +348,36 @@ class BlockwiseExecutor:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _retry(self, fn: Callable) -> Tuple[Any, int, Optional[str], Optional[str]]:
-        """``(value, attempts, traceback or None, resource class or None)``
-        of ``fn`` with retries (:func:`classify_resource_error` of the last
-        error)."""
-        last_tb, resource = None, None
+    def _backoff(self, attempt: int) -> float:
+        return fu.backoff_delay(attempt, self.backoff_base, self.backoff_max)
+
+    def _io_with_retries(self, site: str, block: Block, fn: Callable,
+                         on_error: Optional[Callable[[Exception], None]] = None):
+        """``fn`` with the fault hooks of ``site`` and retries:
+        ``(value, attempts, traceback or None, resource class or None)``.
+        A resource error (OOM, ENOSPC) ends the retries at once: the
+        degrade ladder owns it.  ``on_error`` sees each caught error."""
+        injector = faults_mod.get_injector()
+        voxels = int(np.prod(block.outer_shape))
+        last_tb = None
         for k in range(self.max_retries + 1):
             try:
+                injector.maybe_fail(site, block.block_id, voxels=voxels)
+                injector.maybe_hang(site, block.block_id)
                 return fn(), k + 1, None, None
             except Exception as e:
+                if on_error is not None:
+                    try:
+                        on_error(e)
+                    except Exception:
+                        pass
                 last_tb = fu.cap_traceback(traceback.format_exc())
                 resource = classify_resource_error(e)
+                if resource is not None:
+                    return None, k + 1, last_tb, resource
                 if k < self.max_retries:
-                    time.sleep(fu.backoff_delay(k, self.backoff_base, self.backoff_max))
-        return None, self.max_retries + 1, last_tb, resource
+                    time.sleep(self._backoff(k))
+        return None, self.max_retries + 1, last_tb, None
 
     def map_blocks(
         self,
@@ -281,8 +400,12 @@ class BlockwiseExecutor:
         device_pool: str = "auto",
         device_pool_bytes: Optional[int] = None,
         block_deadline_s: Optional[float] = None,
+        watchdog_period_s: Optional[float] = None,
+        speculate: bool = True,
         store_verify_fn: Optional[Callable[[Block], None]] = None,
         splittable: bool = False,
+        split_halo: Optional[Sequence[int]] = None,
+        min_block_shape: Optional[Sequence[int]] = None,
         degrade_wait_s: float = 5.0,
         inflight_byte_budget: Optional[int] = None,
     ) -> Dict[str, Any]:
@@ -305,9 +428,19 @@ class BlockwiseExecutor:
         resident device page pool (``CTT_DEVICE_POOL=0`` switches it off);
         ``device_pool_bytes`` is its budget.
 
-        ``inflight_byte_budget`` drives the admission gate (module
-        docstring); ``degrade_wait_s`` bounds the headroom wait before a
-        resource-starved block's re-attempt.
+        ``block_deadline_s``: the per-block wall budget of a load, compute
+        or store; the watchdog scans every ``watchdog_period_s`` (default a
+        quarter of the deadline) and, with ``speculate``, starts one
+        duplicate of each hung block.  ``store_verify_fn(block)``: the
+        post-store check (:func:`region_verifier`).  ``splittable``: the
+        kernel, ``load_fn`` and ``store_fn`` are pure functions of the block
+        geometry at any shape and the kernel is shape-local, so a block that
+        stays starved of a resource may re-run as sub-blocks
+        (:func:`split_block` with ``split_halo`` and ``min_block_shape``)
+        whose outputs tile the unsplit result.  ``inflight_byte_budget``
+        drives the admission gate (module docstring); ``degrade_wait_s``
+        bounds the headroom wait before a resource-starved block's
+        re-attempt.
 
         Returns a summary: the summed host-clock seconds of the sweep's
         stages (``load_s`` and ``store_s`` on the IO threads; ``h2d_s``,
@@ -319,15 +452,16 @@ class BlockwiseExecutor:
         ``n_backpressure_waits`` (dispatches that drained stores first), the
         device-plane counters (``h2d_bytes``, ``d2h_bytes``,
         ``device_pool_hits``/``misses``/``evictions``,
-        ``device_pool_resident_bytes``), and on the sharded path the rung
-        each batch ran (``batch_rungs``: ``"batched"`` or ``"lanes"``).
+        ``device_pool_resident_bytes``), the hardening counters
+        (``n_unsharded``; with a deadline ``n_hung`` and ``n_speculated``;
+        ``n_degraded``, ``n_split``, ``n_sub_blocks`` and ``split_depth``),
+        and on the sharded path the rung each batch ran (``batch_rungs``:
+        ``"batched"`` or ``"lanes"``).
+
+        Raises RuntimeError naming every block still failed after the
+        quarantine pass, and :class:`~.supervision.DrainInterrupt` after a
+        drain (running work finished, markers and manifest flushed).
         """
-        if block_deadline_s:
-            _refuse("block_deadline_s (the hung-block watchdog and speculation)", 11)
-        if splittable:
-            _refuse("splittable=True (degrade and split)", 11)
-        if store_verify_fn is not None:
-            _refuse("store_verify_fn (post-store checksum verification)", 11)
         if done_block_ids:
             done = {int(b) for b in done_block_ids}
             blocks = [b for b in blocks if int(b.block_id) not in done]
@@ -352,14 +486,31 @@ class BlockwiseExecutor:
         stats = {"load_s": 0.0, "h2d_s": 0.0, "kernel_s": 0.0, "d2h_s": 0.0, "store_s": 0.0}
         if not blocks:
             return {"n_blocks": 0, "n_quarantined": 0, "n_failed": 0, **stats}
+        # SIGTERM/SIGUSR1 flip the drain latch; the sweep checks it between
+        # batches
+        install_drain_handler()
+        injector = faults_mod.get_injector()
+        deadline = float(block_deadline_s or 0.0)
+        block_by_id = {int(b.block_id): b for b in blocks}
 
         dev_snap = device_pool_mod.snapshot()
-        counts = {"n_dispatches": 0, "n_unsharded": 0, "batches_dispatched": 0, "blocks_dispatched": 0,
+        counts = {"n_dispatches": 0, "batches_dispatched": 0, "blocks_dispatched": 0,
                   "dispatch_wait_s": 0.0, "ragged_batches": 0, "lanes_padded": 0, "pages_in_use": 0}
         batch_rungs: List[str] = []
         failures: Dict[int, Dict[str, Any]] = {}
+        quarantined_ids: set = set()
+        # blocks whose sharded batch failed (or hung in compute): the
+        # per-block path resolves them, attributed degraded:unsharded
         sharded_failed: set = set()
+        finished_ids: set = set()
         lock = threading.Lock()
+        # every kernel call (a batch, a block, a duplicate, a sub-block)
+        # holds it: the device is one serial resource
+        dispatch_lock = threading.Lock()
+        speculated: set = set()
+        commits = FirstWins()
+        sweep_span = trace_mod.begin("executor.sweep", task=task_name, n_blocks=len(blocks),
+                                     sharded=bool(use_sharded))
 
         # -- the admission gate (reference executor.py:1610-1690) ------------
         # in flight = loaded but not yet stored; the budget caps it
@@ -414,8 +565,8 @@ class BlockwiseExecutor:
             """Up to ``degrade_wait_s`` for the exhausted resource to
             recover before a re-attempt; returns at once on a healthy (or
             unmeasurable) host."""
-            deadline = time.monotonic() + max(0.0, degrade_wait_s)
-            while time.monotonic() < deadline:
+            deadline_t = time.monotonic() + max(0.0, degrade_wait_s)
+            while time.monotonic() < deadline_t:
                 if resource == "enospc":
                     frac = disk_free_fraction(headroom_path) if headroom_path else None
                     if frac is None or frac > DISK_HEADROOM_FRACTION:
@@ -442,7 +593,11 @@ class BlockwiseExecutor:
                     counts["lanes_padded"] += rb.lanes_padded
                     counts["pages_in_use"] += rb.pages_in_use
 
+        # -- failure bookkeeping (the reference's records) -------------------
         def note_failure(block, site, attempts, error, quarantine, resource=None):
+            if quarantine or error is not None:
+                trace_mod.instant(f"fault:{site}", block=int(block.block_id), task=task_name,
+                                  quarantined=bool(quarantine), resource=resource)
             with lock:
                 rec = failures.setdefault(int(block.block_id), {
                     "block_id": int(block.block_id), "sites": {}, "error": None,
@@ -452,59 +607,85 @@ class BlockwiseExecutor:
                 if error is not None:
                     rec["error"] = error
                 if resource is not None:
+                    # the resource class steers the degrade ladder and is
+                    # counted per class
                     rec["resource"] = resource
+                    rec["sites"][resource] = rec["sites"].get(resource, 0) + 1
                 if quarantine:
                     rec["quarantined"] = True
                     rec["resolved"] = False
+                    quarantined_ids.add(int(block.block_id))
 
-        def issue(block):
-            """``load_fn(block)`` (its futures, or its arrays) and the error
-            it raised, one of them None."""
-            t0 = time.perf_counter()
-            try:
-                return load_fn(block), None
-            except Exception as e:
-                return None, e
-            finally:
-                add("load_s", time.perf_counter() - t0)
+        def mark_resolved(block, resolution=None):
+            if resolution is not None:
+                trace_mod.instant(resolution, block=int(block.block_id), task=task_name)
+            with lock:
+                rec = failures.get(int(block.block_id))
+                if rec is not None:
+                    rec["resolved"] = True
+                    if resolution is not None:
+                        rec["resolution"] = resolution
 
-        def load_block(block, issued=None):
-            """The block's inputs as numpy, with retries: the first attempt
-            resolves ``issued`` (or raises its error), a retry calls
-            ``load_fn`` again."""
-            pending = [issued]
-
-            def attempt():
-                pre, pending[0] = pending[0], None
-                if pre is None:
-                    per = load_fn(block)
-                else:
-                    per, exc = pre
-                    if exc is not None:
-                        raise exc
-                return tuple(np.asarray(x.result() if hasattr(x, "result") else x) for x in per)
-
-            t0 = time.perf_counter()
-            val, attempts, tb, resource = self._retry(attempt)
-            add("load_s", time.perf_counter() - t0)
-            if tb is not None:
-                note_failure(block, "load", attempts, tb, quarantine=True, resource=resource)
+        def unsharded_tag(block, resolved_by_fallback):
+            """``"degraded:unsharded"`` when the per-block path resolved a
+            block whose sharded batch failed (a late sharded primary that
+            wins its own commit is no fallback)."""
+            if not use_sharded or not resolved_by_fallback:
                 return None
-            if attempts > 1:
-                note_failure(block, "load", attempts - 1, None, quarantine=False)
-            return val
+            with lock:
+                fell = int(block.block_id) in sharded_failed
+            return "degraded:unsharded" if fell else None
 
-        def run_kernel(val):
-            """Inputs to the device, the kernel, outputs back as numpy."""
+        def validate(block, out) -> Optional[str]:
+            if check_finite:
+                err = check_finite_outputs(block, out)
+                if err:
+                    return err
+            return validate_fn(block, out) if validate_fn is not None else None
+
+        # -- the hang defence ------------------------------------------------
+        spec_pool: Optional[ThreadPoolExecutor] = None
+        spec_futures: List[Future] = []
+        watchdog: Optional[Watchdog] = None
+        tokens = itertools.count()
+
+        @contextlib.contextmanager
+        def watched(block, stage, origin="primary"):
+            if watchdog is None:
+                yield
+                return
+            token = next(tokens)
+            watchdog.register(token, block_id=int(block.block_id), stage=stage, origin=origin)
+            try:
+                yield
+            finally:
+                watchdog.clear(token)
+
+        def exec_single(val, block=None):
+            """One block through the kernel, alone: inputs to the device, the
+            call and a sync under the dispatch lock, outputs back as numpy.
+            With ``block`` this is the per-block sweep's own call (the
+            reference's ``batch`` grain, with its ``executor.h2d`` and
+            ``executor.d2h`` spans; the compute watch of ``block`` starts
+            once the lock is held); without, a quarantine, speculation or
+            split call (``per_block`` grain)."""
             t0 = time.perf_counter()
-            inputs = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(self.device) for x in val)
-            device_pool_mod.record_h2d(sum(int(x.nbytes) for x in val))
-            self._sync()
-            t1 = time.perf_counter()
-            out = kernel(*inputs)
-            self._sync()
-            t2 = time.perf_counter()
-            out = _to_numpy(out)
+            nbytes = sum(int(np.asarray(x).nbytes) for x in val)
+            with (trace_mod.span("executor.h2d", task=task_name, nbytes=nbytes, grain="dense")
+                  if block is not None else contextlib.nullcontext()):
+                inputs = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(self.device) for x in val)
+            device_pool_mod.record_h2d(nbytes)
+            with dispatch_lock, (watched(block, "compute") if block is not None else contextlib.nullcontext()):
+                self._sync()
+                t1 = time.perf_counter()
+                with trace_mod.span("executor.dispatch", n_blocks=1, task=task_name,
+                                    grain="batch" if block is not None else "per_block"):
+                    out = kernel(*inputs)
+                    self._sync()
+                t2 = time.perf_counter()
+            with (trace_mod.span("executor.d2h", task=task_name, n_blocks=1)
+                  if block is not None else contextlib.nullcontext()):
+                out = _to_numpy(out)
             t3 = time.perf_counter()
             device_pool_mod.record_d2h(_tree_nbytes(out))
             note_dispatch(1)
@@ -513,77 +694,258 @@ class BlockwiseExecutor:
             add("d2h_s", t3 - t2)
             return out
 
-        def handle_output(block, out, resolution: Optional[str] = None) -> None:
-            """Validation, store (with retries), completion hooks; never
-            raises — every failure is attributed to its block."""
+        def issue(block):
+            """``load_fn(block)`` (its futures, or its arrays) in the block's
+            fault context: ``(value, traceback, resource)``."""
+            t0 = time.perf_counter()
             try:
-                err = (check_finite_outputs(block, out) if check_finite else None) or \
-                    (validate_fn(block, out) if validate_fn is not None else None)
-                if err is not None:
-                    note_failure(block, "validate", 1, err, quarantine=True)
-                    return
-                if store_fn is not None:
-                    t0 = time.perf_counter()
-                    _, attempts, tb, resource = self._retry(lambda: store_fn(block, out))
-                    add("store_s", time.perf_counter() - t0)
-                    if tb is not None:
-                        note_failure(block, "store", attempts, tb, quarantine=True, resource=resource)
-                        return
-                    if attempts > 1:
-                        note_failure(block, "store", attempts - 1, None, quarantine=False)
-                with lock:
-                    rec = failures.get(int(block.block_id))
-                    if rec is not None:
-                        rec["resolved"] = True
-                        if resolution is not None:
-                            rec["resolution"] = resolution
-                            counts["n_unsharded"] += resolution == "degraded:unsharded"
-                if on_block_done is not None:
-                    on_block_done(block)
-            except Exception:
-                note_failure(block, "hook", 1, fu.cap_traceback(traceback.format_exc()), quarantine=True)
+                with faults_mod.block_context(int(block.block_id)):
+                    return load_fn(block), None, None
+            except Exception as e:
+                return None, fu.cap_traceback(traceback.format_exc()), classify_resource_error(e)
+            finally:
+                add("load_s", time.perf_counter() - t0)
 
-        def execute(block, val) -> Optional[Any]:
+        class _PreIssueFailed(Exception):
+            pass
+
+        def load_block(block, issued=None, origin="primary"):
+            """The block's inputs as numpy, with the load fault hooks and
+            retries; None once quarantined.  The first attempt resolves
+            ``issued`` (or takes its error), a retry calls ``load_fn``
+            again; a resource error quarantines at once."""
+            pre, pre_tb, pre_resource = issued if issued is not None else (None, None, None)
+            last_tb, attempts = None, 0
+            voxels = int(np.prod(block.outer_shape))
+            t0 = time.perf_counter()
             try:
-                return run_kernel(val)
+                with watched(block, "load", origin), faults_mod.block_context(int(block.block_id)), \
+                        trace_mod.span("executor.load", block=int(block.block_id), origin=origin, task=task_name):
+                    for k in range(self.max_retries + 1):
+                        attempts = k + 1
+                        try:
+                            injector.maybe_fail("load", block.block_id, voxels=voxels)
+                            injector.maybe_hang("load", block.block_id)
+                            if k == 0 and pre_tb is not None:
+                                last_tb = pre_tb
+                                raise _PreIssueFailed()
+                            per = pre if (k == 0 and pre is not None) else load_fn(block)
+                            val = tuple(np.asarray(x.result() if hasattr(x, "result") else x) for x in per)
+                        except _PreIssueFailed:
+                            if pre_resource is not None:
+                                note_failure(block, "load", attempts, last_tb, quarantine=True,
+                                             resource=pre_resource)
+                                return None
+                            if k < self.max_retries:
+                                time.sleep(self._backoff(k))
+                        except Exception as e:
+                            last_tb = fu.cap_traceback(traceback.format_exc())
+                            resource = classify_resource_error(e)
+                            if resource is not None:
+                                note_failure(block, "load", attempts, last_tb, quarantine=True, resource=resource)
+                                return None
+                            if k < self.max_retries:
+                                time.sleep(self._backoff(k))
+                        else:
+                            if attempts > 1:
+                                note_failure(block, "load", attempts - 1, None, quarantine=False)
+                            return val
+            finally:
+                add("load_s", time.perf_counter() - t0)
+            note_failure(block, "load", attempts, last_tb, quarantine=True)
+            return None
+
+        def compute_site_ok(block) -> bool:
+            """The kernel-dispatch fault hook before a block goes to the
+            device (this block's share does not fit): an injected error
+            quarantines the block and keeps the rest of its batch."""
+            try:
+                injector.maybe_fail("compute", block.block_id, voxels=int(np.prod(block.outer_shape)))
             except Exception as e:
                 note_failure(block, "compute", 1, fu.cap_traceback(traceback.format_exc()), quarantine=True,
                              resource=classify_resource_error(e))
-                return None
+                return False
+            return True
 
-        def store_released(block, out, nbytes: int, resolution: Optional[str] = None) -> None:
+        # -- completion ------------------------------------------------------
+        def register_lineage(blk):
+            """After a verified store, how to recompute this block (load,
+            kernel alone, store through the sidecar-recording path), keyed
+            by the region the verifier checked.  Best effort."""
+            ds = getattr(store_verify_fn, "dataset", None) if store_verify_fn is not None else None
+            if ds is None or store_fn is None:
+                return
+            bb_of = getattr(store_verify_fn, "bb_of", None) or (lambda b: b.bb)
+
+            def recompute(b=blk):
+                with faults_mod.block_context(int(b.block_id)):
+                    val = tuple(np.asarray(x.result() if hasattr(x, "result") else x) for x in load_fn(b))
+                    out = exec_single(val)
+                    err = validate(b, out)
+                    if err is not None:
+                        raise RuntimeError(f"lineage recompute of block {b.block_id} failed validation: {err}")
+                    store_fn(b, out)
+
+            try:
+                from . import repair as repair_mod
+
+                repair_mod.register_producer(ds, bb_of(blk), recompute, task=task_name, block_id=int(blk.block_id),
+                                             failures_path=failures_path)
+            except Exception:
+                pass
+
+        def finish_block(blk):
+            """Completion side effects (lineage, marker, the block_done kill
+            point) at most once a block: with speculation two copies can
+            both end well."""
+            with lock:
+                if int(blk.block_id) in finished_ids:
+                    return
+                finished_ids.add(int(blk.block_id))
+            register_lineage(blk)
+            if on_block_done is not None:
+                on_block_done(blk)
+            injector.kill_point("block_done")
+
+        def handle_output(blk, block_out, origin="primary"):
+            """Injected corruption, validation, duplicate arbitration, store
+            with retries and verification, completion.  Never raises: every
+            failure is attributed to its block."""
+            bid = int(blk.block_id)
+            try:
+                block_out = injector.corrupt("kernel", blk.block_id, block_out)
+                err = validate(blk, block_out)
+                if err is not None:
+                    note_failure(blk, "validate", 1, err, quarantine=True)
+                    return
+                if store_fn is None:
+                    mark_resolved(blk)
+                    finish_block(blk)
+                    return
+                corrupt_seen = [0]
+                dup = {"verdict": None, "digest": None, "contended": False}
+
+                def classify(exc):
+                    if isinstance(exc, ChunkCorruptionError):
+                        corrupt_seen[0] += 1
+
+                def store_and_verify():
+                    # first wins, decided at the last moment before the
+                    # write and once (retries reuse it): with the watchdog
+                    # armed every copy registers its digest
+                    if dup["verdict"] is None:
+                        if watchdog is not None:
+                            with lock:
+                                dup["contended"] = bid in speculated
+                            dup["digest"] = array_digest(_leaves(block_out))
+                            dup["verdict"] = commits.commit(bid, dup["digest"])
+                        else:
+                            dup["verdict"] = FirstWins.WIN
+                    if dup["verdict"] != FirstWins.WIN:
+                        return
+                    store_fn(blk, block_out)
+                    if store_verify_fn is not None:
+                        store_verify_fn(blk)
+
+                t0 = time.perf_counter()
+                with watched(blk, "store", origin), faults_mod.block_context(bid), \
+                        trace_mod.span("executor.store", block=bid, origin=origin, task=task_name):
+                    _, attempts, tb, store_resource = self._io_with_retries("store", blk, store_and_verify,
+                                                                            on_error=classify)
+                add("store_s", time.perf_counter() - t0)
+                if dup["verdict"] == FirstWins.AGREE:
+                    # this copy confirms the stored winner bit for bit; when
+                    # it is the primary, a per-block duplicate won
+                    mark_resolved(blk, unsharded_tag(blk, origin == "primary"))
+                    with lock:
+                        rec = failures.get(bid)
+                        if rec is not None:
+                            rec["duplicate"] = "agreed"
+                    finish_block(blk)
+                    return
+                if dup["verdict"] == FirstWins.MISMATCH:
+                    note_failure(blk, "determinism", 1,
+                                 "speculative duplicate disagreed with the first result (nondeterministic "
+                                 "kernel or corrupted data); block left unresolved for recompute",
+                                 quarantine=True)
+                    return
+                if corrupt_seen[0]:
+                    # the store "failures" were corruption the verify caught
+                    note_failure(blk, "corrupt", corrupt_seen[0], None, quarantine=False)
+                if tb is not None:
+                    if dup["digest"] is not None:
+                        # the claim's store never landed: release it
+                        commits.withdraw(bid, dup["digest"])
+                    note_failure(blk, "store", attempts, tb, quarantine=True, resource=store_resource)
+                    return
+                if attempts > 1:
+                    note_failure(blk, "store", attempts - 1, None, quarantine=False)
+                mark_resolved(blk, unsharded_tag(blk, origin == "speculative"))
+                if not dup["contended"]:
+                    # a contended winner leaves the marker to the duplicate's
+                    # agreement
+                    finish_block(blk)
+            except Exception:
+                note_failure(blk, "hook", 1, fu.cap_traceback(traceback.format_exc()), quarantine=True)
+
+        def store_released(blk, out, nbytes: int) -> None:
             """:func:`handle_output`, then the block's bytes leave the
             admission gate's in-flight count."""
             try:
-                handle_output(block, out, resolution)
+                handle_output(blk, out)
             finally:
                 release(nbytes)
 
-        def run_unsharded(batch, vals, site, error) -> None:
-            """The blocks of a batch the sharded call could not take, one by
-            one through the same kernel (``degraded:unsharded``)."""
-            for blk, val in zip(batch, vals):
-                note_failure(blk, site, 1, error, quarantine=True)
-                with lock:
-                    sharded_failed.add(int(blk.block_id))
-                out = execute(blk, val)
-                if out is not None:
-                    handle_output(blk, out, resolution="degraded:unsharded")
+        def speculative_rerun(blk):
+            """A hung block's duplicate: a fresh load, the kernel alone on
+            the device, a first-wins commit against the original."""
+            try:
+                with trace_mod.span("executor.speculate", block=int(blk.block_id), task=task_name):
+                    val = load_block(blk, origin="speculative")
+                    if val is None:
+                        return
+                    handle_output(blk, exec_single(val), origin="speculative")
+            except Exception:
+                note_failure(blk, "speculate", 1, fu.cap_traceback(traceback.format_exc()), quarantine=False)
 
+        if deadline > 0:
+            spec_pool = ThreadPoolExecutor(max_workers=2, thread_name_prefix="speculate")
+
+            def on_hung(token, info, elapsed):
+                bid = int(info["block_id"])
+                blk = block_by_id[bid]
+                note_failure(blk, "hung", 1, f"block exceeded block_deadline_s={deadline:g}s in stage "
+                                             f"{info['stage']} ({elapsed:.2f}s elapsed)", quarantine=True)
+                if not speculate or info.get("origin") != "primary":
+                    return
+                with lock:
+                    if use_sharded and info.get("stage") == "compute":
+                        # a hung device stalls the whole batch: this block's
+                        # recovery is a per-block fallback
+                        sharded_failed.add(bid)
+                    if bid in speculated:
+                        return
+                    speculated.add(bid)
+                spec_futures.append(spec_pool.submit(speculative_rerun, blk))
+
+            watchdog = Watchdog(deadline, watchdog_period_s or max(0.02, deadline / 4.0), on_hung).start()
+
+        # -- the sharded path --------------------------------------------------
         host_staged = {"recorded": False}
 
-        def stage_ragged(rb):
+        def stage_ragged(rb, block_id):
             """Device pools, tables and valid extents of one ragged batch:
             through the resident page pool when it is on (pages already on
             the device are re-addressed, not re-sent), else from the host.
             Pool exhaustion stages this batch from the host
-            (``degraded:host_staged``, recorded once per sweep)."""
+            (``degraded:host_staged``, recorded once a sweep)."""
             to_dev = lambda arrays: [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays]
             if dev_pool is not None:
                 try:
-                    sb = dev_pool.stage(rb, self.device)
+                    sb = dev_pool.stage(rb, self.device, block_id=block_id)
                 except device_pool_mod.DevicePoolExhausted as e:
                     device_pool_mod.bump("host_staged_fallbacks")
+                    trace_mod.instant("degraded:host_staged", task=task_name, block=int(block_id))
                     if not host_staged["recorded"] and failures_path:
                         host_staged["recorded"] = True
                         fu.record_failures(failures_path, f"{task_name}.device_pool", [{
@@ -593,33 +955,52 @@ class BlockwiseExecutor:
                 else:
                     device_pool_mod.record_h2d(sum(int(a.nbytes) for a in sb.tables + sb.valids))
                     return sb.pools, to_dev(sb.tables), to_dev(sb.valids), sb.specs
+            with trace_mod.span("executor.h2d", task=task_name, nbytes=int(rb.nbytes), grain="ragged"):
+                staged = to_dev(rb.pools), to_dev(rb.tables), to_dev(rb.valids), rb.specs
             device_pool_mod.record_h2d(rb.nbytes)
-            return to_dev(rb.pools), to_dev(rb.tables), to_dev(rb.valids), rb.specs
+            return staged
 
-        def run_batch(kind, payload):
-            """One sharded call: the batch to the device, the sweep, one
-            sync, the outputs back.  Returns ``(outputs, rung, rb)``."""
+        def run_batch(batch, kind, payload):
+            """One sharded call: the batch to the device, the dispatch fault
+            site, the sweep and one sync under the dispatch lock (each
+            block's compute watched), the outputs back.  Returns
+            ``(outputs, rung, rb)``."""
+            rb = payload if kind == "ragged" else None
             t0 = time.perf_counter()
-            rb = None
-            if kind == "dense":
-                arrays = payload[0]
-                inputs = tuple(torch.from_numpy(a).to(self.device) for a in arrays)
-                device_pool_mod.record_h2d(sum(int(a.nbytes) for a in arrays))
-                self._sync()
-                t1 = time.perf_counter()
-                out, rung = batched_sweep(kernel, inputs)
-                self._sync()
-            else:
-                rb = payload[0]
-                with dev_pool.lock if dev_pool is not None else contextlib.nullcontext():
-                    pools, tables, valids, specs = stage_ragged(rb)
+            with dev_pool.lock if dev_pool is not None and rb is not None else contextlib.nullcontext():
+                if rb is not None:
+                    inputs = stage_ragged(rb, batch[0].block_id)
+                else:
+                    with trace_mod.span("executor.h2d", task=task_name, grain="dense",
+                                        nbytes=int(sum(a.nbytes for a in payload))):
+                        inputs = tuple(torch.from_numpy(a).to(self.device) for a in payload)
+                    device_pool_mod.record_h2d(sum(int(a.nbytes) for a in payload))
+                # the batch-grain fault site: a device OOM or a wedged device
+                # takes the whole sharded call down
+                with contextlib.ExitStack() as stack:
+                    for blk in batch:
+                        stack.enter_context(watched(blk, "compute"))
+                    injector.maybe_fail("dispatch", batch[0].block_id,
+                                        voxels=sum(int(np.prod(b.outer_shape)) for b in batch))
+                    injector.maybe_hang("dispatch", batch[0].block_id)
+                with dispatch_lock, contextlib.ExitStack() as stack:
+                    span_args = dict(task=task_name, n_blocks=len(batch), grain="ragged" if rb is not None else "sharded")
+                    if rb is not None:
+                        span_args["lanes_padded"] = rb.lanes_padded
+                    for blk in batch:
+                        stack.enter_context(watched(blk, "compute"))
                     self._sync()
                     t1 = time.perf_counter()
-                    out, rung = ragged_sweep(kernel, pools, tables, valids, specs)
-                    # the lanes are gathered before the pool stages again
-                    self._sync()
-            t2 = time.perf_counter()
-            out = _to_numpy(out)
+                    with trace_mod.span("executor.dispatch", **span_args):
+                        if rb is not None:
+                            out, rung = ragged_sweep(kernel, *inputs)
+                        else:
+                            out, rung = batched_sweep(kernel, inputs)
+                        # the lanes are gathered before the pool stages again
+                        self._sync()
+                    t2 = time.perf_counter()
+            with trace_mod.span("executor.d2h", task=task_name, n_blocks=len(batch)):
+                out = _to_numpy(out)
             t3 = time.perf_counter()
             device_pool_mod.record_d2h(_tree_nbytes(out))
             if rb is not None:
@@ -632,20 +1013,31 @@ class BlockwiseExecutor:
         bs = sharded_width if use_sharded else self.device_batch
 
         def load_batch(batch):
-            # every read of the batch is issued before any is resolved
+            """Load one batch: ``(blocks, kind, payload, vals)``, ``kind``
+            routing the dispatch: ``"per_block"`` (the per-block path),
+            ``"dense"`` (stacked arrays), ``"ragged"`` (a packed
+            :class:`~..parallel.block_pool.RaggedBatch`), ``"mixed"``
+            (lanes the pool could not pack) or ``"empty"``."""
             if not use_sharded:
+                # every read of the batch is issued before any is resolved
                 issued = [issue(b) for b in batch]
-                return [(b, load_block(b, i)) for b, i in zip(batch, issued)]
+                ok, vals = [], []
+                for b, i in zip(batch, issued):
+                    val = load_block(b, i)
+                    if val is not None and compute_site_ok(b):
+                        ok.append(b)
+                        vals.append(val)
+                return ok, "per_block", None, vals
             # a batch's blocks load in parallel on their own pool (this
             # thread is one of the sweep pool's, which runs the stores)
             issued = list(block_loader.map(issue, batch))
             ok, vals = [], []
             for b, val in zip(batch, block_loader.map(load_block, batch, issued)):
-                if val is not None:
+                if val is not None and compute_site_ok(b):
                     ok.append(b)
                     vals.append(val)
             if not ok:
-                return ok, "empty", None
+                return ok, "empty", None, vals
             n_args = len(vals[0])
             uniform = all(len({v[i].shape for v in vals}) == 1 for i in range(n_args))
             full = len(vals) == bs
@@ -653,43 +1045,56 @@ class BlockwiseExecutor:
                 # a partial batch, mixed-shape lanes or a forced ragged sweep:
                 # one paged call; padding lanes are dropped after it
                 try:
-                    return ok, "ragged", (ragged_pool.pack(vals, bs, page_shape=page_shape), vals)
+                    return ok, "ragged", ragged_pool.pack(vals, bs, page_shape=page_shape), vals
                 except ValueError:
                     if not uniform:
-                        return ok, "mixed", vals
+                        return ok, "mixed", None, vals
             if not uniform:
-                return ok, "mixed", vals
+                return ok, "mixed", None, vals
             # pad a partial batch by repeating its last block; the padded
             # outputs are dropped
             padded = vals + [vals[-1]] * (bs - len(vals))
-            return ok, "dense", (tuple(np.stack([v[i] for v in padded]) for i in range(n_args)), vals)
+            return ok, "dense", tuple(np.stack([v[i] for v in padded]) for i in range(n_args)), vals
 
-        def dispatch_sharded(batch, kind, payload, writes: List[Future]) -> List[Future]:
-            vals = payload if kind == "mixed" else payload[1]
+        def run_mixed(batch, vals, nbytes):
+            """Lanes neither the dense nor the ragged call can take, one by
+            one through the kernel (``degraded:unsharded``)."""
+            try:
+                for blk, val in zip(batch, vals):
+                    note_failure(blk, "pack", 1, "mixed-shape lanes with the ragged pool unavailable; executed "
+                                                 "per block", quarantine=True)
+                    with lock:
+                        sharded_failed.add(int(blk.block_id))
+                    try:
+                        out = exec_single(val, blk)
+                    except Exception:
+                        note_failure(blk, "compute", 1, fu.cap_traceback(traceback.format_exc()), quarantine=True)
+                        continue
+                    handle_output(blk, out)
+                    with lock:
+                        rec = failures.get(int(blk.block_id))
+                        done_ok = bool(rec and rec["resolved"])
+                    if done_ok:
+                        mark_resolved(blk, "degraded:unsharded")
+            finally:
+                release(nbytes)
+
+        def dispatch_sharded(batch, kind, payload, vals, writes: List[Future]) -> List[Future]:
             sizes = [_tree_nbytes(v) for v in vals]
             admit(sum(sizes), writes)
             if kind == "mixed":
-                try:
-                    run_unsharded(batch, payload, "pack", "mixed-shape lanes the ragged pool cannot take; "
-                                                          "executed per block")
-                finally:
-                    release(sum(sizes))
-                return []
+                return [pool.submit(run_mixed, batch, vals, sum(sizes))]
             try:
-                out, rung, rb = run_batch(kind, payload)
-            except torch.OutOfMemoryError:
-                tb = fu.cap_traceback(traceback.format_exc())
-                if self.device.type == "cuda":
-                    torch.cuda.empty_cache()
-                try:
-                    run_unsharded(batch, vals, "dispatch", tb)
-                finally:
-                    release(sum(sizes))
-                return []
+                out, rung, rb = run_batch(batch, kind, payload)
             except Exception as e:
+                # a failed sharded call quarantines the whole batch; the
+                # quarantine pass runs its blocks alone (degraded:unsharded)
                 tb = fu.cap_traceback(traceback.format_exc())
+                resource = classify_resource_error(e)
+                if self.device.type == "cuda" and resource == "oom":
+                    torch.cuda.empty_cache()
                 for blk in batch:
-                    note_failure(blk, "compute", 1, tb, quarantine=True, resource=classify_resource_error(e))
+                    note_failure(blk, "dispatch", 1, tb, quarantine=True, resource=resource)
                 with lock:
                     sharded_failed.update(int(b.block_id) for b in batch)
                 release(sum(sizes))
@@ -699,61 +1104,224 @@ class BlockwiseExecutor:
             crop = rb.crop if rb is not None else None
             return [pool.submit(store_released, blk, _lane(out, j, crop), sizes[j]) for j, blk in enumerate(batch)]
 
+        # -- the degrade ladder: sub-blocks ------------------------------------
+        split_stats = {"splits": 0, "max_depth": 0, "sub_blocks": 0}
+
+        def load_sub(sub):
+            """``("ok", val)``, ``("recurse", None)`` (a resource error: split
+            deeper) or ``("fail", None)`` (attributed)."""
+            voxels = int(np.prod(sub.outer_shape))
+            val, last_tb = None, None
+            for k in range(self.max_retries + 1):
+                try:
+                    injector.maybe_fail("load", sub.block_id, voxels=voxels)
+                    injector.maybe_hang("load", sub.block_id)
+                    val = tuple(np.asarray(x.result() if hasattr(x, "result") else x) for x in load_fn(sub))
+                    break
+                except Exception as e:
+                    last_tb = fu.cap_traceback(traceback.format_exc())
+                    if classify_resource_error(e) is not None:
+                        return "recurse", None
+                    if k < self.max_retries:
+                        time.sleep(self._backoff(k))
+            if val is None:
+                note_failure(sub, "load", 1, last_tb, quarantine=True)
+                return "fail", None
+            return "ok", val
+
+        def store_sub(sub, out, depth, tracker):
+            """Validate and store (and verify) one sub-block's output with
+            retries; a resource error waits for headroom and splits deeper."""
+            voxels = int(np.prod(sub.outer_shape))
+            err = validate(sub, out)
+            if err is not None:
+                note_failure(sub, "validate", 1, err, quarantine=True)
+                return False
+            if store_fn is None:
+                return True
+            last_tb = None
+            for k in range(self.max_retries + 1):
+                try:
+                    injector.maybe_fail("store", sub.block_id, voxels=voxels)
+                    injector.maybe_hang("store", sub.block_id)
+                    store_fn(sub, out)
+                    if store_verify_fn is not None:
+                        store_verify_fn(sub)
+                    return True
+                except Exception as e:
+                    last_tb = fu.cap_traceback(traceback.format_exc())
+                    resource = classify_resource_error(e)
+                    if resource is not None:
+                        wait_for_headroom(resource)
+                        return split_and_run(sub, depth + 1, tracker)
+                    if k < self.max_retries:
+                        time.sleep(self._backoff(k))
+            note_failure(sub, "store", 1, last_tb, quarantine=True)
+            return False
+
+        def run_sub(sub, depth, tracker):
+            """One sub-block through load, kernel, validation and store; a
+            resource error at any stage splits one level deeper.  Failures
+            are attributed to the parent's id (sub-blocks carry it)."""
+            with faults_mod.block_context(int(sub.block_id)):
+                status, val = load_sub(sub)
+                if status == "recurse":
+                    return split_and_run(sub, depth + 1, tracker)
+                if status == "fail":
+                    return False
+                try:
+                    injector.maybe_fail("compute", sub.block_id, voxels=int(np.prod(sub.outer_shape)))
+                    out = exec_single(val)
+                except Exception as e:
+                    tb = fu.cap_traceback(traceback.format_exc())
+                    if classify_resource_error(e) is not None:
+                        return split_and_run(sub, depth + 1, tracker)
+                    note_failure(sub, "compute", 1, tb, quarantine=True)
+                    return False
+                return store_sub(sub, out, depth, tracker)
+
+        def split_and_run(blk, depth=1, tracker=None):
+            """The recursive 2^d split of ``blk``; True when every sub-block
+            landed.  ``tracker`` records the depth this parent reached."""
+            subs = split_block(blk, halo=split_halo, min_shape=min_block_shape)
+            if subs is None:
+                note_failure(blk, "split", 1, "resource exhaustion persisted at "
+                                              f"min_block_shape={tuple(min_block_shape or ())} — cannot split "
+                                              "further", quarantine=True)
+                return False
+            split_stats["splits"] += 1
+            split_stats["max_depth"] = max(split_stats["max_depth"], depth)
+            split_stats["sub_blocks"] += len(subs)
+            if tracker is not None:
+                tracker["depth"] = max(tracker.get("depth", 0), depth)
+            # stops at the first sub-block that fails, as the reference's
+            # per-block rung does
+            return all(run_sub(sub, depth, tracker) for sub in subs)
+
+        # -- the sweep ----------------------------------------------------------
+        drained = False
+        degraded_ids: set = set()
         batches = [blocks[i:i + bs] for i in range(0, len(blocks), bs)]
         block_loader = ThreadPoolExecutor(max_workers=self.io_threads) if use_sharded else None
-        with ThreadPoolExecutor(max_workers=self.io_threads) as pool, \
-                block_loader if block_loader is not None else contextlib.nullcontext():
-            pending: List[Future] = [pool.submit(load_batch, b) for b in batches[:prefetch]]
-            writes: List[Future] = []
-            for i in range(len(batches)):
-                t0 = time.perf_counter()
-                loaded = pending.pop(0).result()
-                counts["dispatch_wait_s"] += time.perf_counter() - t0
-                if i + prefetch < len(batches):
-                    pending.append(pool.submit(load_batch, batches[i + prefetch]))
-                if use_sharded:
-                    batch, kind, payload = loaded
-                    if batch:
-                        writes.extend(dispatch_sharded(batch, kind, payload, writes))
-                else:
-                    for block, val in loaded:
-                        if val is None:
-                            continue
-                        nbytes = _tree_nbytes(val)
-                        admit(nbytes, writes)
-                        out = execute(block, val)
-                        if out is not None:
+        try:
+            with ThreadPoolExecutor(max_workers=self.io_threads) as pool, \
+                    block_loader if block_loader is not None else contextlib.nullcontext():
+                pending: List[Future] = [pool.submit(load_batch, b) for b in batches[:prefetch]]
+                writes: List[Future] = []
+                for i in range(len(batches)):
+                    if drain_requested():
+                        # stop claiming batches; the running loads and
+                        # stores finish below
+                        drained = True
+                        break
+                    # the wait span is the dispatch_wait_s clock; sub-100us
+                    # waits are counted but not recorded
+                    wait_span = trace_mod.begin("executor.batch_wait", task=task_name, batch=i)
+                    batch, kind, payload, vals = pending.pop(0).result()
+                    waited = wait_span.end(discard=True)
+                    if waited > 1e-4:
+                        wait_span.end()
+                    counts["dispatch_wait_s"] += waited
+                    if i + prefetch < len(batches):
+                        pending.append(pool.submit(load_batch, batches[i + prefetch]))
+                    if not batch:
+                        continue
+                    if use_sharded:
+                        writes.extend(dispatch_sharded(batch, kind, payload, vals, writes))
+                    else:
+                        for block, val in zip(batch, vals):
+                            nbytes = _tree_nbytes(val)
+                            admit(nbytes, writes)
+                            try:
+                                out = exec_single(val, block)
+                            except Exception as e:
+                                note_failure(block, "compute", 1, fu.cap_traceback(traceback.format_exc()),
+                                             quarantine=True, resource=classify_resource_error(e))
+                                release(nbytes)
+                                continue
                             writes.append(pool.submit(store_released, block, out, nbytes))
-                        else:
-                            release(nbytes)
-                # bounded store window: each pending store holds a block's outputs
-                while len(writes) > 2 * bs:
-                    writes.pop(0).result()
-            for f in writes:
-                f.result()
+                    # bounded store window: each pending store holds a block's outputs
+                    while len(writes) > 2 * bs:
+                        writes.pop(0).result()
+                for f in pending:
+                    f.result()
+                for f in writes:
+                    f.result()
 
-        # quarantine pass: each block still unresolved, once more alone
-        quarantined = sorted(b for b, rec in failures.items() if rec["quarantined"])
-        for block in [b for b in blocks if int(b.block_id) in quarantined]:
-            rec = failures[int(block.block_id)]
-            if rec["resolved"]:
-                continue
-            # a block starved of memory or disk waits for headroom first
-            resource = rec.get("resource")
-            if resource is not None:
-                wait_for_headroom(resource)
-            val = load_block(block)
-            if val is None:
-                continue
-            out = execute(block, val)
-            if out is not None:
-                resolution = "degraded:unsharded" if int(block.block_id) in sharded_failed else \
-                    ("degraded:backpressure" if resource is not None else None)
-                handle_output(block, out, resolution=resolution)
+            # settle the duplicates before judging what is unresolved (the
+            # list grows while a primary stuck past its deadline fires)
+            i_spec = 0
+            while i_spec < len(spec_futures):
+                spec_futures[i_spec].result()
+                i_spec += 1
+            if watchdog is not None:
+                watchdog.stop()
+            if spec_pool is not None:
+                spec_pool.shutdown(wait=True)
+
+            # -- the quarantine pass and the degrade ladder ----------------------
+            with lock:
+                unresolved_q = {b for b in quarantined_ids if not failures[b]["resolved"]}
+            for blk in [b for b in blocks if int(b.block_id) in unresolved_q]:
+                if drained or drain_requested():
+                    drained = True
+                    break
+                bid = int(blk.block_id)
+                with lock:
+                    resource = failures[bid].get("resource")
+                if resource is not None:
+                    degraded_ids.add(bid)
+                    wait_for_headroom(resource)
+                val = load_block(blk)
+                if val is not None:
+                    out = None
+                    try:
+                        injector.maybe_fail("compute", blk.block_id, voxels=int(np.prod(blk.outer_shape)))
+                        out = exec_single(val)
+                    except Exception as e:
+                        note_failure(blk, "compute", 1, fu.cap_traceback(traceback.format_exc()), quarantine=True,
+                                     resource=classify_resource_error(e))
+                    if out is not None:
+                        handle_output(blk, out)
+                with lock:
+                    rec = failures[bid]
+                    resolved_now = rec["resolved"]
+                    resource = rec.get("resource")
+                    fell_back = bid in sharded_failed
+                if resolved_now:
+                    if fell_back:
+                        mark_resolved(blk, "degraded:unsharded")
+                    elif resource is not None:
+                        mark_resolved(blk, "degraded:backpressure")
+                    continue
+                if resource is not None and splittable:
+                    tracker = {"depth": 0}
+                    if split_and_run(blk, tracker=tracker):
+                        mark_resolved(blk, "degraded:split")
+                        with lock:
+                            failures[bid]["split_depth"] = tracker["depth"]
+                        finish_block(blk)
+        finally:
+            # the watchdog and the duplicates never outlive the sweep
+            if watchdog is not None:
+                watchdog.stop()
+            if spec_pool is not None:
+                spec_pool.shutdown(wait=True)
+            sweep_span.end(n_batches=counts["batches_dispatched"], n_quarantined=len(quarantined_ids))
 
         unresolved = sorted(b for b, rec in failures.items() if not rec["resolved"])
         if failures_path and failures:
             fu.record_failures(failures_path, task_name, [failures[b] for b in sorted(failures)])
+        if drained:
+            # what ran is stored and marked; the rest is the resumed run's
+            reason = drain_reason() or "drain requested"
+            remaining = sorted(int(b.block_id) for b in blocks if int(b.block_id) not in finished_ids)
+            if failures_path:
+                fu.record_failures(failures_path, f"{task_name}.drain", [{
+                    "block_id": None, "sites": {"preempt": 1}, "error": reason, "quarantined": False,
+                    "resolved": True, "resolution": "requeued:preempt", "remaining_blocks": len(remaining),
+                }])
+            raise DrainInterrupt(reason, remaining)
         if unresolved:
             details = "\n".join(f"-- block {b} (sites {failures[b]['sites']}) --\n{failures[b]['error']}"
                                 for b in unresolved[:5])
@@ -764,14 +1332,20 @@ class BlockwiseExecutor:
             )
         dev = device_pool_mod.delta(dev_snap)
         summary = {
-            "n_blocks": len(blocks), "n_quarantined": len(quarantined), "n_failed": 0,
+            "n_blocks": len(blocks), "n_quarantined": len(quarantined_ids), "n_failed": 0,
             "sweep_mode": "sharded" if use_sharded else "per_block", **stats, **counts,
+            "n_unsharded": len(sharded_failed),
             **{k: int(dev[k]) for k in ("h2d_bytes", "d2h_bytes", "device_pool_hits", "device_pool_misses",
                                         "device_pool_evictions", "host_staged_fallbacks")},
             "device_pool": "on" if dev_pool is not None else "off",
             "device_pool_resident_bytes": dev_pool.resident_bytes() if dev_pool is not None else 0,
             "inflight_byte_budget": budget, "n_backpressure_waits": backpressure["waits"],
+            "n_degraded": len(degraded_ids), "n_split": split_stats["splits"],
+            "n_sub_blocks": split_stats["sub_blocks"], "split_depth": split_stats["max_depth"],
         }
+        if deadline > 0:
+            summary["n_hung"] = sum(1 for rec in failures.values() if "hung" in rec["sites"])
+            summary["n_speculated"] = len(speculated)
         if use_sharded:
             summary["sharded_batch"] = bs
             summary["batch_rungs"] = batch_rungs

@@ -45,12 +45,16 @@ memory-only output that is no longer live is not done and re-runs
 (:data:`STAT_KEYS`) follow the snapshot/delta pattern; the task runtime
 merges each task's delta into ``io_metrics.json``.
 
-Not ported until ROADMAP Queue A item 11: the fault injector's forced
-spills (``kind="spill"`` at site ``publish``), the trace events
-(``handoff.publish`` / ``resolve`` / ``spill`` / ``demote``), digest
-sidecars on stored datasets, and request namespaces (the service plane's
-``admission.current_request``; :func:`_request_namespace` is None, as in
-the reference's batch mode).
+Faults and traces, as in the reference: a ``spill`` fault at site
+``publish`` forces the write-through of a target at birth (spill reason
+``fault``); an error or OOM at ``publish`` on the device rung falls the
+payload back to the host memory rung (``degraded:host_staged``); every
+publish and resolve is a trace instant (``handoff.publish``,
+``handoff.resolve``), every spill and demotion a span (``handoff.spill``,
+``handoff.demote``).  A spilled dataset is stored with digest sidecars
+and verified back.  Request namespaces (the service plane's
+``admission.current_request``) are ROADMAP item 11c:
+:func:`_request_namespace` is None, as in the reference's batch mode.
 """
 
 from __future__ import annotations
@@ -111,7 +115,7 @@ def handoff_budget() -> int:
 
 def _request_namespace() -> Optional[str]:
     """The running service request's id; always None until the service
-    plane (ROADMAP Queue A item 11) brings ``admission.current_request``."""
+    plane (ROADMAP Queue A item 11c) brings ``admission.current_request``."""
     return None
 
 
@@ -241,10 +245,15 @@ class HandoffRegistry:
             return self._entries.get(identity)
 
     def put(self, entry: _Entry) -> None:
-        # the reference emits a "handoff.publish" trace instant here (item 11)
         with self._lock:
             self._entries[entry.identity] = entry
             self._entries.move_to_end(entry.identity)
+        # every published target is an instant on the timeline, between
+        # the producer's and the consumer's task.run spans
+        from . import trace as trace_mod
+
+        trace_mod.instant("handoff.publish", identity=entry.identity, nbytes=int(entry.nbytes),
+                          spilled=bool(entry.spilled), kind=entry.kind)
 
     def spill_candidates(self) -> List[_Entry]:
         """Complete, resident, unclaimed host entries, oldest first."""
@@ -378,10 +387,16 @@ def _mem_headroom_ok(nbytes: int) -> bool:
     return avail is None or nbytes <= avail // 2
 
 
+def _force_spill() -> bool:
+    """The fault injector's ``spill`` fault at site ``publish``."""
+    from . import faults as faults_mod
+
+    return faults_mod.get_injector().force_spill()
+
+
 def _admit(nbytes: int) -> Optional[str]:
     """None when ``nbytes`` may live in memory, else the spill reason.
-    Flushes completed elders first to make room.  (The reference also asks
-    the fault injector for a forced spill here: item 11.)"""
+    Flushes completed elders first to make room."""
     budget = handoff_budget()
     if budget <= 0 or nbytes > budget:
         return "admission:budget"
@@ -430,7 +445,7 @@ def acquire_dataset(path: str, key: str, shape, chunks, dtype, producer: str,
         return store, entry
 
     nbytes = int(np.prod([int(s) for s in shape], dtype=np.int64)) * np.dtype(dtype).itemsize
-    reason = _admit(nbytes)
+    reason = "fault" if _force_spill() else _admit(nbytes)
     if reason is not None:
         # spill at birth: every block lands on storage; block-grain resume stays valid
         store = _file_reader(path).require_dataset(key, shape=shape, chunks=chunks, dtype=dtype)
@@ -458,14 +473,19 @@ def resolve_dataset(path: str, key: str):
     """Consumer-side resolve: the live in-memory handle of a handoff at
     ``(path, key)`` (counted ``handoffs_served``), the stored copy when it
     spilled (``handoff_fallbacks``), else the plain storage dataset."""
+    from . import trace as trace_mod
+
     reg = get_registry()
-    entry = reg.get(dataset_identity(path, key))
+    identity = dataset_identity(path, key)
+    entry = reg.get(identity)
     if entry is not None and entry.kind == "dataset":
         obj = entry.obj
         if not entry.spilled and obj is not None:
             reg.bump("handoffs_served")
+            trace_mod.instant("handoff.resolve", identity=identity, served="memory")
             return obj
         reg.bump("handoff_fallbacks")
+        trace_mod.instant("handoff.resolve", identity=identity, served="fallback")
     return _file_reader(path)[key]
 
 
@@ -548,7 +568,7 @@ def publish_arrays(path: str, arrays: Dict[str, np.ndarray], producer: str,
     identity = artifact_identity(path)
     frozen = _freeze(arrays)
     nbytes = sum(a.nbytes for a in frozen.values())
-    reason = _admit(nbytes)
+    reason = "fault" if _force_spill() else _admit(nbytes)
     entry = _Entry("arrays", identity, path, None, None, nbytes, producer, failures_path)
     entry.complete = True
     if reason is not None:
@@ -596,11 +616,13 @@ def publish_device_arrays(path: str, arrays: Dict[str, Any], producer: str, fail
     place afterwards.
 
     The ladder down: ``CTT_DEVICE_POOL=0`` -> the memory rung verbatim; a
-    resource failure (``torch.OutOfMemoryError`` while uploading, or the
-    device byte budget rejecting the payload after demoting elder entries)
-    -> one device-to-host copy and the memory rung, attributed
-    ``degraded:host_staged``."""
+    resource failure (``torch.OutOfMemoryError`` while uploading, the
+    fault injector's OOM at site ``publish``, or the device byte budget
+    rejecting the payload after demoting elder entries) -> one
+    device-to-host copy and the memory rung, attributed
+    ``degraded:host_staged``; another injected ``publish`` error raises."""
     from ..parallel import device_pool as device_pool_mod
+    from . import faults as faults_mod
     from .executor import classify_resource_error
 
     def _host(reason, err=None):
@@ -624,6 +646,7 @@ def publish_device_arrays(path: str, arrays: Dict[str, Any], producer: str, fail
     reg = get_registry()
     identity = artifact_identity(path)
     try:
+        faults_mod.get_injector().maybe_fail("publish", None)
         held: Dict[str, torch.Tensor] = {}
         nbytes = 0
         for name, a in arrays.items():
@@ -661,6 +684,7 @@ def resolve_device_arrays(path: str) -> Dict[str, Any]:
     device-plane counters, ``bytes_not_staged``), else the memory and
     storage rungs through :func:`load_arrays` (numpy arrays)."""
     from ..parallel import device_pool as device_pool_mod
+    from . import trace as trace_mod
 
     reg = get_registry()
     entry = reg.get(artifact_identity(path))
@@ -669,6 +693,7 @@ def resolve_device_arrays(path: str) -> Dict[str, Any]:
         reg.bump("device_handoffs_served")
         device_pool_mod.bump("device_handoffs_served")
         device_pool_mod.bump("bytes_not_staged", entry.nbytes)
+        trace_mod.instant("handoff.resolve", identity=entry.identity, served="device")
         return dict(entry.obj)
     return load_arrays(path)
 
@@ -680,19 +705,21 @@ def _demote_device_entry(entry: _Entry, reason: str) -> int:
     (0 when another thread holds the claim).  The entry stays resolvable
     throughout."""
     from ..parallel import device_pool as device_pool_mod
+    from . import trace as trace_mod
 
     reg = get_registry()
     if not reg.claim_spill(entry):
         return 0
     ok = False
     try:
-        host = {}
-        for name, a in entry.obj.items():
-            h = a.detach().cpu().numpy()
-            device_pool_mod.record_d2h(h.nbytes)
-            host[name] = h
-        frozen = _freeze(host)
-        crcs = {name: zlib.crc32(np.ascontiguousarray(a).tobytes()) for name, a in frozen.items()}
+        with trace_mod.span("handoff.demote", identity=entry.identity, reason=reason, nbytes=int(entry.nbytes)):
+            host = {}
+            for name, a in entry.obj.items():
+                h = a.detach().cpu().numpy()
+                device_pool_mod.record_d2h(h.nbytes)
+                host[name] = h
+            frozen = _freeze(host)
+            crcs = {name: zlib.crc32(np.ascontiguousarray(a).tobytes()) for name, a in frozen.items()}
         with reg._lock:
             entry.obj = frozen
             entry.device_crcs = crcs
@@ -729,6 +756,8 @@ def load_arrays(path: str) -> Dict[str, np.ndarray]:
     device-to-host copy), else the file, verified against its CRC sidecar
     when it was spilled (``handoff_fallbacks``).  Plain files load as they
     are."""
+    from . import trace as trace_mod
+
     reg = get_registry()
     entry = reg.get(artifact_identity(path))
     if entry is not None and entry.kind == "device_arrays":
@@ -737,8 +766,10 @@ def load_arrays(path: str) -> Dict[str, np.ndarray]:
         obj = entry.obj
         if not entry.spilled and obj is not None:
             reg.bump("handoffs_served")
+            trace_mod.instant("handoff.resolve", identity=entry.identity, served="memory")
             return _views(obj)
         reg.bump("handoff_fallbacks")
+        trace_mod.instant("handoff.resolve", identity=entry.identity, served="fallback")
     if _is_npy(path):
         out = {"data": np.load(path)}
     else:
@@ -786,6 +817,8 @@ def _spill_entry(entry: _Entry, reason: str) -> int:
     Returns the bytes freed (0 when another thread owns the entry, or the
     spill failed: the memory copy, still the only copy, stays).  The flags
     flip under the registry lock only after the copy landed."""
+    from . import trace as trace_mod
+
     reg = get_registry()
     if not reg.claim_spill(entry):
         return 0
@@ -793,13 +826,16 @@ def _spill_entry(entry: _Entry, reason: str) -> int:
     freed = 0
     ok = False
     try:
-        if entry.kind == "dataset":
-            freed = obj.spill()
-        else:
-            # demoted device entries carry the CRCs stamped at their first
-            # host copy: the spill verifies them
-            _write_artifact(entry.path, obj, expected_crcs=entry.device_crcs)
-            freed = entry.nbytes
+        # a spill is storage IO mid-pipeline: a span, so the timeline shows
+        # the stall it caused
+        with trace_mod.span("handoff.spill", identity=entry.identity, reason=reason, nbytes=int(entry.nbytes)):
+            if entry.kind == "dataset":
+                freed = obj.spill()
+            else:
+                # demoted device entries carry the CRCs stamped at their
+                # first host copy: the spill verifies them
+                _write_artifact(entry.path, obj, expected_crcs=entry.device_crcs)
+                freed = entry.nbytes
         ok = True
     except Exception:
         ok = False

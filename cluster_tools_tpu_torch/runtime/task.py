@@ -12,7 +12,17 @@ Targets: ``local`` runs on the CPU (the caller asks for it, as the tests
 do); ``gpu`` runs on the card and is the default of :class:`WorkflowBase`,
 so a workflow that names no target raises where there is no card.  The
 reference's cluster targets (``slurm``, ``lsf``) are ROADMAP Queue A item
-11.
+11b.
+
+Faults, traces and drain, as in the reference: each task sets the fault
+injector's current task and runs inside a ``task.run`` span; with
+``CTT_TRACE`` on, the run's spans shard into ``<tmp_folder>/trace/`` and
+:func:`build` (a ``task.build`` span) stitches ``trace.json`` and
+``trace_summary.json`` at its end.  :meth:`BaseTask.host_block_map` takes
+the hung-block deadline, the drain latch and post-store verification with
+lineage registration.  A drain (SIGTERM/SIGUSR1, or
+:func:`~.supervision.request_drain`) stops :func:`build` before its next
+task with :class:`~.supervision.DrainInterrupt`.
 
 Task-graph fusion (``memory_handoffs``, ``device_handoffs``; ROADMAP item
 9b): outputs declared through :meth:`BaseTask.handoff_dataset`,
@@ -37,6 +47,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 from ..utils import function_utils as fu
 from ..utils import task_utils as tu
+from . import trace as trace_mod
 from .executor import target_device
 
 
@@ -132,8 +143,13 @@ class BaseTask:
         task-graph fusion (:mod:`.handoff`).  ``solver_shards`` /
         ``reduce_fanout`` / ``solver_workers`` / ``reduce_plane`` /
         ``hop_deadline_s`` shard the global solves over the reduce tree
-        (:mod:`..parallel.reduce_tree`).  The others select machinery that
-        is not ported and are refused when turned on."""
+        (:mod:`..parallel.reduce_tree`).  ``block_deadline_s`` /
+        ``watchdog_period_s`` arm the hung-block watchdog (the executor and
+        :meth:`host_block_map`), and ``allow_block_split`` /
+        ``min_block_shape`` the degrade-and-split of the tasks whose
+        kernels are shape-local (inference, ilastik).  The heartbeat and
+        resubmission knobs belong to the cluster targets (ROADMAP item 11b)
+        and do nothing here."""
         return {
             "max_retries": 0,
             "retry_backoff_s": 1.0,
@@ -197,18 +213,39 @@ class BaseTask:
         from ..ops import contraction as contraction_mod
         from ..parallel import device_pool as device_pool_mod
         from ..parallel import reduce_tree as reduce_tree_mod
+        from . import faults as faults_mod
         from . import handoff as handoff_mod
 
         self.logger.info(f"start {self.task_name} (target={self.target})")
+        # the run's spans shard into <tmp_folder>/trace/ (an operator's
+        # CTT_TRACE=<dir> pin wins)
+        if trace_mod.enabled():
+            trace_mod.set_trace_dir(os.path.join(self.tmp_folder, trace_mod.TRACE_DIRNAME))
+        # the task.run span is the runtime_s clock and carries the
+        # dependency uids the summary's critical path walks
+        run_span = trace_mod.begin("task.run", task=self.uid, task_name=self.task_name,
+                                   deps=[d.uid for d in self.dependencies])
+        # fault specs with a "tasks" filter target the running task's uid
+        faults_mod.set_current_task(self.uid)
         io_snap = chunk_cache.snapshot()
         handoff_snap = handoff_mod.snapshot()
         device_snap = device_pool_mod.snapshot()
         solver_snap = contraction_mod.solver_snapshot()
         tree_snap = reduce_tree_mod.solve_snapshot()
-        t0 = time.perf_counter()
-        result = self.run_impl() or {}
-        handoff_records = self._finalize_handoffs()
-        result["runtime_s"] = time.perf_counter() - t0
+        ok = False
+        try:
+            result = self.run_impl() or {}
+            # inside the task context: forced spill faults filter on the
+            # producing task's uid
+            handoff_records = self._finalize_handoffs()
+            ok = True
+        finally:
+            faults_mod.set_current_task(None)
+            if not ok:
+                # a failed task's spans reach the timeline too
+                run_span.end(error=True)
+                self._flush_trace()
+        result["runtime_s"] = run_span.end()
         result["target"] = self.target
         if handoff_records:
             # the resume contract of complete(): a memory-only record whose
@@ -229,7 +266,22 @@ class BaseTask:
             except Exception:
                 self.logger.warning(f"io_metrics recording failed:\n{traceback.format_exc()}")
         self.output().write(result)
+        # flush this process's shard and restitch the timeline (throttled;
+        # build() always merges at its end)
+        self._flush_trace(merge=True)
         self.logger.info(f"done {self.task_name} in {result['runtime_s']:.2f}s")
+
+    def _flush_trace(self, merge: bool = False) -> None:
+        """Best-effort shard flush (and timeline merge): tracing never fails
+        a run."""
+        if not trace_mod.enabled():
+            return
+        try:
+            trace_mod.flush()
+            if merge:
+                trace_mod.write_timeline(self.tmp_folder, min_interval_s=trace_mod.MERGE_MIN_INTERVAL_S)
+        except Exception:
+            self.logger.warning(f"trace flush failed:\n{traceback.format_exc()}")
 
     def complete(self) -> bool:
         """The success manifest exists and every memory-only output it
@@ -420,55 +472,127 @@ class BaseTask:
 
         return handoff.finalize_task(self._memory_targets, self.uid)
 
-    def host_block_map(self, block_ids: Sequence[int], process, blocking=None) -> int:
+    def host_block_map(self, block_ids: Sequence[int], process, store_verify_fn=None, blocking=None) -> int:
         """Run ``process(block_id)`` for every block without a success marker
         on a pool of ``max_jobs`` host threads, marking each success.
 
-        Per-block retries (``io_retries`` / ``io_backoff_s``) and the sweep
-        order (``block_schedule``, Morton when ``blocking`` is given) come from
-        the task config.  Every failed block is recorded in ``failures.json``
-        and a RuntimeError names them all.  Returns the number of blocks run.
+        From the task config, as in the reference: per-block retries
+        (``io_retries`` / ``io_backoff_s``; a resource-classified failure,
+        OOM or ENOSPC, is not retried at the same size), the hung-block
+        deadline (``block_deadline_s`` / ``watchdog_period_s``: an overdue
+        block is recorded ``hung``, resolved if it finishes) and the sweep
+        order (``block_schedule``, Morton when ``blocking`` is given).  From
+        the call site: ``store_verify_fn(block)``, a post-store integrity
+        check (:func:`~.executor.region_verifier`; a corruption retries the
+        block, whose re-run re-writes it) that also registers the block's
+        lineage for repair, and ``blocking``.  A drain stops claiming
+        blocks and raises :class:`~.supervision.DrainInterrupt` once the
+        running ones are done.  Every failed block is recorded in
+        ``failures.json`` and a RuntimeError names them all.  Returns the
+        number of blocks run.
         """
-        from .executor import morton_order
+        from .executor import classify_resource_error, morton_order
+        from .supervision import DrainInterrupt, Watchdog, drain_reason, drain_requested
 
-        cfg = self.get_config()
-        if cfg.get("block_deadline_s"):
-            raise NotImplementedError("block_deadline_s (the hung-block watchdog) is not ported: "
-                                      "ROADMAP Queue A item 11")
+        try:
+            cfg = self.get_config()
+        except Exception:
+            cfg = {}
         io_retries = max(0, int(cfg.get("io_retries", 2) or 0))
         io_backoff = float(cfg.get("io_backoff_s", 0.05) or 0.0)
+        deadline = float(cfg.get("block_deadline_s") or 0.0)
+        period = cfg.get("watchdog_period_s")
         done = set(self.blocks_done())
         todo = [b for b in block_ids if b not in done]
         if blocking is not None and str(cfg.get("block_schedule") or "morton") == "morton":
             todo = [int(b.block_id) for b in morton_order([blocking.get_block(i) for i in todo])]
         errors: List[tuple] = []
+        skipped_for_drain: List[int] = []
+        hung: Dict[int, str] = {}
+        completed: set = set()
+        watchdog = None
+        if deadline > 0:
+            def _on_hung(token, info, elapsed):
+                hung[int(info["block_id"])] = (f"block exceeded block_deadline_s={deadline:g}s on the host path "
+                                               f"({elapsed:.2f}s elapsed)")
+
+            watchdog = Watchdog(deadline, float(period) if period else max(0.02, deadline / 4.0), _on_hung).start()
+
+        def register_lineage(block_id):
+            """A verified host store registers its recompute (re-run
+            ``process``, re-verify) for lineage repair; best effort."""
+            ds = getattr(store_verify_fn, "dataset", None)
+            if ds is None:
+                return
+            try:
+                from . import repair as repair_mod
+
+                bb_of = getattr(store_verify_fn, "bb_of", None) or (lambda b: b.bb)
+
+                def recompute(b=block_id):
+                    process(b)
+                    store_verify_fn(blocking.get_block(b))
+
+                repair_mod.register_producer(ds, bb_of(blocking.get_block(block_id)), recompute, task=self.uid,
+                                             block_id=int(block_id), failures_path=self.failures_path)
+            except Exception:
+                pass
 
         def wrapped(block_id):
-            last_tb = None
-            for k in range(io_retries + 1):
-                try:
-                    process(block_id)
-                except Exception:
-                    last_tb = fu.cap_traceback(traceback.format_exc())
-                    if k < io_retries:
-                        time.sleep(fu.backoff_delay(k, io_backoff, 5.0))
-                else:
-                    self.log_block_success(block_id)
-                    return
-            errors.append((block_id, last_tb, io_retries + 1))
+            if drain_requested():
+                # stop claiming blocks; the finished ones keep their markers
+                skipped_for_drain.append(block_id)
+                return
+            last_tb, attempts = None, 0
+            # the span covers the whole retry ladder
+            with trace_mod.span("host.block", block=int(block_id), task=self.uid):
+                for k in range(io_retries + 1):
+                    attempts = k + 1
+                    if watchdog is not None:
+                        watchdog.register((block_id, k), block_id=int(block_id), stage="host")
+                    try:
+                        process(block_id)
+                        if store_verify_fn is not None and blocking is not None:
+                            store_verify_fn(blocking.get_block(block_id))
+                    except Exception as e:
+                        last_tb = fu.cap_traceback(traceback.format_exc())
+                        if classify_resource_error(e) is not None:
+                            break  # a same-size retry re-runs the failed allocation
+                        if k < io_retries:
+                            time.sleep(fu.backoff_delay(k, io_backoff, 5.0))
+                    else:
+                        completed.add(block_id)
+                        self.log_block_success(block_id)
+                        if store_verify_fn is not None and blocking is not None:
+                            register_lineage(block_id)
+                        return
+                    finally:
+                        if watchdog is not None:
+                            watchdog.clear((block_id, k))
+            trace_mod.instant("fault:host", block=int(block_id), task=self.uid)
+            errors.append((block_id, last_tb, attempts))
 
-        with ThreadPoolExecutor(max_workers=max(1, self.max_jobs)) as pool:
-            list(pool.map(wrapped, todo))
+        try:
+            with ThreadPoolExecutor(max_workers=max(1, self.max_jobs)) as pool:
+                list(pool.map(wrapped, todo))
+        finally:
+            if watchdog is not None:
+                watchdog.stop()
+        records = [{"block_id": int(b), "sites": {"host": int(n)}, "error": tb, "quarantined": False,
+                    "resolved": False} for b, tb, n in sorted(errors)]
+        failed_ids = {b for b, _, _ in errors}
+        # a hung block that finished (and was marked) is resolved
+        records += [{"block_id": int(b), "sites": {"hung": 1}, "error": msg, "quarantined": False,
+                     "resolved": b in completed} for b, msg in sorted(hung.items()) if b not in failed_ids]
+        if records:
+            fu.record_failures(self.failures_path, self.uid, records)
+        if skipped_for_drain:
+            # a drain outranks block errors: the resumed run retries them
+            raise DrainInterrupt(drain_reason() or "drain requested", skipped_for_drain + sorted(failed_ids))
         if errors:
-            fu.record_failures(self.failures_path, self.uid, [
-                {"block_id": int(b), "sites": {"host": int(n)}, "error": tb,
-                 "quarantined": False, "resolved": False}
-                for b, tb, n in sorted(errors)
-            ])
-            failed_ids = sorted(b for b, _, _ in errors)
             detail = "\n".join(f"-- block {b} --\n{tb}" for b, tb, _ in errors[:5])
             raise RuntimeError(
-                f"{self.task_name}: {len(errors)}/{len(todo)} blocks failed (ids: {failed_ids}); "
+                f"{self.task_name}: {len(errors)}/{len(todo)} blocks failed (ids: {sorted(failed_ids)}); "
                 f"see {self.failures_path}; first tracebacks:\n{detail}"
             )
         return len(todo)
@@ -496,7 +620,7 @@ _CLUSTER_TARGETS = ("slurm", "lsf")
 def _check_target(target: str) -> None:
     if target in _CLUSTER_TARGETS:
         raise NotImplementedError(
-            f"target {target!r} (batch-cluster submission) is not ported: ROADMAP Queue A item 11"
+            f"target {target!r} (batch-cluster submission) is not ported: ROADMAP Queue A item 11b"
         )
     if target not in _TARGET_SUFFIX:
         raise ValueError(f"unknown target {target!r}, expected one of {sorted(_TARGET_SUFFIX)}")
@@ -562,8 +686,14 @@ def build(tasks: Sequence[BaseTask], rerun: bool = False) -> bool:
     Dependencies run first; a task whose success target exists is skipped
     (idempotent resume).  A failed task (after its retries) skips only its
     dependents.  Returns True only if every task succeeded.  A refused
-    option (``NotImplementedError``) propagates.
+    option (``NotImplementedError``) propagates; so does a drain
+    (:class:`~.supervision.DrainInterrupt`, checked before each task).  The
+    ``task_done`` kill point fires after each finished task, and with
+    tracing on the run's timeline is written at the end.
     """
+    from . import faults as faults_mod
+    from .supervision import DrainInterrupt, drain_reason, drain_requested
+
     order: List[BaseTask] = []
     seen = set()
     deps_of: Dict[tuple, List[tuple]] = {}
@@ -587,6 +717,9 @@ def build(tasks: Sequence[BaseTask], rerun: bool = False) -> bool:
     for t in tasks:
         visit(t, ())
 
+    # brackets every task.run of this build: the timeline shows the gaps
+    # between tasks too
+    build_span = trace_mod.begin("task.build", n_tasks=len(order))
     failed: set = set()
     for task in order:
         key = _key(task)
@@ -598,6 +731,19 @@ def build(tasks: Sequence[BaseTask], rerun: bool = False) -> bool:
             task.logger.error(f"skip {task.task_name}: upstream failed ({[d[0] for d in blocked]})")
             failed.add(key)
             continue
-        if not _run_with_retries(task):
+        if drain_requested():
+            raise DrainInterrupt(drain_reason() or "drain requested")
+        if _run_with_retries(task):
+            faults_mod.get_injector().kill_point("task_done")
+        else:
             failed.add(key)
+    build_span.end(n_failed=len(failed))
+    if trace_mod.enabled() and order:
+        # the build span reaches the timeline through the last task's
+        # tmp_folder, where the run's shard directory lives
+        try:
+            trace_mod.flush()
+            trace_mod.write_timeline(order[-1].tmp_folder)
+        except Exception:
+            pass
     return not failed

@@ -24,7 +24,7 @@ import torch
 from ..ops.ccl import _neighbor_offsets, label_components_batched, label_components_keyed_tensor
 from ..ops.unionfind import union_find_host, union_find_tensor
 from ..runtime import handoff
-from ..runtime.executor import BlockwiseExecutor, sweep_config, validate_labels
+from ..runtime.executor import BlockwiseExecutor, region_verifier, sweep_config, validate_labels
 from ..runtime.task import BaseTask, WorkflowBase, get_task_cls
 from ..utils.volume_utils import Blocking, blocks_in_volume, file_reader, pad_block_to
 
@@ -129,7 +129,11 @@ class BlockComponentsBase(BaseTask):
             kernel, blocks_all, load, store,
             on_block_done=lambda b: self.log_block_success(b.block_id),
             done_block_ids=done, validate_fn=validate_labels, failures_path=self.failures_path,
-            task_name=self.uid, **sweep_config(cfg),
+            task_name=self.uid, store_verify_fn=region_verifier(out),
+            # never splittable: the per-block CC decomposition (and the
+            # min-voxel label of a component crossing a would-be split
+            # plane) changes under sub-block re-execution
+            splittable=False, **sweep_config(cfg),
         )
         return {"n_blocks": len(block_ids), "shape": list(shape), "sweep": sweep}
 

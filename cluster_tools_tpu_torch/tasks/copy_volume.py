@@ -10,6 +10,7 @@ port yet.)
 
 from __future__ import annotations
 
+from ..runtime.executor import region_verifier
 from ..runtime.task import BaseTask
 from ..utils.volume_utils import Blocking, blocks_in_volume, file_reader
 
@@ -33,13 +34,17 @@ class CopyVolumeBase(BaseTask):
         roi_lo = tuple(int(b) for b in (roi_begin or [0] * len(shape)))
         roi_hi = tuple(int(e) for e in (roi_end if roi_end is not None else shape))
 
+        def out_bb(block):
+            # clipped to the ROI: blocks straddling its edge copy only the
+            # inside, and the verifier checks the region that was written
+            return tuple(slice(max(b.start, lo), min(b.stop, hi)) for b, lo, hi in zip(block.bb, roi_lo, roi_hi))
+
         def process(block_id):
-            # clipped to the ROI: blocks straddling its edge copy only the inside
-            bb = tuple(slice(max(b.start, lo), min(b.stop, hi))
-                       for b, lo, hi in zip(blocking.get_block(block_id).bb, roi_lo, roi_hi))
+            bb = out_bb(blocking.get_block(block_id))
             out[bb] = inp[bb]
 
-        n = self.host_block_map(block_ids, process, blocking=blocking)
+        n = self.host_block_map(block_ids, process, store_verify_fn=region_verifier(out, bb_of=out_bb),
+                                blocking=blocking)
         return {"n_blocks": n, "shape": list(shape), "dtype": str(inp.dtype)}
 
 

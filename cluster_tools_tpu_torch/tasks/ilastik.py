@@ -33,7 +33,7 @@ from ..ops.filters import (
     structure_tensor_eigenvalues_tensor,
 )
 from ..runtime import handoff
-from ..runtime.executor import BlockwiseExecutor, sweep_config
+from ..runtime.executor import BlockwiseExecutor, is_sub_block, region_verifier, sweep_config
 from ..runtime.task import BaseTask, WorkflowBase, get_task_cls
 from ..utils.volume_utils import Blocking, blocks_in_volume, pad_block_to
 
@@ -204,6 +204,9 @@ class IlastikPredictionBase(BaseTask):
 
         def load(block):
             data = np.asarray(inp[block.outer_bb]).astype(np.float32)
+            if is_sub_block(block):
+                # a degrade-split fragment keeps its own, smaller shape
+                return (data,)
             return (pad_block_to(data, outer, mode="edge"),)
 
         def kernel(x):
@@ -217,7 +220,13 @@ class IlastikPredictionBase(BaseTask):
         # corrupted by a bad forest or a feature overflow
         sweep = BlockwiseExecutor.for_task(self.target, cfg, self.max_jobs).map_blocks(
             kernel, blocks_all, load, store, on_block_done=lambda b: self.log_block_success(b.block_id),
-            done_block_ids=done, failures_path=self.failures_path, task_name=self.uid, **sweep_config(cfg),
+            done_block_ids=done, failures_path=self.failures_path, task_name=self.uid,
+            store_verify_fn=region_verifier(out, bb_of=lambda b: (slice(None),) + b.bb),
+            # opt-in OOM split: the filter bank and the per-voxel classifier
+            # are shape-local, so the sub-block outputs tile the parent when
+            # the halo covers the largest filter support
+            splittable=bool(cfg.get("allow_block_split", False)), split_halo=halo,
+            min_block_shape=cfg.get("min_block_shape"), **sweep_config(cfg),
         )
         return {"n_blocks": len(todo), "n_classes": int(n_classes), "sweep": sweep}
 

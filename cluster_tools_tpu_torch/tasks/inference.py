@@ -33,7 +33,7 @@ from ..models import get_model
 from ..models.flax_import import flax_to_state_dict, state_dict_to_flax
 from ..models.torch_import import import_torch_unet, load_torch_checkpoint
 from ..runtime import handoff
-from ..runtime.executor import BlockwiseExecutor, sweep_config
+from ..runtime.executor import BlockwiseExecutor, is_sub_block, region_verifier, sweep_config
 from ..runtime.task import BaseTask, WorkflowBase, get_task_cls
 from ..utils.volume_utils import Blocking, blocks_in_volume, pad_block_to
 
@@ -141,7 +141,8 @@ class InferenceBase(BaseTask):
         pct = cfg.get("normalize_percentile")
         rng_norm = cfg.get("normalize_range")
         activation = cfg.get("activation", "sigmoid")
-        if bool(cfg.get("allow_block_split", False)) and rng_norm is None:
+        allow_split = bool(cfg.get("allow_block_split", False))
+        if allow_split and rng_norm is None:
             # per-block statistics change with the read region: only a
             # fixed range is split-safe
             raise ValueError("allow_block_split=True requires normalize_range (per-block percentile/min-max "
@@ -149,7 +150,11 @@ class InferenceBase(BaseTask):
 
         def load(block):
             data = normalize(np.asarray(inp[block.outer_bb]).astype(np.float32), pct, rng_norm)
-            return (pad_block_to(data, outer)[None],)
+            # a degrade-split fragment pads to its own U-Net multiple: it
+            # never enters a stacked batch, and the smaller allocation is
+            # the point of the split
+            target = tuple(_round_up(s, mult) for s in data.shape) if is_sub_block(block) else outer
+            return (pad_block_to(data, target)[None],)
 
         def kernel(x):
             # any other activation returns the logits, as in the reference
@@ -169,7 +174,14 @@ class InferenceBase(BaseTask):
         # bad kernel or checkpoint corrupts
         sweep = BlockwiseExecutor.for_task(self.target, cfg, self.max_jobs).map_blocks(
             kernel, blocks_all, load, store, on_block_done=lambda b: self.log_block_success(b.block_id),
-            done_block_ids=done, failures_path=self.failures_path, task_name=self.uid, **sweep_config(cfg),
+            done_block_ids=done, failures_path=self.failures_path, task_name=self.uid,
+            store_verify_fn=region_verifier(out, bb_of=lambda b: (slice(None),) + b.bb),
+            # opt-in OOM split: the convolutions are shape-local, so the
+            # sub-block outputs tile the parent's region when the halo
+            # covers the receptive field and the normalization range is
+            # fixed (checked above)
+            splittable=allow_split, split_halo=halo, min_block_shape=cfg.get("min_block_shape"),
+            **sweep_config(cfg),
         )
         return {"n_blocks": len(todo), "out_channels": out_channels,
                 "model": (cfg.get("model") or {}).get("name", "unet3d"), "sweep": sweep}

@@ -36,7 +36,7 @@ import numpy as np
 from ..ops.tile_ws import dt_watershed_lanes, dt_watershed_seeded_tiled, dt_watershed_tiled
 from ..ops.watershed import distance_transform_watershed, dt_watershed_seeded, filter_small_segments
 from ..runtime import handoff
-from ..runtime.executor import BlockwiseExecutor, sweep_config, validate_labels
+from ..runtime.executor import BlockwiseExecutor, region_verifier, sweep_config, validate_labels
 from ..runtime.task import BaseTask, WorkflowBase, get_task_cls
 from ..utils.volume_utils import Blocking, blocks_in_volume, file_reader, pad_block_to
 
@@ -247,7 +247,11 @@ class WatershedBase(_WsTaskBase):
         sweep = BlockwiseExecutor.for_task(self.target, cfg, self.max_jobs).map_blocks(
             kernel, blocks_all, load, store, on_block_done=block_done,
             done_block_ids=done, validate_fn=validate_labels, failures_path=self.failures_path,
-            task_name=self.uid, **sweep_config(cfg),
+            task_name=self.uid, store_verify_fn=region_verifier(out),
+            # never splittable: the label encoding (block_id * (n_outer + 1)
+            # + flat index in the static outer block) depends on the outer
+            # shape, so a sub-block re-run could not reproduce the labels
+            splittable=False, **sweep_config(cfg),
         )
         return {"n_blocks": len(block_ids), "n_outer": n_outer, "overflow_blocks": sorted(overflow_blocks),
                 "sweep": sweep}
@@ -389,7 +393,11 @@ class TwoPassWatershedBase(_WsTaskBase):
         sweep = BlockwiseExecutor.for_task(self.target, cfg, self.max_jobs).map_blocks(
             kernel, blocks_all, load, store, on_block_done=block_done,
             done_block_ids=done, validate_fn=validate_labels, failures_path=self.failures_path,
-            task_name=self.uid, **sweep_config(cfg),
+            task_name=self.uid, store_verify_fn=region_verifier(out),
+            # never splittable: the label encoding (block_id * (n_outer + 1)
+            # + flat index in the static outer block) depends on the outer
+            # shape, so a sub-block re-run could not reproduce the labels
+            splittable=False, **sweep_config(cfg),
         )
         return {"n_blocks": len(block_ids), "n_outer": n_outer, "overflow_blocks": sorted(overflow_blocks),
                 "sweep": sweep}

@@ -40,6 +40,10 @@ def get_logger(name: str = "cluster_tools_tpu_torch", log_file: Optional[str] = 
         return logger
 
 
+def log(msg: str, log_file: Optional[str] = None):
+    get_logger(log_file=log_file).info(msg)
+
+
 def atomic_write_json(path: str, doc, default=None) -> None:
     """Write JSON via a temp file + ``os.replace``: readers never observe a
     torn document."""

@@ -3,12 +3,11 @@ the ``MemoryTarget`` layer of ``runtime/task.py``, ``HandoffDataset``).
 
 The registry and runtime scenarios of the reference's ``tests/test_handoff.py``
 run on the port with the same assertions, case for case (the line of the
-reference test is named in each docstring).  The reference forces its spills
-with the fault injector (ROADMAP Queue A item 11); here a spill is forced by
-the byte budget (``CTT_HANDOFF_BYTES``) or, for a failing storage write, by a
-monkeypatched write.  The port's stores carry no digest sidecars (item 11),
-so a spilled dataset is checked by its read-back against the in-memory
-CRC32s.  Then the port against the JAX package (the cc workflow with
+reference test is named in each docstring).  Here a spill is forced by the
+byte budget (``CTT_HANDOFF_BYTES``) or, for a failing storage write, by a
+monkeypatched write; the fault injector's forced spills are in
+``tests/test_torch_integrity.py``.  A spilled dataset is verified back
+against the digest sidecars its write recorded.  Then the port against the JAX package (the cc workflow with
 handoffs on, spilled and unspilled), the port's fused multicut chain, and the
 executor's admission gate.
 """
@@ -330,12 +329,13 @@ def test_failed_spill_retry_reflushes_every_region(tmp_path, monkeypatch):
 
 def test_spill_read_back_mismatch_keeps_the_memory_copy(tmp_path, monkeypatch):
     """A stored chunk that reads back unlike the in-memory bytes fails the
-    spill: the entry stays live and serves the right bytes."""
+    spill's verification against its sidecar: the entry stays live and
+    serves the right bytes."""
     path, ds, entry = _mk_handoff(tmp_path)
     ds[0:4, 0:4, 0:4] = np.full((4, 4, 4), 3, np.uint64)
     entry.complete = True
-    real = pcont.ZarrDataset.__getitem__
-    monkeypatch.setattr(pcont.ZarrDataset, "__getitem__", lambda self, bb: real(self, bb) + np.uint64(1))
+    real = pcont.ZarrDataset._read_back
+    monkeypatch.setattr(pcont.ZarrDataset, "_read_back", lambda self, bb: real(self, bb) + np.uint64(1))
     assert handoff.spill_for_headroom() == 0
     assert not entry.spilled and handoff.resolve_dataset(path, "a") is ds
     np.testing.assert_array_equal(ds[0:4, 0:4, 0:4], np.full((4, 4, 4), 3, np.uint64))

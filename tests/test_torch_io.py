@@ -171,7 +171,7 @@ def test_get_task_cls_maps_targets(module, name):
     assert get_task_cls(module, name, "gpu") is getattr(module, name + "GPU")
     assert get_task_cls(module, name, "local").target == "local"
     assert get_task_cls(module, name, "gpu").target == "gpu"
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 11b"):
         get_task_cls(module, name, "slurm")
     with pytest.raises(ValueError):
         get_task_cls(module, name, "tpu")
@@ -198,16 +198,17 @@ def _small_workspace(tmp_path, global_config):
 
 
 REFUSED = [
-    # degrade-and-split rides the fault plane (item 11); memory_handoffs,
-    # refused here until task-graph fusion was ported, runs in NOW_PORTED
-    ("cc", {"allow_block_split": True}, {}, "item 11"),
-    ("cc", {"block_deadline_s": 5.0}, {}, "item 11"),
+    # memory_handoffs, allow_block_split and block_deadline_s, refused here
+    # until their machinery was ported, run in NOW_PORTED
+    # (the ids keep the names these cases had beside them)
     # impl="host" runs (tests/test_torch_host.py); its refusals stay
-    ("ws", {}, {"impl": "host", "sigma_seeds": 1.0}, "sigma_seeds"),
+    pytest.param("ws", {}, {"impl": "host", "sigma_seeds": 1.0}, "sigma_seeds",
+                 id="ws-global_config2-params2-sigma_seeds"),
     # the in-block agglomeration is single-pass only, as in the reference
-    ("ws", {}, {"agglomerate_threshold": 0.3, "pass_parity": 0}, "pass_parity"),
-    ("ws2", {}, {"impl": "host"}, "two-pass"),
-    ("ws2", {}, {"agglomerate_threshold": 0.3}, "two_pass"),
+    pytest.param("ws", {}, {"agglomerate_threshold": 0.3, "pass_parity": 0}, "pass_parity",
+                 id="ws-global_config3-params3-pass_parity"),
+    pytest.param("ws2", {}, {"impl": "host"}, "two-pass", id="ws2-global_config4-params4-two-pass"),
+    pytest.param("ws2", {}, {"agglomerate_threshold": 0.3}, "two_pass", id="ws2-global_config5-params5-two_pass"),
 ]
 
 
@@ -233,11 +234,26 @@ NOW_PORTED = [
     # task-graph fusion: the provisional labels and the artifacts stay in
     # memory, the final labels equal the all-storage run's
     ("cc", {"memory_handoffs": True}, {}),
+    # the hardening knobs: cc takes allow_block_split (it passes
+    # splittable=False, as the reference's does) and the watchdog
+    ("cc", {"allow_block_split": True}, {}),
+    ("cc", {"block_deadline_s": 5.0}, {}),
 ]
 
 
+@pytest.fixture
+def _no_live_handoffs():
+    """The memory-handoff case leaves its registry entries live for the
+    process's later readers; tests elsewhere in the process (the automatic
+    in-flight budget subtracts live handoff bytes) must not see them."""
+    from cluster_tools_tpu_torch.runtime import handoff
+
+    yield
+    handoff.reset()
+
+
 @pytest.mark.parametrize("kind,global_config,params", NOW_PORTED)
-def test_ported_sweep_modes_equal_per_block(tmp_path, kind, global_config, params):
+def test_ported_sweep_modes_equal_per_block(tmp_path, kind, global_config, params, _no_live_handoffs):
     outs = []
     for tag, gc in (("pb", {"sweep_mode": "per_block"}), ("mode", global_config)):
         base = tmp_path / tag
@@ -257,13 +273,26 @@ def test_ported_sweep_modes_equal_per_block(tmp_path, kind, global_config, param
     assert outs[0].max() > 0
 
 
-@pytest.mark.parametrize("kwargs,item", [({"block_deadline_s": 1.0}, "item 11"),
-                                         ({"splittable": True}, "item 11"),
-                                         ({"store_verify_fn": lambda b: None}, "item 11")])
-def test_executor_refuses_unported_modes(kwargs, item):
-    blocks = [pvu.Blocking((4,), (2,)).get_block(0)]
-    with pytest.raises(NotImplementedError, match=item):
-        pex.BlockwiseExecutor(target="local").map_blocks(lambda x: x, blocks, lambda b: (np.zeros(2),), **kwargs)
+@pytest.mark.parametrize("kwargs", [{"block_deadline_s": 1.0}, {"splittable": True},
+                                    {"store_verify_fn": lambda b: None}])
+def test_executor_takes_the_hardening_knobs(kwargs):
+    """The knobs the executor refused before the fault plane was ported:
+    a fault-free sweep with each equals the plain sweep."""
+    blocks = [pvu.Blocking((4,), (2,)).get_block(b) for b in range(2)]
+    vol = np.arange(4, dtype=np.float32)
+    outs = []
+    for kw in ({}, kwargs):
+        out = np.zeros_like(vol)
+
+        def store(b, o, out=out):
+            out[b.bb] = o
+
+        summary = pex.BlockwiseExecutor(target="local").map_blocks(lambda x: x + 1, blocks, lambda b: (vol[b.bb],),
+                                                                   store, **kw)
+        outs.append(out)
+    np.testing.assert_array_equal(outs[0], outs[1])
+    np.testing.assert_array_equal(outs[0], vol + 1)
+    assert summary["n_quarantined"] == 0
 
 
 @pytest.mark.parametrize("kwargs", [{"sweep_mode": "sharded"}, {"sweep_mode": "sharded", "ragged": "on"},

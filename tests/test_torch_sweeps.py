@@ -286,10 +286,10 @@ def test_auto_resolves_as_the_reference_and_mixed_shapes_pack():
 
 
 def test_batch_oom_runs_per_block_as_degraded_unsharded(tmp_path):
-    """A batch whose call raises ``torch.OutOfMemoryError`` re-runs its
-    blocks one by one through the same kernel, attributed
-    ``degraded:unsharded``; another error quarantines the batch's blocks,
-    and the quarantine pass resolves them alone."""
+    """A batch whose call raises (``torch.OutOfMemoryError`` or another
+    error) quarantines its blocks at the ``dispatch`` site, as in the
+    reference, and the quarantine pass runs them one by one through the
+    same kernel, attributed ``degraded:unsharded``."""
     vol = _f(np.random.default_rng(2), (48, 48, 48))
     blocks = _grid()
     outer = (24, 24, 24)
@@ -310,8 +310,7 @@ def test_batch_oom_runs_per_block_as_degraded_unsharded(tmp_path):
         np.testing.assert_array_equal(ref, got)
         recs = json.load(open(fp))["records"]
         assert len(recs) == 8 and all(r["resolved"] and r["resolution"] == resolution for r in recs)
-        site = "dispatch" if exc is torch.OutOfMemoryError else "compute"
-        assert all(site in r["sites"] for r in recs)
+        assert all("dispatch" in r["sites"] for r in recs)
         assert s["n_unsharded"] == 8
 
 
