@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cluster_tools_tpu_torch``) on one GPU.
 
-Usage: ``python3 chip_smoke.py [--seed 0]``
+Usage: ``python3 chip_smoke.py [--seed 0] [--only faults|serve]``
 
 Phases, each one line of output, each raising on failure:
 
@@ -174,6 +174,22 @@ Phases, each one line of output, each raising on failure:
     port's N5 with it on, each equal to the chain's watershed, the cached
     arms missing each distinct chunk of the sweep once.  The kernel rows
     gain ``fusion_launches`` and ``cache_launches``;
+13a. serve (``phase_serve``; alone with ``--only serve``): the resident
+    pipeline server on the card (ROADMAP item 11c), from the port's zarr
+    on local disk holding phase 10's boundary map and mask.  An in-process
+    ``PipelineServer`` with tenants alice and bob: alice's single-pass
+    watershed (no target: the card) beside bob's cc, both equal to phase
+    10's labels bit for bit; alice's warm resubmission (chunk-cache hits,
+    no miss, the same labels); a flipped voxel in one stored chunk of the
+    watershed's output found and repaired from lineage by one scrubber
+    pass (``scrub_state.json`` one finding, one repair); then
+    ``python -m cluster_tools_tpu_torch.serve`` as a child, SIGTERM at its
+    watershed's first block markers (exit 114) and a restart that replays
+    the journal to ``done`` with the same labels; ``GET /status`` rc 0 and
+    no live handoff entry on both servers.  Per request the wall,
+    ``queued_s``, ``run_s``, voxels/s, peak GB and the launches counted
+    under it (each watershed request launches B1-B4); the kernel rows
+    gain ``serve_launches`` (by request);
 14. inference (``phase_inference``): ``InferenceWorkflow`` with the
     full-width U-Net (base 16, depth 2, GroupNorm, bfloat16; seeded weights
     saved with the port's ``save_checkpoint`` and read back from the npz) on
@@ -256,8 +272,9 @@ AGG_WS_CROP = 128
 REDUCE_SHARDS = 8
 REDUCE_POOL_BYTES = 8 << 30
 # the default multicut workflow (its own watershed, gaec_parallel subproblems,
-# the Kernighan-Lin global solve on the host C++ rung) at full width
-MC_DEFAULT_CROP = 512
+# the Kernighan-Lin global solve on the host C++ rung): cut from 512^3 to
+# 384^3 (30.4 s at 512^3) to pay for the "serve" phase
+MC_DEFAULT_CROP = 384
 # the "native" phase: each host C++ function against its Python path on the
 # default workflow's graph, features and reduced problem at this crop (block
 # half of it), the EDT and the flood on a block of this edge, and the mutex
@@ -595,11 +612,14 @@ def bw_run(K, tmp_root: str, tag: str, workflow_cls, block_shape, global_config=
 
 
 def bw_timed(K, tmp_root: str, tag: str, workflow_cls, block_shape, voxels: int, n_blocks: int,
-             phase: str = "blockwise", global_config=None, **params) -> dict:
-    """A warm-up and one timed run (two until the host C++ rung's phases
-    needed the time); prints the workflow's line (under ``phase``) and
-    returns the timed run's record."""
-    bw_run(K, tmp_root, tag, workflow_cls, block_shape, global_config, **params)
+             phase: str = "blockwise", global_config=None, warm_up: bool = True, **params) -> dict:
+    """A warm-up (unless ``warm_up=False``: the per-block sweeps and the
+    ilastik arms run without one since the "serve" phase needed the time)
+    and one timed run (two until the host C++ rung's phases needed the
+    time); prints the workflow's line (under ``phase``) and returns the
+    timed run's record."""
+    if warm_up:
+        bw_run(K, tmp_root, tag, workflow_cls, block_shape, global_config, **params)
     rec = bw_run(K, tmp_root, tag, workflow_cls, block_shape, global_config, **params)
     sw = rec["sweep"]
     log(phase, f"{tag}: {voxels} voxels, {n_blocks} blocks; wall {rec['wall_s']:.3f} s = "
@@ -783,7 +803,8 @@ def phase_sweeps(K, mem: str, auto: dict, main_s_per_voxel: float, rows: list, b
                 raise AssertionError(f"sweeps {tag}: sweep_mode='auto' ran {st['modes']} with rungs {st['rungs']}, "
                                      "expected sharded with the batched rung")
             pb = bw_timed(K, tmp_root, f"{tag}-per_block", cls, block, voxels, n_blocks, phase="sweeps",
-                          global_config={"sweep_mode": "per_block"}, output_key=f"{tag}_pb", **params, **io)
+                          global_config={"sweep_mode": "per_block"}, warm_up=False, output_key=f"{tag}_pb",
+                          **params, **io)
             st_pb = sweep_stats(pb)
             if st_pb["modes"] != ["per_block"]:
                 raise AssertionError(f"sweeps {tag}: per_block ran {st_pb['modes']}")
@@ -2642,8 +2663,8 @@ def phase_inference(K, vol: torch.Tensor, rows: list, seed: int, block=(128, 128
         for tag, ckpt_i in (("ilastik-linear", linear), ("ilastik-forest", forest)):
             key = tag.replace("-", "_")
             rec = bw_timed(K, tmp_root, tag, il.IlastikPredictionWorkflow, block, voxels, n_blocks,
-                           phase="inference", input_path=mem, input_key="raw", output_path=mem, output_key=key,
-                           checkpoint_path=ckpt_i)
+                           phase="inference", warm_up=False, input_path=mem, input_key="raw", output_path=mem,
+                           output_key=key, checkpoint_path=ckpt_i)
             launches.update(rec["launches"])
             probs = f[key]
             s_err = float((torch.from_numpy(probs[...]).cuda().sum(0) - 1.0).abs().max())
@@ -2670,6 +2691,289 @@ def phase_inference(K, vol: torch.Tensor, rows: list, seed: int, block=(128, 128
         raise AssertionError(f"inference: the prediction workflows launched hand kernels: {dict(launches)}")
     del MemoryContainer._registry[mem]
     log("inference", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+SERVE_BLOCK = (128, 128, 128)
+# the chunk cache's budget in the "serve" phase: the resident working set
+# of both tenants (inputs, 640 MiB, and the intermediates the handoff
+# budget spills to disk) must fit for the warm request to miss nothing
+SERVE_CACHE_BYTES = 8 << 30
+# the watershed of the "blockwise" phase (halo 32, threshold 0.45, EDT cap 32,
+# min seed distance 2) as a request's params
+SERVE_WS = dict(halo=[32, 32, 32], threshold=0.45, dt_max_distance=32.0, min_seed_distance=2.0)
+
+
+def serve_reference(mem: str) -> dict:
+    """The "blockwise" phase's single-pass watershed and cc labels, kept as
+    numpy for the "serve" phase (the ``memory://`` container is dropped
+    by "multicut")."""
+    from cluster_tools_tpu_torch.io.containers import open_container
+
+    f = open_container(mem)
+    return {"ws": f["ws"][...], "cc": f["cc"][...]}
+
+
+def serve_payload(tenant: str, rid: str, workflow: str, out_key: str, block=SERVE_BLOCK, **params) -> dict:
+    """A request naming no target (the card), ``max_jobs=8`` as the other
+    phases run their workflows."""
+    return dict(tenant=tenant, request_id=rid, workflow=workflow,
+                config=dict(max_jobs=8, global_config={"block_shape": list(block)},
+                            params=dict(params, output_key=out_key)))
+
+
+def serve_line(tag: str, rec: dict, wall: float, voxels: int, peak: str, card: str) -> None:
+    """One request's line; its tasks' seconds come from their success
+    manifests, the rest of ``run_s`` is the build's own work and the
+    flush of the request's handoffs to storage."""
+    from cluster_tools_tpu_torch.utils.parse_utils import parse_runtimes
+
+    tasks = {doc["task"]: doc.get("runtime_s", 0.0) for doc in parse_runtimes(rec["tmp_folder"]).values()}
+    log("serve", f"{tag} ({rec['workflow']}, tenant {rec['tenant']}): {rec['state']}; wall {wall:.3f} s, "
+                 f"queued {rec['queued_s']:.3f} s, run {rec['run_s']:.3f} s = {voxels / rec['run_s']:.4g} voxels/s "
+                 f"(tasks {', '.join(f'{k} {v:.3f}' for k, v in tasks.items())} s; flush and the rest "
+                 f"{rec['run_s'] - sum(tasks.values()):.3f} s); peak {peak}; launches "
+                 f"{rec.get('kernel_launches', {})} [{card}]")
+
+
+def spawn_server(base: str, log_path: str):
+    """``python -m cluster_tools_tpu_torch.serve`` in ``base``, its output in
+    ``log_path``; returns the process once its endpoint file exists."""
+    endpoint = os.path.join(base, "server.json")
+    if os.path.exists(endpoint):
+        os.remove(endpoint)
+    with open(log_path, "a") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "cluster_tools_tpu_torch.serve", "--base-dir", base,
+                                 "--max-workers", "1"], cwd=os.path.dirname(os.path.abspath(__file__)),
+                                stdout=out, stderr=subprocess.STDOUT)
+    deadline = time.monotonic() + 180
+    while not os.path.exists(endpoint):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError(f"serve: the server child never came up (rc {proc.poll()}):\n"
+                                 + open(log_path).read()[-3000:])
+        time.sleep(0.05)
+    return proc
+
+
+def phase_serve(K, vol: torch.Tensor, ref: dict, rows: list, block=SERVE_BLOCK) -> None:
+    """The resident pipeline server on the card (ROADMAP item 11c), from the
+    port's zarr on local disk (zlib level 1, chunks 128^3, digest sidecars
+    on) holding the main path's 512^3 boundary map and its mask
+    (``< 0.45``), in its own base directories under a temporary root.
+
+    1. An in-process ``PipelineServer`` (tenants alice and bob, two
+       workers; the scrubber driven by hand): alice's single-pass watershed
+       (block 128^3, ``auto``, no target: the card) and bob's connected
+       components of the mask, submitted together; both ``done``, the
+       watershed equal to the "blockwise" phase's bit for bit, the cc equal
+       to its cc (held there against ``scipy.ndimage.label``) bit for bit.
+       Then alice resubmits the watershed: chunk-cache hits and no miss in
+       its ``io_metrics.json``, the same labels.
+    2. The scrubber: a voxel of one stored chunk of the first watershed's
+       output is flipped on disk (sidecar untouched); one scrubber pass
+       finds it and repairs it from the in-process lineage (which moved to
+       the stored copy when the request's namespace was flushed); the store
+       reads back equal to the clean labels and ``scrub_state.json`` counts
+       one finding and one repair.
+    3. ``python -m cluster_tools_tpu_torch.serve`` as a child: a watershed
+       submitted, SIGTERM at its first block markers, exit 114, a restart
+       in the same base directory replays the journal (accepted, dispatched,
+       drained) and the request ends ``done`` with the same labels.
+    4. ``GET /status`` of both servers: rc 0, no live handoff entry, the
+       tenants' counts.
+
+    Prints per request the wall, ``queued_s``, ``run_s``, voxels/s, peak
+    device memory and the kernel launches counted under the request; cold
+    against warm; restart-to-done; the scrub seconds; each beside the
+    card's name and power limit.  The kernel rows gain ``serve_launches``
+    (by request)."""
+    import signal
+
+    from cluster_tools_tpu_torch.io import chunk_cache
+    from cluster_tools_tpu_torch.io.containers import open_container
+    from cluster_tools_tpu_torch.runtime import journal as journal_mod
+    from cluster_tools_tpu_torch.runtime import scrub as scrub_mod
+    from cluster_tools_tpu_torch.runtime.server import PipelineServer, ServeClient
+    from cluster_tools_tpu_torch.runtime.supervision import REQUEUE_EXIT_CODE
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    # the earlier phases' stores are gone with their temporary directories:
+    # the scrubber's pass covers this phase's
+    scrub_mod.reset_targets()
+    b_np = vol.reshape(vol.shape[-3:]).cpu().numpy()
+    shape = b_np.shape
+    voxels = int(np.prod(shape))
+    per_request = {}
+    with tempfile.TemporaryDirectory(prefix="serve-") as root:
+        data = os.path.join(root, "data.zarr")
+        z = open_container(data)
+        z.require_dataset("boundaries", shape=shape, chunks=block, dtype="float32")[...] = b_np
+        z.require_dataset("mask", shape=shape, chunks=block, dtype="uint8")[...] = \
+            (b_np < np.float32(0.45)).astype(np.uint8)
+        del b_np
+        if not os.path.isdir(os.path.join(data, "boundaries", ".ctt_checksums")):
+            raise AssertionError("serve: the input was written without digest sidecars")
+        ws_params = dict(input_path=data, input_key="boundaries", output_path=data, block_shape=list(block),
+                         **SERVE_WS)
+
+        def ws(rid, key):
+            return serve_payload("alice", rid, "watershed", key, **ws_params)
+
+        def same(key, want, what):
+            # the stored bytes, past the chunk cache (which keeps the inputs
+            # for the warm request; no request runs meanwhile)
+            os.environ["CTT_CHUNK_CACHE"] = "0"
+            try:
+                got = z[key][...]
+            finally:
+                del os.environ["CTT_CHUNK_CACHE"]
+            if not np.array_equal(got, want):
+                raise AssertionError(f"serve: {what} differs from the blockwise phase's labels")
+
+        chunk_cache.configure(SERVE_CACHE_BYTES)
+        server = PipelineServer(base_dir=os.path.join(root, "srv"), tenants={"alice": {}, "bob": {}},
+                                max_workers=2, scrub={"enabled": False}).start()
+        client = ServeClient(server.host, server.port, timeout_s=60)
+        try:
+            # 1. two tenants at once on the card, then the warm resubmission
+            K.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            client.submit(**ws("a1", "ws_a1"))
+            client.submit(**serve_payload("bob", "b1", "connected_components", "cc_b1", input_path=data,
+                                          input_key="mask", output_path=data, connectivity=1))
+            recs = {rid: client.wait(rid, timeout_s=900) for rid in ("a1", "b1")}
+            # each request's wall: its submission to its end, on the host clock
+            walls = {rid: rec["finished"] - rec["submitted"] for rid, rec in recs.items()}
+            pair_launches, pair_peak = dict(K.LAUNCHES), torch.cuda.max_memory_allocated() / 1e9
+            for rid, rec in recs.items():
+                if rec["state"] != "done":
+                    raise AssertionError(f"serve {rid}: {rec['state']}: {rec.get('error')}")
+            same("ws_a1", ref["ws"], "alice's watershed")
+            same("cc_b1", ref["cc"], "bob's connected components")
+            for rid, rec in recs.items():
+                serve_line(f"cold {rid}", rec, walls[rid], voxels, f"{pair_peak:.2f} GB (both requests)", card)
+            require_kernels("serve a1", recs["a1"].get("kernel_launches", {}))
+            if sum(pair_launches.values()) != sum(sum(r.get("kernel_launches", {}).values()) for r in recs.values()):
+                raise AssertionError(f"serve: the requests' launches {recs} do not add up to {pair_launches}")
+            K.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            cache_before = chunk_cache.snapshot()
+            t0 = time.perf_counter()
+            client.submit(**ws("a2", "ws_a2"))
+            warm = client.wait("a2", timeout_s=900)
+            warm_wall = time.perf_counter() - t0
+            if warm["state"] != "done":
+                raise AssertionError(f"serve a2: {warm['state']}: {warm.get('error')}")
+            same("ws_a2", ref["ws"], "alice's warm watershed")
+            serve_line("warm a2", warm, warm_wall, voxels, f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", card)
+            launches_a2 = warm.get("kernel_launches", {})
+            if launches_a2 != dict(K.LAUNCHES) or launches_a2 != recs["a1"].get("kernel_launches", {}):
+                raise AssertionError(f"serve a2: launches {warm.get('kernel_launches')} (counted {dict(K.LAUNCHES)}, "
+                                     f"cold {recs['a1'].get('kernel_launches')})")
+            io_doc = json.load(open(os.path.join(warm["tmp_folder"], "io_metrics.json")))
+            hits = sum(t.get("hits", 0) for t in io_doc["tasks"].values())
+            misses = sum(t.get("misses", 0) for t in io_doc["tasks"].values())
+            if not hits or misses:
+                raise AssertionError(f"serve a2: chunk cache hits {hits}, misses {misses} (want hits, no miss); "
+                                     f"the cache before it {cache_before}")
+            log("serve", f"cold against warm: watershed run {recs['a1']['run_s']:.3f} s (beside bob's cc) -> "
+                         f"{warm['run_s']:.3f} s alone and warm; its tasks' chunk cache {hits} hits, {misses} "
+                         f"misses; the cache before it {cache_before} [{card}]")
+            per_request.update({"a1": recs["a1"].get("kernel_launches", {}), "b1": recs["b1"].get("kernel_launches", {}),
+                                "a2": launches_a2})
+
+            # 2. the scrubber: rot at rest, found and healed from lineage
+            out = z["ws_a1"]
+            bb = tuple(slice(0, c) for c in block)
+            bad = out._read_back(bb).copy()
+            bad[tuple(c // 3 for c in block)] ^= 1
+            out._write_raw(bb, bad)
+            t0 = time.perf_counter()
+            scanned = server.scrubber.scan_once(budget_bytes=1 << 62)
+            scrub_s = time.perf_counter() - t0
+            st = server.scrubber.stats()
+            if (st["found_corrupt"], st["repaired"], st["unrepairable"]) != (1, 1, 0):
+                raise AssertionError(f"serve scrub: found {st['found_corrupt']}, repaired {st['repaired']}, "
+                                     f"unrepairable {st['unrepairable']} (want 1, 1, 0): {st['last_corrupt']}")
+            same("ws_a1", ref["ws"], "the scrubbed watershed")
+            state = json.load(open(os.path.join(root, "srv", "scrub_state.json")))
+            if (state["found_corrupt"], state["repaired"]) != (1, 1):
+                raise AssertionError(f"serve scrub: scrub_state.json counts {state['found_corrupt']} found, "
+                                     f"{state['repaired']} repaired")
+            log("serve", f"scrub: one pass over {scanned} regions ({st['scanned_bytes'] / 2**30:.2f} GiB, "
+                         f"{st['targets']} registered targets, {st['errors']} errors) in {scrub_s:.3f} s found the flipped voxel of "
+                         f"{st['last_corrupt']['dataset']} {st['last_corrupt']['region']} and repaired it from "
+                         f"lineage; the store reads back equal to the clean labels [{card}]")
+
+            # 4. status of the in-process server
+            status = client.status()
+            tenants = status["server"]["tenants"]
+            if (status["rc"], status["server"]["handoffs"]["live_entries"], tenants["alice"]["completed"],
+                    tenants["bob"]["completed"]) != (0, 0, 2, 1):
+                raise AssertionError(f"serve status: rc {status['rc']}, handoffs {status['server']['handoffs']}, "
+                                     f"tenants {tenants}")
+            log("serve", f"GET /status: rc 0, live handoff entries 0, alice completed 2, bob completed 1")
+        finally:
+            server.stop()
+
+        # 3. drain and replay through the entry point
+        base = os.path.join(root, "child")
+        log_path = os.path.join(root, "child.log")
+        proc = None
+        try:
+            proc = spawn_server(base, log_path)
+            client = ServeClient.from_endpoint_file(base, timeout_s=60)
+            client.submit(**ws("c1", "ws_c1"))
+            markers = os.path.join(base, "requests", "c1", "markers")
+            t0 = time.perf_counter()
+            while not any(f.startswith("block_") for d in (os.listdir(markers) if os.path.isdir(markers) else [])
+                          for f in os.listdir(os.path.join(markers, d))):
+                if proc.poll() is not None or time.perf_counter() - t0 > 600:
+                    raise AssertionError("serve: the child wrote no block marker:\n" + open(log_path).read()[-3000:])
+                time.sleep(0.02)
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=300)
+            if rc != REQUEUE_EXIT_CODE:
+                raise AssertionError(f"serve: the child exited {rc} on SIGTERM, not {REQUEUE_EXIT_CODE}:\n"
+                                     + open(log_path).read()[-3000:])
+            drained_after = time.perf_counter() - t0
+            t_restart = time.perf_counter()
+            proc = spawn_server(base, log_path)
+            client = ServeClient.from_endpoint_file(base, timeout_s=60)
+            rec = client.wait("c1", timeout_s=900, across_restarts=True)
+            restart_to_done = time.perf_counter() - t_restart
+            if rec["state"] != "done" or not rec.get("replayed"):
+                raise AssertionError(f"serve c1 after the restart: {rec}")
+            same("ws_c1", ref["ws"], "the replayed watershed")
+            types = [r["type"] for r in journal_mod.scan(journal_mod.journal_path(base))[0] if r["request_id"] == "c1"]
+            if "drained" not in types or types[-1] != "completed":
+                raise AssertionError(f"serve c1: journal records {types}")
+            require_kernels("serve c1", rec.get("kernel_launches", {}))
+            per_request["c1"] = rec.get("kernel_launches", {})
+            serve_line("replayed c1", rec, restart_to_done, voxels, "not measured (child process)", card)
+            status = client.status()
+            if (status["rc"], status["server"]["handoffs"]["live_entries"],
+                    status["server"]["tenants"]["alice"]["completed"]) != (0, 0, 1):
+                raise AssertionError(f"serve child status: rc {status['rc']}, handoffs "
+                                     f"{status['server']['handoffs']}, tenants {status['server']['tenants']}")
+            log("serve", f"child: SIGTERM {drained_after:.3f} s after the first block marker -> exit "
+                         f"{REQUEUE_EXIT_CODE}; journal {types}; restart-to-done {restart_to_done:.3f} s "
+                         f"(process start, replay, the whole watershed); labels equal; GET /status rc 0, "
+                         f"live handoff entries 0, alice completed 1 [{card}]")
+            proc.send_signal(signal.SIGTERM)
+            if proc.wait(timeout=120) != REQUEUE_EXIT_CODE:
+                raise AssertionError("serve: the restarted child did not drain with exit 114")
+        finally:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    chunk_cache.configure()  # the default budget again for the later phases
+    for row in rows:
+        row["serve_launches"] = {rid: n.get(row["name"], 0) for rid, n in per_request.items()}
+    log("serve", "launches by request: " + json.dumps(per_request))
+    log("serve", f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def main_phases(K, args, gen):
@@ -3105,12 +3409,49 @@ def faults_alone(K, args) -> None:
     log("faults", "launches by arm: " + json.dumps({r["name"]: r["faults_launches"] for r in rows}))
 
 
+def serve_alone(K, args) -> None:
+    """``--only serve``: the main path's volume, the "blockwise" phase's cc
+    (against ``scipy.ndimage.label``) and single-pass watershed of it, one
+    run each, then the "serve" phase."""
+    import scipy.ndimage as ndi
+
+    from cluster_tools_tpu_torch.io.containers import MemoryContainer, open_container
+    from cluster_tools_tpu_torch.tasks.connected_components import ConnectedComponentsWorkflow
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedWorkflow
+    from cluster_tools_tpu_torch.utils.synthetic import synthetic_boundaries
+
+    os.environ["CT_FILL_MODE"], os.environ["CT_TIER_MODE"] = "capacity", "cond"
+    vol = synthetic_boundaries(MAIN_SHAPE, torch.Generator(device="cuda").manual_seed(args.seed))
+    mem = "memory://blockwise"
+    block = (128, 128, 128)
+    f = open_container(mem)
+    b_np = vol.reshape(vol.shape[-3:]).cpu().numpy()
+    f.require_dataset("boundaries", shape=b_np.shape, chunks=block, dtype="float32")[...] = b_np
+    mask = (b_np < np.float32(0.45)).astype(np.uint8)
+    f.require_dataset("mask", shape=b_np.shape, chunks=block, dtype="uint8")[...] = mask
+    with tempfile.TemporaryDirectory(prefix="serve-yardstick-") as root:
+        cc = bw_run(K, root, "cc", ConnectedComponentsWorkflow, block, input_path=mem, input_key="mask",
+                    output_path=mem, output_key="cc", connectivity=1)
+        ws = bw_run(K, root, "ws", WatershedWorkflow, block, input_path=mem, input_key="boundaries",
+                    output_path=mem, output_key="ws", **SERVE_WS)
+    ref, _ = ndi.label(mask.astype(bool))
+    if not partition_equal(torch.from_numpy(f["cc"][...].astype(np.int64)).cuda(),
+                           torch.from_numpy(ref.astype(np.int64)).cuda()):
+        raise AssertionError("serve yardstick: cc labels are not scipy.ndimage.label's partition")
+    log("serve", f"yardstick: cc in {cc['wall_s']:.3f} s (= scipy partition), the single-pass watershed in "
+                 f"{ws['wall_s']:.3f} s, launches {ws['launches']}")
+    serve_ref = serve_reference(mem)
+    del MemoryContainer._registry[mem], f, b_np, mask, ref
+    rows = [{"name": k} for k in KERNELS]
+    phase_serve(K, vol, serve_ref, rows)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["faults"], default=None,
-                    help="build the kernels and run one phase alone (faults: on its own 512^3 watershed "
-                         "yardstick); prints no kernels or result line")
+    ap.add_argument("--only", choices=["faults", "serve"], default=None,
+                    help="build the kernels and run one phase alone on its own 512^3 blockwise yardstick "
+                         "(faults: the watershed; serve: cc and the watershed); prints no kernels or result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3132,8 +3473,8 @@ def main() -> int:
     ) + f"; host library {build.HOST_NAME} (g++) {secs[build.HOST_NAME]:.1f}s, {build.host_library_path().name}; "
         f"wall {time.perf_counter() - t0:.1f}s")
 
-    if args.only == "faults":
-        faults_alone(K, args)
+    if args.only is not None:
+        {"faults": faults_alone, "serve": serve_alone}[args.only](K, args)
         log("done", f"{time.perf_counter() - t_start:.1f}s")
         print(nvidia_smi())
         return 0
@@ -3142,11 +3483,14 @@ def main() -> int:
     phase_sharded(K, args, rows, main_s_per_voxel * (MAIN_SHAPE[1] + 2 * MAIN_CFG["halo"]) * MAIN_SHAPE[2]
                   * MAIN_SHAPE[3])
     mem, auto = phase_blockwise(K, vol, ref, rows)
+    serve_ref = serve_reference(mem)
     phase_sweeps(K, mem, auto, main_s_per_voxel, rows)
     phase_faults(K, vol, mem, rows)
     phase_multicut(K, vol, ws_crop, mem, rows,
                    then=lambda mc: (phase_native(K, vol, mem, mc), phase_reduce_tree(K, vol, ref, mem, mc, rows)))
     phase_fusion(K, vol, rows)
+    phase_serve(K, vol, serve_ref, rows)
+    del serve_ref
     phase_inference(K, vol, rows, args.seed)
 
     log("done", f"{time.perf_counter() - t_start:.1f}s")

@@ -501,6 +501,10 @@ def _read_file(path: str) -> Optional[bytes]:
 
 
 _io_pool: Optional[ThreadPoolExecutor] = None
+
+#: threads of a handoff dataset's spill: a request's flush writes 1 GiB of
+#: labels through zlib and the digest's verify read, both off the GIL
+SPILL_THREADS = 8
 _io_pool_lock = threading.Lock()
 
 
@@ -1314,8 +1318,10 @@ class HandoffDataset(_ChecksumOps):
     def spill(self) -> int:
         """Flush to the storage spill path and delegate from now on.  Every
         chunk goes through the real dataset's write path (a digest sidecar a
-        region) and is verified back before the RAM is released.  Returns
-        the bytes freed (0 when already spilled or spilling)."""
+        region) and is verified back before the RAM is released.  The
+        regions are independent chunks, written and verified on up to
+        ``SPILL_THREADS`` threads (the reference writes them one by one).
+        Returns the bytes freed (0 when already spilled or spilling)."""
         with self._lock:
             if self._spill_started:
                 return 0
@@ -1323,15 +1329,17 @@ class HandoffDataset(_ChecksumOps):
         try:
             arr = self._arr
             ds = self._store_factory()
-            regions = []
-            for begin in itertools.product(*[range(0, s, c) for s, c in zip(arr.shape, self.chunks)]):
-                bb = tuple(slice(b, min(b + c, s)) for b, c, s in zip(begin, self.chunks, arr.shape))
-                ds[bb] = arr[bb]
-                regions.append(bb)
             verify = getattr(ds, "verify_region", None)
-            if verify is not None:
-                for bb in regions:
+            regions = [tuple(slice(b, min(b + c, s)) for b, c, s in zip(begin, self.chunks, arr.shape))
+                       for begin in itertools.product(*[range(0, s, c) for s, c in zip(arr.shape, self.chunks)])]
+
+            def put(bb):
+                ds[bb] = arr[bb]
+                if verify is not None:
                     verify(bb)
+
+            with ThreadPoolExecutor(max_workers=max(1, min(SPILL_THREADS, len(regions)))) as pool:
+                list(pool.map(put, regions))
         except BaseException:
             # a half-written flush stays retriable: the next attempt
             # re-writes every region

@@ -32,12 +32,13 @@ from __future__ import annotations
 import contextlib
 import threading
 from collections import Counter
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_impl
+from ..runtime import admission
 from .ccl import _shift, label_components_batched
 
 # background sentinel of the tiled phase; exceeds every global flat index
@@ -51,6 +52,9 @@ DEFAULT_TILE = (16, 16, 128)
 
 LAUNCHES: Counter = Counter()
 RUNGS: Counter = Counter()
+# launches by service request (``runtime/admission.py``'s ambient context),
+# taken out by the server when the request ends
+REQUEST_LAUNCHES: Dict[str, Counter] = {}
 _CAPTURE: Optional[List[tuple]] = None
 _LOCK = threading.Lock()
 
@@ -59,6 +63,13 @@ def reset_counts() -> None:
     with _LOCK:
         LAUNCHES.clear()
         RUNGS.clear()
+        REQUEST_LAUNCHES.clear()
+
+
+def pop_request_launches(request_id: str) -> Dict[str, int]:
+    """The kernel launches counted under ``request_id`` so far, removed."""
+    with _LOCK:
+        return dict(REQUEST_LAUNCHES.pop(request_id, {}))
 
 
 def count_rung(name: str) -> None:
@@ -97,8 +108,11 @@ def _launch(name: str, device: torch.device, lib, fn_name: str, *args) -> None:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: {lib.ct_error_string(rc).decode()} ({rc})"
         )
+    ctx = admission.current_request()
     with _LOCK:
         LAUNCHES[name] += 1
+        if ctx is not None:
+            REQUEST_LAUNCHES.setdefault(ctx.request_id, Counter())[name] += 1
 
 
 def _cuda_lib(name: str):

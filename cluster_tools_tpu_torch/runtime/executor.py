@@ -102,6 +102,7 @@ from ..parallel import device_pool as device_pool_mod
 from ..parallel.batch_shard import batched_sweep, ragged_sweep, resolve_sharded_batch, use_sharded_sweep
 from ..utils import function_utils as fu
 from ..utils.volume_utils import Block
+from . import admission as admission_mod
 from . import faults as faults_mod
 from . import handoff as handoff_mod
 from . import trace as trace_mod
@@ -512,11 +513,28 @@ class BlockwiseExecutor:
         sweep_span = trace_mod.begin("executor.sweep", task=task_name, n_blocks=len(blocks),
                                      sharded=bool(use_sharded))
 
+        # the service request's context is thread-local: every worker of
+        # the sweep's pools (loads, stores, speculative re-runs) re-enters
+        # it, so block-grain handoffs keep the request's namespace
+        req_ctx = admission_mod.current_request()
+
+        def scoped(fn):
+            def run(*a, **kw):
+                with admission_mod.request_scope(req_ctx):
+                    return fn(*a, **kw)
+            return run
+
         # -- the admission gate (reference executor.py:1610-1690) ------------
         # in flight = loaded but not yet stored; the budget caps it
         if inflight_byte_budget is None:
             avail = host_mem_available_bytes()
             budget = int(avail * 0.25) if avail else 0
+            # under a service request the auto budget is also capped at
+            # the request's share of its tenant's byte quota; an explicit
+            # inflight_byte_budget is never overridden
+            tenant_cap = admission_mod.ambient_byte_cap()
+            if tenant_cap:
+                budget = min(budget, int(tenant_cap)) if budget else int(tenant_cap)
             if budget and chunk_cache_mod.cache_enabled():
                 # the decompressed-chunk cache shares the host envelope,
                 # floored at a quarter of it so small hosts keep making
@@ -926,7 +944,7 @@ class BlockwiseExecutor:
                     if bid in speculated:
                         return
                     speculated.add(bid)
-                spec_futures.append(spec_pool.submit(speculative_rerun, blk))
+                spec_futures.append(spec_pool.submit(scoped(speculative_rerun), blk))
 
             watchdog = Watchdog(deadline, watchdog_period_s or max(0.02, deadline / 4.0), on_hung).start()
 
@@ -1030,9 +1048,9 @@ class BlockwiseExecutor:
                 return ok, "per_block", None, vals
             # a batch's blocks load in parallel on their own pool (this
             # thread is one of the sweep pool's, which runs the stores)
-            issued = list(block_loader.map(issue, batch))
+            issued = list(block_loader.map(scoped(issue), batch))
             ok, vals = [], []
-            for b, val in zip(batch, block_loader.map(load_block, batch, issued)):
+            for b, val in zip(batch, block_loader.map(scoped(load_block), batch, issued)):
                 if val is not None and compute_site_ok(b):
                     ok.append(b)
                     vals.append(val)
@@ -1083,7 +1101,7 @@ class BlockwiseExecutor:
             sizes = [_tree_nbytes(v) for v in vals]
             admit(sum(sizes), writes)
             if kind == "mixed":
-                return [pool.submit(run_mixed, batch, vals, sum(sizes))]
+                return [pool.submit(scoped(run_mixed), batch, vals, sum(sizes))]
             try:
                 out, rung, rb = run_batch(batch, kind, payload)
             except Exception as e:
@@ -1102,7 +1120,8 @@ class BlockwiseExecutor:
             note_dispatch(len(batch), rb)
             batch_rungs.append(rung)
             crop = rb.crop if rb is not None else None
-            return [pool.submit(store_released, blk, _lane(out, j, crop), sizes[j]) for j, blk in enumerate(batch)]
+            return [pool.submit(scoped(store_released), blk, _lane(out, j, crop), sizes[j])
+                    for j, blk in enumerate(batch)]
 
         # -- the degrade ladder: sub-blocks ------------------------------------
         split_stats = {"splits": 0, "max_depth": 0, "sub_blocks": 0}
@@ -1206,7 +1225,7 @@ class BlockwiseExecutor:
         try:
             with ThreadPoolExecutor(max_workers=self.io_threads) as pool, \
                     block_loader if block_loader is not None else contextlib.nullcontext():
-                pending: List[Future] = [pool.submit(load_batch, b) for b in batches[:prefetch]]
+                pending: List[Future] = [pool.submit(scoped(load_batch), b) for b in batches[:prefetch]]
                 writes: List[Future] = []
                 for i in range(len(batches)):
                     if drain_requested():
@@ -1223,7 +1242,7 @@ class BlockwiseExecutor:
                         wait_span.end()
                     counts["dispatch_wait_s"] += waited
                     if i + prefetch < len(batches):
-                        pending.append(pool.submit(load_batch, batches[i + prefetch]))
+                        pending.append(pool.submit(scoped(load_batch), batches[i + prefetch]))
                     if not batch:
                         continue
                     if use_sharded:
@@ -1239,7 +1258,7 @@ class BlockwiseExecutor:
                                              quarantine=True, resource=classify_resource_error(e))
                                 release(nbytes)
                                 continue
-                            writes.append(pool.submit(store_released, block, out, nbytes))
+                            writes.append(pool.submit(scoped(store_released), block, out, nbytes))
                     # bounded store window: each pending store holds a block's outputs
                     while len(writes) > 2 * bs:
                         writes.pop(0).result()

@@ -52,9 +52,10 @@ payload back to the host memory rung (``degraded:host_staged``); every
 publish and resolve is a trace instant (``handoff.publish``,
 ``handoff.resolve``), every spill and demotion a span (``handoff.spill``,
 ``handoff.demote``).  A spilled dataset is stored with digest sidecars
-and verified back.  Request namespaces (the service plane's
-``admission.current_request``) are ROADMAP item 11c:
-:func:`_request_namespace` is None, as in the reference's batch mode.
+and verified back.  Handoff identities are namespaced by the running
+service request (``admission.current_request``), so two concurrent requests
+over the same paths never resolve each other's intermediates; outside a
+request (batch mode) the namespace is None.
 """
 
 from __future__ import annotations
@@ -114,9 +115,11 @@ def handoff_budget() -> int:
 
 
 def _request_namespace() -> Optional[str]:
-    """The running service request's id; always None until the service
-    plane (ROADMAP Queue A item 11c) brings ``admission.current_request``."""
-    return None
+    """The running service request's id, or None in batch mode."""
+    from . import admission
+
+    ctx = admission.current_request()
+    return None if ctx is None else ctx.request_id
 
 
 def _namespaced(base: str) -> str:
@@ -306,6 +309,15 @@ def live_bytes() -> int:
 def device_live_bytes() -> int:
     """Device bytes held by live device-rung handoffs."""
     return get_registry().device_live_bytes()
+
+
+def live_entries() -> int:
+    """Number of registry entries (any state): the resident server
+    publishes it in ``server_state.json``, so a terminal request can be
+    seen to have released its namespace."""
+    reg = get_registry()
+    with reg._lock:
+        return len(reg._entries)
 
 
 # -- marker-epoch sentinel ------------------------------------------------------
@@ -849,6 +861,12 @@ def _spill_entry(entry: _Entry, reason: str) -> int:
     not_stored = int(getattr(obj, "not_stored_bytes", 0)) if entry.kind == "dataset" else entry.nbytes
     if not_stored:
         reg.bump("bytes_not_stored", -not_stored)
+    if entry.kind == "dataset":
+        # the block lineage follows the bytes to storage, where the
+        # verifying reader and the scrubber can use it
+        from . import repair as repair_mod
+
+        repair_mod.rehome(obj, getattr(obj, "_spilled_ds", None))
     _record_spill(entry)
     return freed
 

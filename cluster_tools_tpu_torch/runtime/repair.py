@@ -3,8 +3,6 @@ producing task's inputs (docs/SERVING.md "Self-healing").
 
 Port (a copy) of ``cluster_tools_tpu/runtime/repair.py``, with the same
 env names (``CTT_REPAIR_BUDGET``, ``CTT_REPAIR_REGISTRY_MAX``) and records.
-The resident scrubber it hands registered stores to is not ported yet
-(ROADMAP item 11c), so :func:`register_producer` registers no scrub target.
 
 Detection without repair only converts silent corruption into loud
 corruption.  The task DAG already knows each block's lineage — the
@@ -14,7 +12,7 @@ executor's store path holds the exact triple (``load_fn``, kernel,
 each verified store those layers register a **producer**: a recompute
 closure keyed by ``(dataset label, region)``.  When the verifying reader
 (:mod:`..io.verified`) or the resident scrubber
-(the scrubber, item 11c) detects a digest mismatch, the
+(:mod:`.scrub`) detects a digest mismatch, the
 repair engine re-runs that closure — re-loading the producing task's
 inputs at block grain, re-executing the kernel, re-publishing through the
 ordinary store path (fresh digest sidecar recorded atomically with the
@@ -141,9 +139,34 @@ def register_producer(
         # must not pre-quarantine it
         _failed_attempts.pop(key, None)
         _quarantined.discard(key)
-    # the reference registers the store as a scrub target here; the
-    # scrubber is ROADMAP item 11c
+    # storage-backed product stores become scrub targets the moment they
+    # have lineage: the scrubber can both find and heal their rot
+    from . import scrub as scrub_mod
+
+    scrub_mod.register_target(dataset)
     return True
+
+
+def rehome(src, dataset) -> int:
+    """Move the lineage registered under ``src``'s label (an in-memory
+    handoff dataset) to ``dataset``, its stored copy after a spill, which
+    becomes a scrub target.  The recompute closures still write through
+    ``src``, which delegates to the stored copy once spilled.  Returns the
+    number of regions moved.  (The reference keeps the lineage under the
+    handoff's label, so the scrubber cannot heal a flushed request output;
+    the port moves it.)"""
+    old, new = getattr(src, "_label", None), getattr(dataset, "_label", None)
+    if old is None or new is None or str(old) == str(new):
+        return 0
+    with _lock:
+        keys = [k for k in _producers if k[0] == str(old)]
+        for k in keys:
+            _producers[(str(new), k[1])] = _producers.pop(k)
+    if keys:
+        from . import scrub as scrub_mod
+
+        scrub_mod.register_target(dataset)
+    return len(keys)
 
 
 def _attribute(ent: Dict[str, Any], site: str, resolution: str,

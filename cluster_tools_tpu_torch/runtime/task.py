@@ -491,6 +491,7 @@ class BaseTask:
         ``failures.json`` and a RuntimeError names them all.  Returns the
         number of blocks run.
         """
+        from . import admission as admission_mod
         from .executor import classify_resource_error, morton_order
         from .supervision import DrainInterrupt, Watchdog, drain_reason, drain_requested
 
@@ -538,6 +539,11 @@ class BaseTask:
             except Exception:
                 pass
 
+        # the service request's context is thread-local: each block
+        # re-enters it on the pool's thread, so artifact handoffs that
+        # ``process`` publishes keep the request's namespace
+        req_ctx = admission_mod.current_request()
+
         def wrapped(block_id):
             if drain_requested():
                 # stop claiming blocks; the finished ones keep their markers
@@ -545,7 +551,8 @@ class BaseTask:
                 return
             last_tb, attempts = None, 0
             # the span covers the whole retry ladder
-            with trace_mod.span("host.block", block=int(block_id), task=self.uid):
+            with admission_mod.request_scope(req_ctx), trace_mod.span("host.block", block=int(block_id),
+                                                                       task=self.uid):
                 for k in range(io_retries + 1):
                     attempts = k + 1
                     if watchdog is not None:

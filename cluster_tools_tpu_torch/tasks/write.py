@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..runtime import handoff
+from ..runtime.executor import region_verifier
 from ..runtime.task import BaseTask
 from ..utils.volume_utils import Blocking, blocks_in_volume, file_reader
 
@@ -49,7 +50,11 @@ class WriteBase(BaseTask):
             block = blocking.get_block(block_id)
             out[block.bb] = apply_assignment_np(inp[block.bb], keys, values)
 
-        return {"n_blocks": self.host_block_map(block_ids, process, blocking=blocking)}
+        # the output is the workflow's product: each block is verified
+        # after its store and registers its lineage, so the verifying
+        # reader and the scrubber can repair it
+        n = self.host_block_map(block_ids, process, store_verify_fn=region_verifier(out), blocking=blocking)
+        return {"n_blocks": n}
 
 
 class WriteLocal(WriteBase):
