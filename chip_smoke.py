@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cluster_tools_tpu_torch``) on one GPU.
 
-Usage: ``python3 chip_smoke.py [--seed 0] [--only faults|serve]``
+Usage: ``python3 chip_smoke.py [--seed 0] [--only faults|serve|fleet]``
 
 Phases, each one line of output, each raising on failure:
 
@@ -104,7 +104,8 @@ Phases, each one line of output, each raising on failure:
     traces and integrity on the card (ROADMAP item 11a).  The 512^3
     single-pass watershed of phase 10 (block 128^3, ``auto``) in turns
     plain (``CTT_CHECKSUMS=0``), with checksums (the default) and hardened
-    (checksums, ``CTT_TRACE``, ``block_deadline_s``), twice each: the
+    (checksums, ``CTT_TRACE``, ``block_deadline_s``), once each (cut from
+    twice to pay for the "fleet" phase): the
     checksum and tracing costs and the trace's top spans; under one
     ``CTT_FAULTS`` spec (a load hang far past the deadline, a kernel NaN,
     an ``io_write`` bit flip, a ``dispatch`` OOM): every fault's record and
@@ -145,9 +146,11 @@ Phases, each one line of output, each raising on failure:
     the sharded global solve (ROADMAP 10b) and the fused workflow (12a).
     (a) ``AgglomerativeClusteringWorkflow`` with ``solver_shards=8`` and
     the collective plane demanded, on 8 sibling shards on the card
-    (``CTT_MESH_SHARDS=8``), the whole 512^3 graph: equal to the in-process
-    packet plane bit for bit, collective on every level, no ``degraded:*``
-    record, a warm re-solve sending no byte to the card; (b)
+    (``CTT_MESH_SHARDS=8``), the whole 512^3 graph: collective on every
+    level, no ``degraded:*`` record, a warm re-solve sending no byte to the
+    card; the collective plane equal to the in-process packet plane bit for
+    bit on the induced subgraph of the first eighth of the graph's nodes
+    (cut from the whole graph to pay for the "fleet" phase); (b)
     ``SolveGlobal`` (``gaec_parallel``, 8 shards) on both planes, equal,
     energy within 0.1% of the unsharded solve; (c) the same over a
     two-process worker group (gloo, packet plane, the host C++ rung in the
@@ -190,6 +193,25 @@ Phases, each one line of output, each raising on failure:
     ``queued_s``, ``run_s``, voxels/s, peak GB and the launches counted
     under it (each watershed request launches B1-B4); the kernel rows
     gain ``serve_launches`` (by request);
+13b. fleet (``phase_fleet``, in phase 13a's temporary root; alone with
+    ``--only fleet``): the cluster targets and the serving fleet on the
+    card (ROADMAP items 11b and 11d).  ``CopyVolumeWorkflow(target=
+    "slurm")`` copies phase 13a's 512^3 boundary map into a fresh zarr
+    through stub ``sbatch``/``squeue``/``scancel`` (a job is a detached
+    local process running the port's ``cluster_runner`` on the node's
+    CPU), its first submission swallowed by a ``job_loss`` fault: the copy
+    equals its source byte for byte, the task's ``supervisor.resubmits``
+    is 1 and ``failures.json`` holds the resolved ``job_loss`` record.
+    Then ``python -m cluster_tools_tpu_torch.fleet`` with two members on
+    the one card: alice's 512^3 watershed on the copy through the gateway,
+    the owning member SIGKILLed at its first block marker, its journal
+    claimed, fenced and adopted by the survivor; the request completes
+    with no resubmission, its labels equal phase 13a's bit for bit, its
+    launches are B1 8, B2 8, B3 24, B4 8, ``lifecycle.log`` records the
+    crash and the respawn, and SIGTERM ends the fleet with exit 114.
+    Prints the members' boot times, kill-to-adoption, the adopted
+    request's ``run_s`` and ``queued_s``, each member's peak memory and the
+    phase's wall.  The kernel rows gain ``fleet_launches``;
 14. inference (``phase_inference``): ``InferenceWorkflow`` with the
     full-width U-Net (base 16, depth 2, GroupNorm, bfloat16; seeded weights
     saved with the port's ``save_checkpoint`` and read back from the npz) on
@@ -283,10 +305,14 @@ NATIVE_CROP = 128
 MWS_EDGE = 64
 # three attractive (unit) and three repulsive (long-range) offsets
 MWS_OFFSETS = [[-1, 0, 0], [0, -1, 0], [0, 0, -1], [-4, 0, 0], [0, -4, 0], [0, 0, -4]]
-# the reduce tree's packet plane and worker group as this script measured
-# them before the host C++ rung (one H100 80GB HBM3 at 700 W; PERF.md
-# section 5)
-BEFORE_RUNG_PACKET_S, BEFORE_RUNG_WORKERS_S = 48.908, 16.241
+# the reduce tree's worker group as this script measured it before the
+# host C++ rung (one H100 80GB HBM3 at 700 W; PERF.md section 5)
+BEFORE_RUNG_WORKERS_S = 16.241
+# the "reduce-tree" phase holds the packet plane against the collective
+# plane on the induced subgraph of the first 1/8 of the 512^3 graph's nodes
+# (the whole graph took 48.9-63.4 s on the packet plane): cut to pay for the
+# "fleet" phase
+PACKET_NODE_FRACTION = 8
 # the config-4 tasks whose host work the C++ rung takes
 MC_HOST_TASKS = ("merge_sub_graphs", "merge_edge_features", "solve_subproblems", "reduce_problem", "solve_global")
 # the kernels the main path must launch (B1d is a variant nothing selects)
@@ -996,7 +1022,7 @@ def phase_faults(K, vol: torch.Tensor, mem: str, rows: list, block=(128, 128, 12
                 "checksums": ({"CTT_CHECKSUMS": "1"}, {}),
                 "hardened": ({"CTT_CHECKSUMS": "1", "CTT_TRACE": "1"}, {"block_deadline_s": FAULTS_DEADLINE_S})}
         walls = {tag: [] for tag in arms}
-        for tag in ("plain", "checksums", "hardened", "hardened", "checksums", "plain"):
+        for tag in ("plain", "checksums", "hardened"):
             env, gc = arms[tag]
             rec = fault_run(K, root, f"ws-{tag}", WatershedWorkflow, block, env, global_config=gc,
                             output_key=f"ws_{tag}", **ws_cfg, **io)
@@ -1012,7 +1038,7 @@ def phase_faults(K, vol: torch.Tensor, mem: str, rows: list, block=(128, 128, 12
             fault_line(tag, rec, check, sidecars)
             walls[tag].append(rec["wall_s"])
             arm_launches[tag] = rec["launches"]
-            if tag == "hardened" and len(walls[tag]) == 1:
+            if tag == "hardened":
                 top = sorted(rec["trace_summary"]["sites"].items(), key=lambda kv: -kv[1]["total_s"])[:6]
                 log("faults", "hardened trace top spans: " + "; ".join(
                     f"{k} n={v['count']} total {v['total_s']:.3f} s p50 {v['p50_ms']:.2f} ms "
@@ -1023,7 +1049,7 @@ def phase_faults(K, vol: torch.Tensor, mem: str, rows: list, block=(128, 128, 12
                       f"{mean['checksums'] - mean['plain']:+.3f} s ({mean['checksums'] / mean['plain'] - 1:+.1%}) "
                       f"over plain {mean['plain']:.3f} s; tracing and the watchdog "
                       f"{mean['hardened'] - mean['checksums']:+.3f} s ({mean['hardened'] / mean['checksums'] - 1:+.1%})"
-                      " (means of two)")
+                      " (one run each)")
 
         # ---- 2. faults ----
         spec = {"faults": [
@@ -1777,13 +1803,6 @@ def phase_reduce_tree(K, vol: torch.Tensor, ref: np.ndarray, mem: str, mc: dict,
     node_shard = rt.contiguous_node_shards(len(nodes), REDUCE_SHARDS)
     solve_kw = dict(fanout=2, mode="min", threshold=0.5, max_workers=8, device="cuda",
                     device_pool_bytes=REDUCE_POOL_BYTES)
-    snap_t = rt.solve_snapshot()
-    t0 = time.perf_counter()
-    labels_p, info_p = rt.sharded_solve(len(nodes), edges, payload, node_shard, reduce_plane="packet", **solve_kw)
-    packet_s, d_packet = time.perf_counter() - t0, rt.solve_delta(snap_t)
-    if not np.array_equal(labels_c, labels_p):
-        raise AssertionError(f"reduce-tree (a): the collective plane's labels differ from the packet plane's at "
-                             f"{int((labels_c != labels_p).sum())} nodes")
     snap_t, snap_d = rt.solve_snapshot(), device_pool.snapshot()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1794,6 +1813,21 @@ def phase_reduce_tree(K, vol: torch.Tensor, ref: np.ndarray, mem: str, mc: dict,
         raise AssertionError("reduce-tree (a): the warm collective re-solve differs")
     if h2d_warm:
         raise AssertionError(f"reduce-tree (a): the warm re-solve sent {h2d_warm} B to the card")
+    pool_hits = int(device_pool.delta(snap_d)["device_pool_hits"])
+    # the packet plane against the collective plane on the induced subgraph
+    # of the first 1/PACKET_NODE_FRACTION of the nodes (cut from the whole
+    # graph to pay for the "fleet" phase)
+    n_sub = len(nodes) // PACKET_NODE_FRACTION
+    inside = (edges < n_sub).all(1)
+    sub = (n_sub, edges[inside], payload[inside], rt.contiguous_node_shards(n_sub, REDUCE_SHARDS))
+    labels_sc, _ = rt.sharded_solve(*sub, reduce_plane="collective", **solve_kw)
+    snap_t = rt.solve_snapshot()
+    t0 = time.perf_counter()
+    labels_p, info_p = rt.sharded_solve(*sub, reduce_plane="packet", **solve_kw)
+    packet_s, d_packet = time.perf_counter() - t0, rt.solve_delta(snap_t)
+    if not np.array_equal(labels_sc, labels_p):
+        raise AssertionError(f"reduce-tree (a): the collective plane's labels differ from the packet plane's at "
+                             f"{int((labels_sc != labels_p).sum())} of the subgraph's {n_sub} nodes")
     bad = degraded_records(tmp)
     if bad:
         raise AssertionError(f"reduce-tree (a): degraded records written: {bad}")
@@ -1803,9 +1837,9 @@ def phase_reduce_tree(K, vol: torch.Tensor, ref: np.ndarray, mem: str, mc: dict,
                        f"{len(np.unique(unsharded))}); workflow wall {rec['wall_s']:.3f} s, task "
                        f"{ac['runtime_s']:.3f} s; " + tree_line(solver, d_tree, ac["runtime_s"])
                        + f", h2d {h2d_cold} B cold; warm re-solve {warm_s:.3f} s, h2d {h2d_warm} B, pool hits "
-                       f"{int(device_pool.delta(snap_d)['device_pool_hits'])}; = the in-process packet plane "
-                       f"(max_workers 8; a group with no frontier on the torch rung; before the host C++ rung "
-                       f"{BEFORE_RUNG_PACKET_S} s) "
+                       f"{pool_hits}; on the induced subgraph of the first {n_sub} nodes ({len(sub[1])} edges) the "
+                       f"collective plane = the in-process packet plane "
+                       f"(max_workers 8; a group with no frontier on the torch rung) "
                        f"bit for bit: " + tree_line(info_p, d_packet, packet_s)
                        + "; no degraded record")
 
@@ -2754,7 +2788,24 @@ def spawn_server(base: str, log_path: str):
     return proc
 
 
-def phase_serve(K, vol: torch.Tensor, ref: dict, rows: list, block=SERVE_BLOCK) -> None:
+def serve_input(root: str, vol: torch.Tensor, block=SERVE_BLOCK) -> str:
+    """The main path's 512^3 boundary map and its mask (``< 0.45``) in the
+    port's zarr on local disk under ``root`` (zlib level 1, chunks
+    ``block``, digest sidecars on); returns its path."""
+    from cluster_tools_tpu_torch.io.containers import open_container
+
+    b_np = vol.reshape(vol.shape[-3:]).cpu().numpy()
+    data = os.path.join(root, "data.zarr")
+    z = open_container(data)
+    z.require_dataset("boundaries", shape=b_np.shape, chunks=block, dtype="float32")[...] = b_np
+    z.require_dataset("mask", shape=b_np.shape, chunks=block, dtype="uint8")[...] = \
+        (b_np < np.float32(0.45)).astype(np.uint8)
+    if not os.path.isdir(os.path.join(data, "boundaries", ".ctt_checksums")):
+        raise AssertionError("serve: the input was written without digest sidecars")
+    return data
+
+
+def phase_serve(K, vol: torch.Tensor, ref: dict, rows: list, block=SERVE_BLOCK, then=None) -> None:
     """The resident pipeline server on the card (ROADMAP item 11c), from the
     port's zarr on local disk (zlib level 1, chunks 128^3, digest sidecars
     on) holding the main path's 512^3 boundary map and its mask
@@ -2785,7 +2836,9 @@ def phase_serve(K, vol: torch.Tensor, ref: dict, rows: list, block=SERVE_BLOCK) 
     device memory and the kernel launches counted under the request; cold
     against warm; restart-to-done; the scrub seconds; each beside the
     card's name and power limit.  The kernel rows gain ``serve_launches``
-    (by request)."""
+    (by request).  ``then(root, data)``, when given, runs at the end in
+    the phase's temporary root with the input's zarr path (the "fleet"
+    phase)."""
     import signal
 
     from cluster_tools_tpu_torch.io import chunk_cache
@@ -2800,19 +2853,11 @@ def phase_serve(K, vol: torch.Tensor, ref: dict, rows: list, block=SERVE_BLOCK) 
     # the earlier phases' stores are gone with their temporary directories:
     # the scrubber's pass covers this phase's
     scrub_mod.reset_targets()
-    b_np = vol.reshape(vol.shape[-3:]).cpu().numpy()
-    shape = b_np.shape
-    voxels = int(np.prod(shape))
+    voxels = int(np.prod(vol.shape[-3:]))
     per_request = {}
     with tempfile.TemporaryDirectory(prefix="serve-") as root:
-        data = os.path.join(root, "data.zarr")
+        data = serve_input(root, vol, block)
         z = open_container(data)
-        z.require_dataset("boundaries", shape=shape, chunks=block, dtype="float32")[...] = b_np
-        z.require_dataset("mask", shape=shape, chunks=block, dtype="uint8")[...] = \
-            (b_np < np.float32(0.45)).astype(np.uint8)
-        del b_np
-        if not os.path.isdir(os.path.join(data, "boundaries", ".ctt_checksums")):
-            raise AssertionError("serve: the input was written without digest sidecars")
         ws_params = dict(input_path=data, input_key="boundaries", output_path=data, block_shape=list(block),
                          **SERVE_WS)
 
@@ -2969,11 +3014,316 @@ def phase_serve(K, vol: torch.Tensor, ref: dict, rows: list, block=SERVE_BLOCK) 
             if proc is not None and proc.poll() is None:
                 proc.kill()
                 proc.wait(timeout=60)
-    chunk_cache.configure()  # the default budget again for the later phases
+        for row in rows:
+            row["serve_launches"] = {rid: n.get(row["name"], 0) for rid, n in per_request.items()}
+        log("serve", "launches by request: " + json.dumps(per_request))
+        log("serve", f"phase {time.perf_counter() - t_phase:.1f} s")
+        chunk_cache.configure()  # the default budget again for the later phases
+        if then is not None:
+            then(root, data)
+
+
+# the "fleet" phase: stub scheduler binaries (a job is a detached local
+# process, its id the pid; the same few lines as tests/helpers.py's)
+SLURM_STUBS = {
+    "sbatch": ('script="${@: -1}"\nout=/dev/null\nprev=""\n'
+               'for a in "$@"; do if [ "$prev" = "-o" ]; then out="$a"; fi; prev="$a"; done\n'
+               'setsid bash "$script" > "$out" 2>&1 &\necho $!\n'),
+    "squeue": 'pid="${@: -1}"\nif kill -0 "$pid" 2>/dev/null; then echo "RUNNING"; fi\nexit 0\n',
+    "scancel": 'pid="${@: -1}"\nkill -9 "-$pid" 2>/dev/null || kill -9 "$pid" 2>/dev/null\nexit 0\n',
+}
+# the slurm supervisor's knobs in the "fleet" phase: the lost first
+# submission is found by its heartbeat going stale (the node's runner beats
+# every 0.5 s, the boot beat comes from the batch script's shell)
+FLEET_SLURM = dict(poll_interval_s=0.25, result_grace_s=2.0, heartbeat_interval_s=0.5, heartbeat_timeout_s=4.0,
+                   submit_timeout_s=600)
+# the fleet: two members on the one card, one worker each; the gateway's
+# health tick and staleness, and the supervisor's poll
+FLEET_CONFIG = {"members": 2, "gateway": {"health_interval_s": 0.25, "member_stale_s": 2.0},
+                "server": {"max_workers": 1, "scrub": {"enabled": False}},
+                "supervisor": {"poll_s": 0.25}}
+# the launches of one 512^3 watershed request (block 128^3), as the "serve"
+# phase's requests launch them
+FLEET_WS_LAUNCHES = {"tile_ccl": 8, "tile_ws_propagate": 8, "edt_cascade": 24, "apply_remap": 8}
+
+
+def stub_slurm(bindir: str) -> str:
+    os.makedirs(bindir, exist_ok=True)
+    for name, body in SLURM_STUBS.items():
+        path = os.path.join(bindir, name)
+        with open(path, "w") as fh:
+            fh.write("#!/bin/bash\n" + body)
+        os.chmod(path, 0o755)
+    return bindir
+
+
+class HostMemorySampler:
+    """Every 0.5 s on a thread, the largest resident host memory
+    (``/proc/<pid>/statm``) of each watched process.  (The card's machine
+    lists no process under ``nvidia-smi --query-compute-apps``, and a
+    member's ``torch.cuda.max_memory_allocated`` stays inside it, so a
+    member's device memory is not measured.)"""
+
+    def __init__(self):
+        import threading
+
+        self.peak, self.pids = {}, set()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def watch(self, pid: int) -> None:
+        self.pids.add(pid)
+        self._sample()
+
+    def _sample(self):
+        page = os.sysconf("SC_PAGE_SIZE")
+        for pid in list(self.pids):
+            try:
+                with open(f"/proc/{pid}/statm") as fh:
+                    rss = int(fh.read().split()[1]) * page
+            except (OSError, ValueError, IndexError):
+                continue
+            self.peak[pid] = max(self.peak.get(pid, 0), rss)
+
+    def _run(self):
+        while not self._stop.wait(0.5):
+            self._sample()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+    def line(self, pid: int) -> str:
+        return f"{self.peak[pid] / 1e9:.2f} GB host" if pid in self.peak else "host not measured"
+
+
+def fleet_ingest(root: str, data: str, block, card: str) -> str:
+    """Step 1 of the "fleet" phase: ``CopyVolumeWorkflow(target="slurm")``
+    copies the boundary map into a fresh zarr through stub ``sbatch``/
+    ``squeue``/``scancel``, the first submission swallowed by a
+    ``job_loss`` fault; returns the copy's path."""
+    from cluster_tools_tpu_torch.io.containers import open_container
+    from cluster_tools_tpu_torch.runtime import faults
+    from cluster_tools_tpu_torch.runtime.task import build as run_dag
+    from cluster_tools_tpu_torch.tasks.copy_volume import CopyVolumeWorkflow
+
+    bindir = stub_slurm(os.path.join(root, "fleet-bin"))
+    copy = os.path.join(root, "copy.zarr")
+    tmp = os.path.join(root, "fleet-ingest")
+    cfg_dir = os.path.join(tmp, "cfg")
+    os.makedirs(cfg_dir)
+    with open(os.path.join(cfg_dir, "global.config"), "w") as fh:
+        json.dump(dict(block_shape=list(block), **FLEET_SLURM), fh)
+    saved_path = os.environ["PATH"]
+    os.environ["PATH"] = bindir + os.pathsep + saved_path
+    faults.configure({"faults": [{"site": "submit", "kind": "job_loss", "fail_attempts": 1}]})
+    wf = CopyVolumeWorkflow(tmp_folder=tmp, config_dir=cfg_dir, max_jobs=8, target="slurm", input_path=data,
+                            input_key="boundaries", output_path=copy, output_key="boundaries")
+    t0 = time.perf_counter()
+    try:
+        ok = run_dag([wf])
+    finally:
+        faults.configure(None)
+        os.environ["PATH"] = saved_path
+    wall = time.perf_counter() - t0
+    cdir = os.path.join(tmp, "cluster")
+    sup_log = open(os.path.join(cdir, "supervisor.log")).read() if os.path.exists(
+        os.path.join(cdir, "supervisor.log")) else ""
+    if not ok:
+        outs = "".join(open(os.path.join(cdir, f)).read()[-2000:] for f in sorted(os.listdir(cdir)) if f.endswith(".out"))
+        raise AssertionError(f"fleet ingest: the slurm copy failed; supervisor.log:\n{sup_log}\njob output:\n{outs}")
+    (task,) = wf.requires()
+    manifest = task.output().read()
+    sup = manifest.get("supervisor") or {}
+    if sup.get("resubmits") != 1:
+        raise AssertionError(f"fleet ingest: supervisor {sup} (want resubmits 1); supervisor.log:\n{sup_log}")
+    records = json.load(open(os.path.join(tmp, "failures.json")))["records"]
+    loss = [r for r in records if r.get("task") == task.uid and "job_loss" in r.get("sites", {})]
+    if len(loss) != 1 or not loss[0]["resolved"] or not loss[0]["job_ids"][0].startswith("lost:"):
+        raise AssertionError(f"fleet ingest: failures.json holds no resolved job_loss record: {records}")
+    src = open_container(data)["boundaries"][...]
+    got = open_container(copy)["boundaries"][...]
+    if got.dtype != src.dtype or got.shape != src.shape or got.tobytes() != src.tobytes():
+        raise AssertionError("fleet ingest: the slurm copy differs from its source")
+    log("fleet", f"ingest: CopyVolumeWorkflow(target='slurm') of the {src.shape} float32 map in {wall:.3f} s "
+                 f"(copy task {manifest['runtime_s']:.3f} s on the node's CPU, {manifest['n_blocks']} blocks); the "
+                 f"first submission lost (job_loss on submit), found by its stale heartbeat and resubmitted: "
+                 f"supervisor {sup}; failures.json job_loss record resolved; supervisor.log: "
+                 + " | ".join(line.split(" ", 1)[1] for line in sup_log.splitlines())
+                 + f"; the copy equals its source byte for byte [{card}]")
+    return copy
+
+
+def phase_fleet(K, root: str, data: str, ref_ws: np.ndarray, rows: list, block=SERVE_BLOCK) -> None:
+    """The serving fleet and the cluster targets on the card (ROADMAP items
+    11b and 11d), in the "serve" phase's temporary root, on its 512^3
+    boundary map in the port's zarr (zlib level 1, chunks 128^3, sidecars):
+
+    1. ingest through ``slurm`` (:func:`fleet_ingest`), while the fleet
+       of step 2 boots: the copy equals its source byte for byte, the
+       task's ``supervisor.resubmits`` is 1 and ``failures.json`` holds the
+       resolved ``job_loss`` record;
+    2. ``python -m cluster_tools_tpu_torch.fleet`` with two members on the
+       one card: alice's 512^3 watershed (block 128^3, no target: the
+       card) on the copy through the gateway; once the owning member has
+       written its first block marker it is SIGKILLed; the gateway claims
+       its journal, mints a fence and the survivor adopts it.  Gates: the
+       request completes with no resubmission by the client, its labels
+       equal ``ref_ws`` (the "serve" phase's clean watershed) bit for bit,
+       its record's ``kernel_launches`` are ``FLEET_WS_LAUNCHES``, the
+       supervisor's ``lifecycle.log`` records the crash and the respawn,
+       and SIGTERM to the supervisor ends the fleet with exit 114.
+
+    Prints the members' boot times, kill-to-adoption, the adopted
+    request's ``run_s`` and ``queued_s``, each member's peak resident host
+    memory and the phase's wall, beside the card's name and power limit.  The kernel rows
+    gain ``fleet_launches`` (the adopted request's)."""
+    import signal
+
+    from cluster_tools_tpu_torch.io.containers import open_container
+    from cluster_tools_tpu_torch.runtime import journal as journal_mod
+    from cluster_tools_tpu_torch.runtime.server import ServeClient
+    from cluster_tools_tpu_torch.runtime.supervision import REQUEUE_EXIT_CODE
+    from cluster_tools_tpu_torch.utils import function_utils as fu
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    fleet_dir = os.path.join(root, "fleet")
+    cfg_path = os.path.join(root, "fleet.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(FLEET_CONFIG, fh)
+    log_path = os.path.join(root, "fleet.log")
+    sampler = HostMemorySampler()
+    t_spawn = time.time()
+    with open(log_path, "w") as out:
+        # its own session: the finally below kills the supervisor, the
+        # gateway child and every member together
+        sup = subprocess.Popen([sys.executable, "-m", "cluster_tools_tpu_torch.fleet", "--base-dir", fleet_dir,
+                                "--config", cfg_path], cwd=os.path.dirname(os.path.abspath(__file__)),
+                               stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+
+    def fleet_log() -> str:
+        return open(log_path).read()[-4000:]
+
+    def wait_for(what: str, cond, timeout_s: float):
+        deadline = time.monotonic() + timeout_s
+        while True:
+            got = cond()
+            if got:
+                return got
+            if sup.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"fleet: {what} (supervisor rc {sup.poll()}):\n{fleet_log()}")
+            time.sleep(0.05)
+
+    def endpoint(base: str) -> dict:
+        return fu.read_json_if_valid(os.path.join(base, "server.json")) or {}
+
+    members = os.path.join(fleet_dir, "members")
+    try:
+        # the ingest runs while the fleet boots
+        copy = fleet_ingest(root, data, block, card)
+        wait_for("the gateway never came up", lambda: endpoint(fleet_dir).get("role") == "gateway", 300)
+        boot = {m: endpoint(os.path.join(members, m))["time"] - t_spawn for m in ("m0", "m1")}
+        for m in ("m0", "m1"):
+            sampler.watch(endpoint(os.path.join(members, m))["pid"])
+        gw_boot = endpoint(fleet_dir)["time"] - t_spawn
+        client = ServeClient.from_endpoint_file(fleet_dir, timeout_s=60)
+        payload = serve_payload("alice", "f1", "watershed", "ws_fleet", input_path=copy, input_key="boundaries",
+                                output_path=copy, block_shape=list(block), **SERVE_WS)
+        owner = client.submit(**payload)["member"]
+        survivor = next(m for m in ("m0", "m1") if m != owner)
+        owner_dir, survivor_dir = os.path.join(members, owner), os.path.join(members, survivor)
+        markers = os.path.join(owner_dir, "requests", "f1", "markers")
+        wait_for("the owning member wrote no block marker",
+                 lambda: os.path.isdir(markers) and any(f.startswith("block_") for d in os.listdir(markers)
+                                                        for f in os.listdir(os.path.join(markers, d))), 600)
+        owner_pid, survivor_pid = endpoint(owner_dir)["pid"], endpoint(survivor_dir)["pid"]
+        sampler.watch(owner_pid)
+        sampler.pids.discard(owner_pid)  # sampled up to the kill
+        t_kill = time.time()
+        os.kill(owner_pid, signal.SIGKILL)
+        rec = client.wait("f1", timeout_s=900, across_restarts=True)
+        if rec["state"] != "done":
+            raise AssertionError(f"fleet f1: {rec['state']}: {rec.get('error')}\n{fleet_log()}")
+        if rec.get("adopted_from") != os.path.abspath(owner_dir):
+            raise AssertionError(f"fleet f1: not adopted from {owner_dir}: {rec}")
+        got = open_container(copy)["ws_fleet"][...]
+        if not np.array_equal(got, ref_ws):
+            raise AssertionError(f"fleet f1: the adopted watershed differs from the serve phase's at "
+                                 f"{int((got != ref_ws).sum())} voxels")
+        launches = rec.get("kernel_launches", {})
+        if launches != FLEET_WS_LAUNCHES:
+            raise AssertionError(f"fleet f1: the adopted request launched {launches}, not {FLEET_WS_LAUNCHES}")
+        state = json.load(open(os.path.join(fleet_dir, "fleet_state.json")))
+        event = next(e for e in state["adoptions"] if e["kind"] == "adopt" and e["member"] == owner)
+        if event["adopter"] != survivor or state["members"][owner]["adopted_by"] != survivor:
+            raise AssertionError(f"fleet: the adoption {event} is not the survivor's: {state['members']}")
+        claim = fu.read_json_if_valid(os.path.join(owner_dir, "adoption.claim")) or {}
+        if claim.get("by") != survivor or journal_mod.FenceGuard(owner_dir).current() < 1:
+            raise AssertionError(f"fleet: no claim by {survivor} or no fence minted on {owner_dir}: {claim}")
+
+        def ledger():
+            recs = journal_mod.scan(os.path.join(fleet_dir, "lifecycle.log"))[0]
+            crashed = any(r["type"] == "member_crashed" and r["request_id"] == owner for r in recs)
+            respawn = next((r["request_id"] for r in recs if r["type"] == "member_respawn"
+                            and r.get("replaces") == owner), None)
+            if crashed and respawn and endpoint(os.path.join(members, respawn)).get("pid"):
+                return recs, respawn
+
+        recs, respawned = wait_for("the supervisor recorded no crash and respawn of the killed member", ledger, 300)
+        sup.send_signal(signal.SIGTERM)
+        rc = sup.wait(timeout=300)
+        if rc != REQUEUE_EXIT_CODE:
+            raise AssertionError(f"fleet: the supervisor exited {rc} on SIGTERM, not {REQUEUE_EXIT_CODE}:\n"
+                                 f"{fleet_log()}")
+    finally:
+        sampler.stop()
+        if sup.poll() is None:
+            os.killpg(sup.pid, signal.SIGKILL)
+            sup.wait(timeout=60)
+    exits = [line for line in open(log_path).read().splitlines() if "exited rc" in line or "DRAINED" in line]
+    log("fleet", f"boot: members {', '.join(f'{m} {s:.3f} s' for m, s in boot.items())}, gateway {gw_boot:.3f} s "
+                 f"after the supervisor's spawn (beside the ingest) [{card}]")
+    log("fleet", f"f1 (watershed, tenant alice) placed on {owner}; SIGKILL at its first block marker; adopted by "
+                 f"{survivor} {event['time'] - t_kill:.3f} s after the kill (fence epoch {event['fence_epoch']}, "
+                 f"{event['reenqueued']} re-enqueued); done {rec['finished'] - t_kill:.3f} s after the kill with no "
+                 f"resubmission: queued {rec['queued_s']:.3f} s, run {rec['run_s']:.3f} s on {survivor}; labels "
+                 f"equal the serve phase's bit for bit; launches {launches} [{card}]")
+    log("fleet", f"peak resident memory (sampled every 0.5 s): {owner} {sampler.line(owner_pid)} to the kill, "
+                 f"{survivor} {sampler.line(survivor_pid)}; device memory a member not measured [{card}]")
+    log("fleet", f"lifecycle.log: {[(r['type'], r['request_id']) for r in recs]}; respawned {owner} as "
+                 f"{respawned}; SIGTERM -> supervisor exit {rc}; " + "; ".join(exits))
     for row in rows:
-        row["serve_launches"] = {rid: n.get(row["name"], 0) for rid, n in per_request.items()}
-    log("serve", "launches by request: " + json.dumps(per_request))
-    log("serve", f"phase {time.perf_counter() - t_phase:.1f} s")
+        row["fleet_launches"] = launches.get(row["name"], 0)
+    log("fleet", f"phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+def fleet_alone(K, args) -> None:
+    """``--only fleet``: the main path's volume, the "blockwise" phase's
+    single-pass watershed of it (the reference labels, one run), its
+    input in the port's zarr as the "serve" phase writes it, then the
+    "fleet" phase."""
+    from cluster_tools_tpu_torch.io.containers import MemoryContainer, open_container
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedWorkflow
+    from cluster_tools_tpu_torch.utils.synthetic import synthetic_boundaries
+
+    os.environ["CT_FILL_MODE"], os.environ["CT_TIER_MODE"] = "capacity", "cond"
+    vol = synthetic_boundaries(MAIN_SHAPE, torch.Generator(device="cuda").manual_seed(args.seed))
+    mem = "memory://blockwise"
+    f = open_container(mem)
+    f.require_dataset("boundaries", shape=vol.shape[-3:], chunks=SERVE_BLOCK, dtype="float32")[...] = \
+        vol.reshape(vol.shape[-3:]).cpu().numpy()
+    with tempfile.TemporaryDirectory(prefix="fleet-yardstick-") as root:
+        ws = bw_run(K, root, "ws", WatershedWorkflow, SERVE_BLOCK, input_path=mem, input_key="boundaries",
+                    output_path=mem, output_key="ws", **SERVE_WS)
+    log("fleet", f"yardstick: the single-pass watershed in {ws['wall_s']:.3f} s, launches {ws['launches']}")
+    ref_ws = f["ws"][...]
+    del MemoryContainer._registry[mem], f
+    rows = [{"name": k} for k in KERNELS]
+    with tempfile.TemporaryDirectory(prefix="fleet-") as root:
+        phase_fleet(K, root, serve_input(root, vol), ref_ws, rows)
+    log("fleet", "launches: " + json.dumps({r["name"]: r["fleet_launches"] for r in rows}))
 
 
 def main_phases(K, args, gen):
@@ -3449,9 +3799,10 @@ def serve_alone(K, args) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["faults", "serve"], default=None,
+    ap.add_argument("--only", choices=["faults", "serve", "fleet"], default=None,
                     help="build the kernels and run one phase alone on its own 512^3 blockwise yardstick "
-                         "(faults: the watershed; serve: cc and the watershed); prints no kernels or result line")
+                         "(faults, fleet: the watershed; serve: cc and the watershed); prints no kernels or "
+                         "result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3474,7 +3825,7 @@ def main() -> int:
         f"wall {time.perf_counter() - t0:.1f}s")
 
     if args.only is not None:
-        {"faults": faults_alone, "serve": serve_alone}[args.only](K, args)
+        {"faults": faults_alone, "serve": serve_alone, "fleet": fleet_alone}[args.only](K, args)
         log("done", f"{time.perf_counter() - t_start:.1f}s")
         print(nvidia_smi())
         return 0
@@ -3489,7 +3840,9 @@ def main() -> int:
     phase_multicut(K, vol, ws_crop, mem, rows,
                    then=lambda mc: (phase_native(K, vol, mem, mc), phase_reduce_tree(K, vol, ref, mem, mc, rows)))
     phase_fusion(K, vol, rows)
-    phase_serve(K, vol, serve_ref, rows)
+    # the fleet's members share the card with this process: its cached blocks go back first
+    phase_serve(K, vol, serve_ref, rows,
+                then=lambda root, data: (torch.cuda.empty_cache(), phase_fleet(K, root, data, serve_ref["ws"], rows)))
     del serve_ref
     phase_inference(K, vol, rows, args.seed)
 

@@ -58,9 +58,12 @@ WORKFLOWS = {
     "paintera_to_bdv": "cluster_tools_tpu_torch.tasks.paintera:PainteraToBdvWorkflow",
 }
 
-#: the names the port has
-PORTED = ("connected_components", "watershed", "fused_segmentation", "multicut", "agglomerative_clustering",
-          "relabel", "inference", "ilastik_prediction")
+#: the names the port has.  ``size_filter`` stays out until the rest of
+#: ``tasks/postprocess.py`` is ported (ROADMAP item 12b): its workflow is
+#: here, but ``configs size_filter`` writes the defaults of every task
+#: family of the reference's module.
+PORTED = ("connected_components", "thresholded_components", "watershed", "fused_segmentation", "multicut",
+          "agglomerative_clustering", "relabel", "copy_volume", "inference", "ilastik_prediction")
 
 #: the ROADMAP item that ports every other name
 UNPORTED_ITEM = "ROADMAP item 12"

@@ -1,17 +1,18 @@
 """Service mode: a resident, multi-tenant pipeline server (docs/SERVING.md).
 
 Port of ``cluster_tools_tpu/runtime/server.py`` with the same names, HTTP
-routes, journal records and state files, adapted in five places: a payload
+routes, journal records and state files, adapted in four places: a payload
 that names no ``target`` runs on ``"gpu"`` (the card; it fails with the
 device error where there is none, never on the CPU); workflow names resolve
 through :data:`..cli.WORKFLOWS`, where an unported one raises
 ``NotImplementedError`` (HTTP 501 ``not_ported``); ``program_cache_size``
 and the ``programs`` block are kept for configs written for the reference
-but hold nothing (see :meth:`PipelineServer.program_cache_stats`); journal
-adoption (the fleet, ``adopt_journal`` and ``POST /adopt``) is refused,
-naming ROADMAP item 11d; and a request's record carries
-``kernel_launches``, the hand-kernel launches counted under it, when there
-were any.
+but hold nothing (see :meth:`PipelineServer.program_cache_stats`); and a
+request's record carries ``kernel_launches``, the hand-kernel launches
+counted under it, when there were any.  Journal adoption
+(:meth:`PipelineServer.adopt_journal`, ``POST /adopt``) is the reference's,
+so a port server adopts a journal the JAX package's server wrote and the
+reverse (``runtime/fleet.py``).
 
 The batch CLI pays the cold tax on every invocation — the decompressed-
 chunk cache and in-memory handoffs die with the process.
@@ -124,11 +125,7 @@ _CLUSTER_TARGETS = ("slurm", "lsf")
 #: where a payload names no target: the card (the reference's is "local")
 DEFAULT_TARGET = "gpu"
 
-#: the ROADMAP item that ports journal adoption (the fleet)
-ADOPTION_ITEM = "ROADMAP item 11d"
-
-#: the typed HTTP error (501) of a refused, not yet ported operation: a
-#: workflow name or journal adoption
+#: the typed HTTP error (501) of a refused, not yet ported workflow name
 NOT_PORTED = "not_ported"
 
 #: request-record states the journal's terminal record types map to
@@ -644,11 +641,127 @@ class PipelineServer:
 
     # -- fleet failover ----------------------------------------------------
     def adopt_journal(self, peer_base_dir: str) -> Dict[str, Any]:
-        """Journal handoff from a dead peer (docs/SERVING.md "Fleet"):
-        refused, naming the ROADMAP item that ports the fleet."""
-        raise NotImplementedError(
-            f"journal adoption (the fleet) is not ported: {ADOPTION_ITEM}"
+        """Journal handoff (docs/SERVING.md "Fleet"): fold a dead peer's
+        journal into this server through the ordinary replay machinery —
+        terminal requests become idempotently-answerable records,
+        acknowledged-but-incomplete ones re-enter this server's queue and
+        finish bit-identically, crash-loopers are quarantined.  Gated on
+        the exclusive adoption claim (``runtime/fleet.py``): the claim
+        file in the peer's base dir must name THIS pid, so exactly one of
+        N would-be adopters can ever get here.  Each
+        adopted lifecycle is re-journaled HERE before it is enqueued, so
+        the adopter crashing mid-adoption loses nothing — its own boot
+        replay finishes the inherited promises."""
+        from . import fleet as fleet_mod  # lazy: fleet imports server
+
+        peer = os.path.abspath(peer_base_dir)
+        if peer == self.base_dir:
+            raise fleet_mod.AdoptionRefused(
+                f"refusing self-adoption of {peer!r}"
+            )
+        records = fleet_mod.read_peer_journal(peer, pid=os.getpid())
+        folded = journal_mod.fold(records)
+        counts: Dict[str, Dict[str, int]] = {}
+        stats = {"peer": peer, "completed": 0, "reenqueued": 0,
+                 "quarantined": 0, "skipped": 0}
+        for rid, ent in folded.items():
+            tenant = ent["tenant"]
+            state = ent["state"]
+            with self._requests_lock:
+                known = rid in self._requests
+            if known or state == journal_mod.REJECTED:
+                # already ours (a client retry raced the failover onto
+                # this member) or terminal-and-replaceable: nothing to
+                # inherit — idempotency answers the former, the id stays
+                # free for the latter
+                stats["skipped"] += 1
+                continue
+            c = counts.setdefault(tenant, {
+                "submitted": 0, "dispatched": 0, "completed": 0,
+                "rejected": 0,
+            })
+            # durability first: the inherited lifecycle goes into OUR
+            # journal (never under a lock) before any in-memory state, so
+            # a crash mid-adoption replays to the same decision
+            if self._journal is not None:
+                for rec_doc in journal_mod.snapshot_records(ent):
+                    self._journal.append(rec_doc)
+            if state in (journal_mod.COMPLETED, journal_mod.FAILED,
+                         journal_mod.QUARANTINED):
+                c["submitted"] += 1
+                c["dispatched"] += ent["attempts"]
+                if state == journal_mod.COMPLETED:
+                    c["completed"] += 1
+                rec = dict(ent.get("record") or {})
+                rec.setdefault("request_id", rid)
+                rec.setdefault("tenant", tenant)
+                rec.setdefault("state", {
+                    journal_mod.COMPLETED: "done",
+                    journal_mod.FAILED: "failed",
+                    journal_mod.QUARANTINED: "quarantined",
+                }[state])
+                rec.setdefault("fingerprint", ent.get("fingerprint"))
+                rec["replayed"] = True
+                rec["adopted_from"] = peer
+                with self._requests_lock:
+                    self._requests[rid] = rec
+                    self._order.append(rid)
+                    self._prune_locked()
+                stats["completed"] += 1
+                continue
+            if ent["attempts"] >= self.max_replay_attempts:
+                c["submitted"] += 1
+                c["dispatched"] += ent["attempts"]
+                self._quarantine_crash_loop(ent)
+                stats["quarantined"] += 1
+                continue
+            c["dispatched"] += ent["attempts"]
+            self._reenqueue_replayed(ent)
+            with self._requests_lock:
+                rec = self._requests.get(rid)
+                if rec is not None:
+                    rec["adopted_from"] = peer
+            stats["reenqueued"] += 1
+        for tenant, c in counts.items():
+            if any(c.values()):
+                self.controller.restore_counts(tenant, **c)
+        event = {
+            "time": trace_mod.walltime(),
+            "peer": peer,
+            "completed": stats["completed"],
+            "reenqueued": stats["reenqueued"],
+            "quarantined": stats["quarantined"],
+            "skipped": stats["skipped"],
+        }
+        with self._requests_lock:
+            self._adoptions.append(event)
+            del self._adoptions[:-16]
+        try:
+            fu.record_failures(
+                self.failures_path,
+                "server.fleet",
+                [{
+                    "block_id": (
+                        f"adopt:{os.path.basename(peer.rstrip(os.sep))}"
+                        f":{os.getpid()}"
+                    ),
+                    "sites": {"adopt": 1},
+                    "error": f"adopted journal of dead peer {peer}",
+                    "quarantined": False,
+                    "resolved": True,
+                    "resolution": fleet_mod.ADOPTION_RESOLUTION,
+                    "peer": peer,
+                }],
+            )
+        except Exception:
+            pass  # attribution is best-effort; the adoption stands
+        trace_mod.instant(
+            "server.adopt", peer=peer, completed=stats["completed"],
+            reenqueued=stats["reenqueued"],
+            quarantined=stats["quarantined"],
         )
+        self._write_state()
+        return stats
 
     # -- submission --------------------------------------------------------
     def _idempotent_doc(self, request_id: str,
@@ -1023,10 +1136,9 @@ class PipelineServer:
         """The request's effective config_dir: the caller's base configs
         (if any) overlaid with the request's ``global_config`` and the
         resident-owner defaults — ``memory_handoffs`` ON for in-process
-        targets (every target the port has: ``local`` and ``gpu``; cluster
-        targets, where the reference keeps it off because their memory dies
-        with the remote job, are ROADMAP item 11b).  An explicit caller
-        value always wins."""
+        targets (``local`` and ``gpu``); cluster targets stay off because
+        their memory dies with the remote job.  An explicit caller value
+        always wins."""
         out_dir = os.path.join(tmp_folder, "server_config")
         os.makedirs(out_dir, exist_ok=True)
         base = cfg.get("config_dir")
@@ -1229,13 +1341,20 @@ class _RequestHandler(BaseHTTPRequestHandler):
             self._reply(400, {"error": "bad_request", "detail": str(e)})
             return
         if path == "/adopt":
-            # fleet failover (docs/SERVING.md "Fleet"): not ported
+            # fleet failover (docs/SERVING.md "Fleet"): adopt a dead
+            # peer's journal — only with the exclusive claim in hand
+            from . import fleet as fleet_mod  # lazy: fleet imports server
+
             try:
                 self._reply(200, self.pipeline.adopt_journal(
                     str(payload.get("base_dir") or "")
                 ))
-            except NotImplementedError as e:
-                self._reply(501, {"error": NOT_PORTED, "detail": str(e)})
+            except fleet_mod.AdoptionRefused as e:
+                self._reply(409, {
+                    "error": "adoption_refused", "detail": str(e),
+                })
+            except (ValueError, KeyError, OSError) as e:
+                self._reply(400, {"error": "bad_request", "detail": str(e)})
             return
         try:
             self._reply(200, self.pipeline.submit(payload))

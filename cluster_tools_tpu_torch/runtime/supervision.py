@@ -2,8 +2,8 @@
 
 Port (a copy) of ``cluster_tools_tpu/runtime/supervision.py``;
 :func:`array_digest` gives the reference's CRC for the same numpy leaves.
-The cluster supervisor that reads the heartbeats (``runtime/cluster.py``)
-is ROADMAP item 11b.
+The cluster supervisor that reads the heartbeats is
+``runtime/cluster.py::supervise_job``.
 
 The fault layer handles *loud* failures (exceptions, kills); this module
 supplies the building blocks for the *silent* ones (docs/ROBUSTNESS.md

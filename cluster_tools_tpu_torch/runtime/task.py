@@ -11,8 +11,12 @@ selected by :func:`get_task_cls`.
 Targets: ``local`` runs on the CPU (the caller asks for it, as the tests
 do); ``gpu`` runs on the card and is the default of :class:`WorkflowBase`,
 so a workflow that names no target raises where there is no card.  The
-reference's cluster targets (``slurm``, ``lsf``) are ROADMAP Queue A item
-11b.
+cluster targets ``slurm`` and ``lsf`` are synthesized by
+:func:`get_task_cls` as in the reference: the task's ``<Op>Local`` class
+wrapped into a batch-submitting class (:func:`.cluster.make_cluster_task`)
+whose job re-runs the Local variant on the node, so a cluster job runs on
+the node's CPU.  That is the reference's behaviour (its cluster targets
+serve the ingest side; compute runs on the device), not a gap of the port.
 
 Faults, traces and drain, as in the reference: each task sets the fault
 injector's current task and runs inside a ``task.run`` span; with
@@ -148,8 +152,10 @@ class BaseTask:
         :meth:`host_block_map`), and ``allow_block_split`` /
         ``min_block_shape`` the degrade-and-split of the tasks whose
         kernels are shape-local (inference, ilastik).  The heartbeat and
-        resubmission knobs belong to the cluster targets (ROADMAP item 11b)
-        and do nothing here."""
+        resubmission knobs (``heartbeat_interval_s``,
+        ``heartbeat_timeout_s``, ``max_resubmits``,
+        ``max_preempt_resubmits``) drive the cluster targets' supervisor
+        (:func:`.cluster.supervise_job`)."""
         return {
             "max_retries": 0,
             "retry_backoff_s": 1.0,
@@ -339,7 +345,8 @@ class BaseTask:
     def _handoffs_on(self) -> bool:
         """Fusion applies when the ``memory_handoffs`` knob is set, the
         process switch (``CTT_HANDOFF``) is on and the task crosses no host
-        boundary (cluster targets, which the port refuses anyway)."""
+        boundary (cluster targets: the job's memory dies with its node
+        process)."""
         if self.target in _CLUSTER_TARGETS:
             return False
         from . import handoff
@@ -625,30 +632,37 @@ _CLUSTER_TARGETS = ("slurm", "lsf")
 
 
 def _check_target(target: str) -> None:
-    if target in _CLUSTER_TARGETS:
-        raise NotImplementedError(
-            f"target {target!r} (batch-cluster submission) is not ported: ROADMAP Queue A item 11b"
-        )
-    if target not in _TARGET_SUFFIX:
-        raise ValueError(f"unknown target {target!r}, expected one of {sorted(_TARGET_SUFFIX)}")
+    if target not in _TARGET_SUFFIX and target not in _CLUSTER_TARGETS:
+        raise ValueError(f"unknown target {target!r}, expected one of "
+                         f"{sorted(_TARGET_SUFFIX) + list(_CLUSTER_TARGETS)}")
 
 
 def get_task_cls(module, base_name: str, target: str):
     """Resolve ``<Op><Target>`` in an op module: ``local`` -> ``<Op>Local``,
-    ``gpu`` -> ``<Op>GPU``."""
+    ``gpu`` -> ``<Op>GPU``.  ``slurm``/``lsf`` are synthesized on demand:
+    the task's Local variant wrapped into a batch-submitting class
+    (``runtime/cluster.py``), so every task gains the cluster backends
+    without per-module boilerplate."""
     _check_target(target)
+    if target in _CLUSTER_TARGETS:
+        from .cluster import make_cluster_task
+
+        return make_cluster_task(getattr(module, base_name + "Local"), target)
     return getattr(module, base_name + _TARGET_SUFFIX[target])
 
 
 class WorkflowBase(BaseTask):
     """Base for workflow tasks: selects target classes by ``target``
-    (default ``gpu``: the card, which must be there) and chains sub-tasks."""
+    (default ``gpu``: the card, which must be there) and chains sub-tasks.
+    A cluster target asks for no device here: its jobs run the Local
+    variant on the node."""
 
     task_name = "workflow"
 
     def __init__(self, *args, target: str = "gpu", **kwargs):
         _check_target(target)
-        target_device(target)
+        if target not in _CLUSTER_TARGETS:
+            target_device(target)
         # set before super().__init__ so the uid hash sees the real target
         self.target = target
         super().__init__(*args, **kwargs)

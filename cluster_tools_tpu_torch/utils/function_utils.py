@@ -224,3 +224,8 @@ def clear_block_markers(tmp_folder: str, task_name: str):
         if fname.startswith(("block_", "job_")):
             with contextlib.suppress(OSError):
                 os.remove(os.path.join(d, fname))
+
+
+def python_executable() -> str:
+    """Interpreter for re-executing the port's entry points in batch jobs."""
+    return sys.executable

@@ -3,7 +3,8 @@
 ``python -m cluster_tools_tpu.cli run`` for the same run config
 (connected components and the watershed on the CPU, ``"target":
 "local"``), ``configs`` writes the same config files for every ported
-workflow, and ``report`` tabulates the same tasks.  The registry keeps every
+workflow, ``report`` tabulates the same tasks, and ``run copy_volume`` in
+process writes the same cast volume.  The registry keeps every
 name of the reference's; an unported one is refused naming ROADMAP item 12
 when it is resolved, and ``run`` defaults to the card.
 """
@@ -120,3 +121,29 @@ def test_run_defaults_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device is available"):
         pcli.main(["run", "connected_components", "--config", cfg])
     assert "out" not in os.listdir(data)
+
+
+def test_run_copy_volume_on_the_cpu(tmp_path):
+    """``run copy_volume`` (ported with the cluster targets) through the
+    port's CLI on the CPU: a uint64 volume cast to uint32 (clipping) equals
+    the JAX package's CLI run of the same config."""
+    data = np.random.default_rng(1).integers(0, 2**34, (16, 16, 16)).astype(np.uint64)
+    out = {}
+    for side, mod in (("jax", jcli), ("port", pcli)):
+        base = tmp_path / side
+        os.makedirs(base / "cfg")
+        path = str(base / "data.zarr")
+        SIDES[side][1](path).require_dataset("big", shape=data.shape, chunks=(8, 8, 8), dtype="uint64")[...] = data
+        with open(base / "cfg" / "global.config", "w") as f:
+            json.dump({"block_shape": [8, 8, 8]}, f)
+        with open(base / "run.json", "w") as f:
+            json.dump(dict(tmp_folder=str(base / "tmp"), config_dir=str(base / "cfg"), max_jobs=2, target="local",
+                           params=dict(input_path=path, input_key="big", output_path=path, output_key="small",
+                                       dtype="uint32")), f)
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            assert mod.main(["run", "copy_volume", "--config", str(base / "run.json")]) == 0
+        assert "SUCCESS" in said.getvalue()
+        out[side] = np.asarray(SIDES[side][1](path)["small"][...])
+    assert out["port"].dtype == np.uint32
+    np.testing.assert_array_equal(out["port"], out["jax"])
+    np.testing.assert_array_equal(out["port"], np.minimum(data, 2**32 - 1).astype(np.uint32))

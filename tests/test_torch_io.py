@@ -171,8 +171,9 @@ def test_get_task_cls_maps_targets(module, name):
     assert get_task_cls(module, name, "gpu") is getattr(module, name + "GPU")
     assert get_task_cls(module, name, "local").target == "local"
     assert get_task_cls(module, name, "gpu").target == "gpu"
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        get_task_cls(module, name, "slurm")
+    for flavor in ("slurm", "lsf"):
+        cluster_cls = get_task_cls(module, name, flavor)
+        assert issubclass(cluster_cls, getattr(module, name + "Local")) and cluster_cls.target == flavor
     with pytest.raises(ValueError):
         get_task_cls(module, name, "tpu")
 

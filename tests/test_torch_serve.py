@@ -14,8 +14,8 @@ against the JAX package's, on the CPU.
   unknown requests, HTTP backpressure, idempotent replay, re-enqueue of a
   journal the JAX package wrote, crash-loop quarantine, a torn journal
   tail, ``scripts/progress.py`` and ``scripts/failures_report.py`` over the
-  port's base directory, ``/adopt`` and unported workflow names refused
-  with their ROADMAP items, and a request naming no target failing with
+  port's base directory, unported workflow names refused with their
+  ROADMAP items and ``/adopt`` without the adoption claim refused, and a request naming no target failing with
   the device error where there is no card.
 - ``python -m cluster_tools_tpu_torch.serve`` as a child: serve, ``--status``,
   SIGTERM drains with exit 114, the restart replays.  Every child is reaped
@@ -355,16 +355,20 @@ def test_unported_workflows_and_adoption_are_refused_with_their_items(tmp_path):
     base = str(tmp_path)
     server, client = _start(base, max_workers=1)
     try:
-        for name in ("morphology", "lifted_multicut", "mutex_watershed", "copy_volume"):
+        for name in ("morphology", "lifted_multicut", "mutex_watershed", "size_filter"):
             with pytest.raises(ServeRejected) as ei:
                 client.submit(tenant="t", request_id=f"u-{name}", workflow=name)
             assert ei.value.code == NOT_PORTED and ei.value.http_status == 501
             assert "ROADMAP item 12" in ei.value.detail
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11d"):
+        # adoption is ported (the fleet): without the peer's adoption claim
+        # it is refused, as in the reference (409 adoption_refused)
+        from cluster_tools_tpu_torch.runtime.fleet import AdoptionRefused
+
+        with pytest.raises(AdoptionRefused, match="no adoption claim"):
             server.adopt_journal(str(tmp_path / "peer"))
         status, doc = netio.http_json_call(server.host, server.port, "POST", "/adopt",
                                            {"base_dir": str(tmp_path / "peer")}, timeout_s=10)
-        assert status == 501 and doc["error"] == NOT_PORTED and "ROADMAP item 11d" in doc["detail"]
+        assert status == 409 and doc["error"] == "adoption_refused" and "no adoption claim" in doc["detail"]
         assert client.status()["server"]["adoptions"] == []
     finally:
         server.stop()
