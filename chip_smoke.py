@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cluster_tools_tpu_torch``) on one GPU.
 
-Usage: ``python3 chip_smoke.py [--seed 0] [--only faults|serve|fleet]``
+Usage: ``python3 chip_smoke.py [--seed 0] [--only faults|serve|fleet|analysis]``
 
 Phases, each one line of output, each raising on failure:
 
@@ -212,6 +212,18 @@ Phases, each one line of output, each raising on failure:
     Prints the members' boot times, kill-to-adoption, the adopted
     request's ``run_s`` and ``queued_s``, each member's peak memory and the
     phase's wall.  The kernel rows gain ``fleet_launches``;
+13c. analysis (``phase_analysis``; alone with ``--only analysis``):
+    postprocessing, analysis and export on the card (ROADMAP items 12b
+    and 12d) on the first 192^3 of the "blockwise" phase's watershed
+    labels and boundary map in ``memory://`` (block 96^3): the size
+    filter and the graph-watershed size filter, cc on a segmentation, hole
+    filling, morphology, node labels, evaluation, statistics, downscaling,
+    the affine transform, skeletons and meshes, and on the first 128^3
+    paintera and bdv export, label multisets, pair distances and the
+    debugging checks; every arm once on the card with its wall, peak GB
+    and launches, each gated against scipy / numpy oracles or its CPU run
+    (the gates in ``phase_analysis``).  The kernel rows gain
+    ``analysis_launches``;
 14. inference (``phase_inference``): ``InferenceWorkflow`` with the
     full-width U-Net (base 16, depth 2, GroupNorm, bfloat16; seeded weights
     saved with the port's ``save_checkpoint`` and read back from the npz) on
@@ -1571,10 +1583,11 @@ def phase_native(K, vol: torch.Tensor, mem: str, mc: dict) -> None:
        mutex watershed's constraint loop on a seeded ``MWS_EDGE``^3
        affinity volume (``MWS_OFFSETS``), the same partition.
     2. The rung alone at full size on the "multicut" phase's 512^3 graph:
-       union-find, GAEC on the whole graph, Kernighan-Lin and parallel
+       union-find, Kernighan-Lin (its GAEC start included) and parallel
        contraction (beside the torch rung on the card) on the reduced global
        problem, the feature merge (union-find and the merge beside their
-       Python paths).
+       Python paths).  GAEC on the whole graph (19.3 s on an H100 host)
+       was cut to pay for the "analysis" phase.
     Raises on any inequality, and when a function made no call."""
     from scipy import ndimage
 
@@ -1662,12 +1675,11 @@ def phase_native(K, vol: torch.Tensor, mem: str, mc: dict) -> None:
 
     # ---- 2. the rung alone at full size ----
     full = config4_problem(mc["tmp"])
-    n, e, w = full["n"], full["edges"], full["costs"]
+    n, e = full["n"], full["edges"]
     native.reset_counts()
     _, t_uf = timed(lambda: union_find_host(full["pairs"], n))
     with native.force_python():
         _, t_uf_py = timed(lambda: union_find_host(full["pairs"], n))
-    gaec, t_gaec = timed(lambda: pmc.greedy_additive(n, e, w))
     n1, e1, w1 = full["s1_n"], full["s1_edges"], full["s1_costs"]
     kl, t_kl = timed(lambda: pmc.kernighan_lin(n1, e1, w1))
     # the contraction's rungs on the reduced problem: why the card keeps the
@@ -1688,8 +1700,7 @@ def phase_native(K, vol: torch.Tensor, mem: str, mc: dict) -> None:
     if missing:
         raise AssertionError(f"native: no call to {missing} at full size: {counts}")
     log("native", f"full size, the multicut phase's 512^3 graph ({n} nodes, {len(e)} edges): union_find {t_uf:.3f} s "
-                  f"(Python {t_uf_py:.3f}) on {len(full['pairs'])} pairs; greedy_additive {t_gaec:.3f} s -> "
-                  f"{int(gaec.max()) + 1} segments, energy {pmc.multicut_energy(e, w, gaec):.6g}; kernighan_lin "
+                  f"(Python {t_uf_py:.3f}) on {len(full['pairs'])} pairs; kernighan_lin "
                   f"{t_kl:.3f} s (GAEC start included) on the reduced problem ({n1} nodes, {len(e1)} edges) -> "
                   f"{int(kl.max()) + 1} segments, energy {pmc.multicut_energy(e1, w1, kl):.6g}; parallel_contract "
                   f"(GAEC) on it {t_pc:.3f} s (the torch rung on the card {t_pc_t:.3f} s, same labels, "
@@ -3326,6 +3337,529 @@ def fleet_alone(K, args) -> None:
     log("fleet", "launches: " + json.dumps({r["name"]: r["fleet_launches"] for r in rows}))
 
 
+# the "analysis" phase: its crop of the blockwise phase's watershed labels
+# and boundary map (8 blocks of 96^3; cut from 256^3, 41.4 s on the card,
+# to keep the phase within 45 s and the smoke within its limit on a slower
+# host), the crop of part (i) and of the CPU twins (8 blocks of 64^3), the
+# size filters' threshold and the objects skeletonized, meshed and
+# measured for distances (the largest, by voxel count)
+ANALYSIS_EDGE = 192
+ANALYSIS_BLOCK = (96, 96, 96)
+ANALYSIS_CROP = 128
+ANALYSIS_CROP_BLOCK = (64, 64, 64)
+ANALYSIS_MIN_SIZE = 100
+ANALYSIS_TOP = 8
+# (g): a rotation by 0.1 rad in the (y, x) plane about the crop's centre,
+# shifted by (1.5, -3.25, 2.75) voxels
+_ROT = np.array([[1.0, 0.0, 0.0], [0.0, np.cos(0.1), -np.sin(0.1)], [0.0, np.sin(0.1), np.cos(0.1)]])
+ANALYSIS_AFFINE = dict(matrix=_ROT.tolist(),
+                       offset=(np.full(3, (ANALYSIS_EDGE - 1) / 2) - _ROT @ np.full(3, (ANALYSIS_EDGE - 1) / 2)
+                               + np.array([1.5, -3.25, 2.75])).tolist())
+
+
+def an_run(K, root: str, tag: str, workflow_cls, target: str, block, tmp: str = None, **params) -> dict:
+    """One run of a workflow with ``target`` in ``tmp`` (default: a fresh
+    folder under ``root``, kept for the artifacts): wall seconds (ended by a
+    device sync), peak device GB and the kernel launches of that run."""
+    from cluster_tools_tpu_torch.runtime.task import build as run_dag
+    from cluster_tools_tpu_torch.utils.parse_utils import parse_runtimes
+
+    if tmp is None:
+        tmp = tempfile.mkdtemp(prefix=f"{tag}-{target}-", dir=root)
+    cfg = os.path.join(tmp, "cfg")
+    os.makedirs(cfg, exist_ok=True)
+    with open(os.path.join(cfg, "global.config"), "w") as f:
+        json.dump({"block_shape": list(block)}, f)
+    cuda = torch.cuda.is_available()
+    K.reset_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wf = workflow_cls(tmp_folder=os.path.join(tmp, "tmp"), config_dir=cfg, max_jobs=8, target=target,
+                      block_shape=list(block), **params)
+    ok = run_dag([wf])
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not ok:
+        logs = "".join(open(os.path.join(tmp, "tmp", f)).read()[-3000:]
+                       for f in sorted(os.listdir(os.path.join(tmp, "tmp"))) if f.endswith(".log"))
+        raise AssertionError(f"analysis {tag} ({target}): the workflow failed; task logs:\n{logs}")
+    tasks = Counter()
+    for doc in parse_runtimes(os.path.join(tmp, "tmp")).values():
+        tasks[doc["task"]] += doc.get("runtime_s", 0.0)
+    return dict(tmp=os.path.join(tmp, "tmp"), wall_s=wall, launches=dict(K.LAUNCHES), tasks=tasks,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan"))
+
+
+def unique_counts(x: np.ndarray, dev) -> tuple:
+    """``np.unique(x, return_counts=True)`` through ``torch.unique`` on ``dev``."""
+    u, c = torch.unique(torch.from_numpy(x.astype(np.int64, copy=False)).to(dev), return_counts=True)
+    return u.cpu().numpy(), c.cpu().numpy()
+
+
+def npz_tree(folder: str) -> dict:
+    """Every ``.npz`` array and every other file's bytes under ``folder``,
+    keyed by relative path."""
+    out = {}
+    for fn in sorted(os.listdir(folder)):
+        p = os.path.join(folder, fn)
+        if fn.endswith(".npz"):
+            with np.load(p) as f:
+                out.update({f"{fn}/{k}": f[k] for k in f.files})
+        else:
+            out[fn] = np.frombuffer(open(p, "rb").read(), np.uint8)
+    return out
+
+
+def require_same(what: str, a: dict, b: dict) -> None:
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"analysis {what}: artifacts {sorted(set(a) ^ set(b))[:5]} on one side only")
+    for k in a:
+        if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"analysis {what}: {k} differs between the card's run and the CPU's")
+
+
+def phase_analysis(K, vol: torch.Tensor, ref_ws: np.ndarray, rows: list, target: str = "gpu") -> None:
+    """Postprocessing, analysis and export on the card (ROADMAP items 12b
+    and 12d), on the first ``ANALYSIS_EDGE``^3 of the "blockwise" phase's
+    single-pass watershed labels and boundary map in ``memory://`` (block
+    ``ANALYSIS_BLOCK``).  Each arm runs its workflow once with ``target`` (the card) and
+    prints its wall, peak device GB and kernel launches.  (h) also runs
+    with ``target="local"`` (the CPU) and must equal the card's run bit for
+    bit; (a), (b), (c) and (g)'s order 1 do so on the first
+    ``ANALYSIS_CROP``^3 (block 64^3), where each runs on the card and on
+    the CPU (at 256^3 their CPU twins took 4-9 s each: the cc chain, the
+    region graph, the resample).  Gates:
+
+    (a) ``SizeFilterWorkflow`` and ``GraphWatershedSizeFilterWorkflow``
+        (``min_size`` 100): no kept segment below ``min_size``; the size
+        filter keeps exactly the segments of 100 voxels or more; every
+        resolved small segment maps to a kept segment that one of its
+        graph neighbours maps to as well;
+    (b) ``ConnectedComponentsOnSegmentationWorkflow`` of (a)'s size filter
+        output: no output label spans two input labels, background kept;
+    (c) ``FillHolesWorkflow`` of (a)'s size filter output: every
+        background component touching the border stays 0
+        (``scipy.ndimage.label``), every other background voxel is filled;
+    (d) ``MorphologyWorkflow`` (sizes and centres of mass against
+        ``scipy.ndimage`` at atol 1e-9), ``NodeLabelWorkflow`` (the
+        watershed's segments onto (a)'s size filter output: each kept
+        segment onto its own filtered label), ``EvaluationWorkflow`` (the
+        watershed against itself: VI 0, Rand precision and recall 1; (a)'s
+        graph-watershed output against the watershed printed);
+    (e) ``DataStatisticsWorkflow`` of the map against numpy (rtol 1e-6,
+        std 1e-5);
+    (f) ``DownscalingWorkflow``: three levels of the map (``mean``, rtol
+        1e-5) and of the labels (``nearest``, exact) against numpy block
+        reductions;
+    (g) ``TransformationsWorkflow`` (``ANALYSIS_AFFINE``): order 1 equal to
+        ``scipy.ndimage.affine_transform`` at atol 1e-3 (and, on the crop,
+        to the CPU run bit for bit); order 0 of the labels equal to scipy's;
+    (h) ``SkeletonWorkflow`` and ``MeshWorkflow`` of the ``ANALYSIS_TOP``
+        largest objects (``object_ids``): every artifact equal to the CPU
+        run's, mesh volumes equal to the voxel counts;
+    (i) on the first ``ANALYSIS_CROP``^3 (block 64^3):
+        ``PainteraConversionWorkflow`` and ``PainteraToBdvWorkflow``
+        (``maxId``, ``resolution``, ``offset``, the label-to-block index
+        against per-block ``np.unique``, the bdv levels and attributes);
+        ``CreateMultiset`` + ``DownscaleMultiset`` (per-block label counts
+        against ``np.unique``, two levels); ``PairwiseDistanceWorkflow`` on
+        the crop's largest object and the ``ANALYSIS_TOP`` - 1 largest
+        segments touching it, against a brute-force minimum over every
+        pair's boundary voxels; ``GraphWorkflow`` with
+        ``CheckSubGraphs`` (the region graph re-extracted on the card) and
+        ``CheckBlocks`` passing.
+
+    The kernel rows gain ``analysis_launches`` (summed over the arms)."""
+    import scipy.ndimage as ndi
+    from scipy.spatial.distance import cdist
+
+    from cluster_tools_tpu_torch.io.containers import MemoryContainer, open_container
+    from cluster_tools_tpu_torch.runtime.task import build as run_dag
+    from cluster_tools_tpu_torch.tasks import label_multisets as lms
+    from cluster_tools_tpu_torch.tasks.debugging import CheckBlocksGPU, CheckBlocksLocal, CheckSubGraphsGPU, \
+        CheckSubGraphsLocal
+    from cluster_tools_tpu_torch.tasks.distances import PairwiseDistanceWorkflow, boundary_voxels, distances_path
+    from cluster_tools_tpu_torch.tasks.downscaling import DownscalingWorkflow
+    from cluster_tools_tpu_torch.tasks.evaluation import EvaluationWorkflow
+    from cluster_tools_tpu_torch.tasks.graph import GraphWorkflow, load_global_graph
+    from cluster_tools_tpu_torch.tasks.meshes import MeshWorkflow, mesh_signed_volume
+    from cluster_tools_tpu_torch.tasks.morphology import MorphologyWorkflow, morphology_path
+    from cluster_tools_tpu_torch.tasks.node_labels import NodeLabelWorkflow, node_labels_path
+    from cluster_tools_tpu_torch.tasks.paintera import PainteraConversionWorkflow, PainteraToBdvWorkflow, \
+        label_to_blocks_path
+    from cluster_tools_tpu_torch.tasks.postprocess import ConnectedComponentsOnSegmentationWorkflow, \
+        FillHolesWorkflow, GraphWatershedSizeFilterWorkflow, SizeFilterWorkflow
+    from cluster_tools_tpu_torch.tasks.skeletons import SkeletonWorkflow
+    from cluster_tools_tpu_torch.tasks.statistics import DataStatisticsWorkflow
+    from cluster_tools_tpu_torch.tasks.transformations import TransformationsWorkflow
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    dev = torch.device("cuda" if target == "gpu" else "cpu")
+    e, block = ANALYSIS_EDGE, ANALYSIS_BLOCK
+    mem = "memory://analysis"
+    f = open_container(mem)
+    ws = np.ascontiguousarray(ref_ws[:e, :e, :e]).astype(np.uint64)
+    bmap = vol.reshape(vol.shape[-3:])[:e, :e, :e].cpu().numpy()
+    f.require_dataset("ws", shape=ws.shape, chunks=block, dtype="uint64")[...] = ws
+    f.require_dataset("bmap", shape=bmap.shape, chunks=block, dtype="float32")[...] = bmap
+    c, cb = ANALYSIS_CROP, ANALYSIS_CROP_BLOCK
+    crop = np.ascontiguousarray(ws[:c, :c, :c])
+    f.require_dataset("crop", shape=crop.shape, chunks=cb, dtype="uint64")[...] = crop
+    f.require_dataset("crop_map", shape=crop.shape, chunks=cb, dtype="float32")[...] = bmap[:c, :c, :c]
+    io = dict(input_path=mem, input_key="ws")
+    launches = Counter()
+    root = tempfile.mkdtemp(prefix="analysis-")
+
+    def arm(tag, cls, tgt=target, tmp=None, **params):
+        rec = an_run(K, root, tag, cls, tgt, params.pop("block", block), tmp=tmp, **params)
+        if tgt == target:
+            launches.update(rec["launches"])
+        slow = ", ".join(f"{t} {x:.3f}" for t, x in rec["tasks"].most_common(3))
+        log("analysis", f"{tag} ({tgt}): wall {rec['wall_s']:.3f} s (slowest tasks, s: {slow}), peak "
+                        f"{rec['peak_gb']:.2f} GB, launches {rec['launches']} [{card}]")
+        return rec
+
+    def tasks_run(tasks, what):
+        """Tasks built by hand (no workflow), as :func:`an_run` runs one."""
+        cuda = torch.cuda.is_available()
+        K.reset_counts()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if not run_dag(tasks):
+            raise AssertionError(f"analysis (i): {what} failed")
+        if cuda:
+            torch.cuda.synchronize()
+        launches.update(K.LAUNCHES)
+        return dict(wall_s=time.perf_counter() - t0, launches=dict(K.LAUNCHES),
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan"))
+
+    def crop_twin(tag, cls, out_key, **params):
+        """The arm on the first ``ANALYSIS_CROP``^3 (``params`` name its crop
+        datasets) on the card into ``<out_key>_c``, then on the CPU into
+        ``<out_key>_c_local``: equal bit for bit."""
+        tag, out_key = tag + " crop", out_key + "_c"
+        arm(tag, cls, output_path=mem, output_key=out_key, block=cb, **params)
+        arm(tag, cls, tgt="local", output_path=mem, output_key=out_key + "_local", block=cb, **params)
+        got, want = f[out_key][...], f[out_key + "_local"][...]
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"analysis {tag}: the card's output differs from the CPU's at "
+                                 f"{int((got != want).sum())} voxels")
+
+    try:
+        ws_ids, ws_sizes = unique_counts(ws, dev)
+        kept_ids = ws_ids[(ws_sizes >= ANALYSIS_MIN_SIZE) & (ws_ids != 0)]
+        log("analysis", f"input: the first {e}^3 of the blockwise watershed, {len(ws_ids)} segments "
+                        f"({len(kept_ids)} of >= {ANALYSIS_MIN_SIZE} voxels), and of its boundary map")
+
+        # (a) the size filters
+        arm("(a) size_filter", SizeFilterWorkflow, **io, output_path=mem, output_key="sf",
+            min_size=ANALYSIS_MIN_SIZE)
+        crop_twin("(a) size_filter", SizeFilterWorkflow, "sf", input_path=mem, input_key="crop",
+                  min_size=ANALYSIS_MIN_SIZE)
+        sf = f["sf"][...]
+        u, n = unique_counts(sf, dev)
+        t_ws = torch.from_numpy(ws.astype(np.int64)).to(dev)
+        if (n[u != 0] < ANALYSIS_MIN_SIZE).any() or not torch.equal(
+                torch.from_numpy(sf > 0).to(dev), torch.isin(t_ws, torch.from_numpy(kept_ids).to(dev))):
+            raise AssertionError("analysis (a): the size filter kept a segment below min_size or dropped a kept one")
+        rec = arm("(a) graph_ws_size_filter", GraphWatershedSizeFilterWorkflow, **io, boundary_path=mem,
+                  boundary_key="bmap", output_path=mem, output_key="gws", min_size=ANALYSIS_MIN_SIZE)
+        crop_twin("(a) graph_ws_size_filter", GraphWatershedSizeFilterWorkflow, "gws", input_path=mem,
+                  input_key="crop", boundary_path=mem, boundary_key="crop_map", min_size=ANALYSIS_MIN_SIZE)
+        gws = f["gws"][...]
+        with np.load(os.path.join(rec["tmp"], "graph_ws_assignments.npz")) as a:
+            keys, values = a["keys"], a["values"]
+        _, _, edges, _ = load_global_graph(rec["tmp"])
+        small = ws_sizes[np.searchsorted(ws_ids, keys.astype(np.int64))] < ANALYSIS_MIN_SIZE
+        same = (values[edges[:, 0]] == values[edges[:, 1]]) & (values[edges[:, 0]] != 0)
+        has_peer = np.zeros(len(keys), bool)
+        has_peer[edges[same, 0]] = has_peer[edges[same, 1]] = True
+        resolved = small & (values != 0)
+        u, n = unique_counts(gws, dev)
+        if (not np.array_equal(values[~small], keys[~small]) or not np.isin(values[resolved], keys[~small]).all()
+                or not has_peer[resolved].all() or (n[u != 0] < ANALYSIS_MIN_SIZE).any()):
+            raise AssertionError("analysis (a): a graph-watershed assignment is not a kept neighbour's segment")
+        log("analysis", f"(a): size filter kept {len(kept_ids)} segments; graph watershed resolved "
+                        f"{int(resolved.sum())} of {int(small.sum())} small segments into kept neighbours, "
+                        f"{int((small & (values == 0)).sum())} unresolved; no output segment below "
+                        f"{ANALYSIS_MIN_SIZE} voxels")
+
+        # (b) connected components of (a)'s size-filter output
+        arm("(b) cc_on_segmentation", ConnectedComponentsOnSegmentationWorkflow, input_path=mem, input_key="sf",
+            output_path=mem, output_key="cc")
+        crop_twin("(b) cc_on_segmentation", ConnectedComponentsOnSegmentationWorkflow, "cc", input_path=mem,
+                  input_key="sf_c")
+        cc = f["cc"][...]
+        t_cc, t_sf = torch.from_numpy(cc.astype(np.int64)).to(dev), torch.from_numpy(sf.astype(np.int64)).to(dev)
+        fg = t_cc > 0
+        if not torch.equal(fg, t_sf > 0) or torch.unique((t_cc[fg] << 32) | t_sf[fg]).numel() != \
+                torch.unique(t_cc[fg]).numel():
+            raise AssertionError("analysis (b): an output component spans two input labels, or background moved")
+        log("analysis", f"(b): {torch.unique(t_cc[fg]).numel()} components of {torch.unique(t_sf[fg]).numel()} "
+                        f"segments; none spans two")
+        del t_cc, t_sf, fg
+
+        # (c) hole filling of (a)'s size-filter output
+        arm("(c) fill_holes", FillHolesWorkflow, input_path=mem, input_key="sf", output_path=mem,
+            output_key="filled")
+        crop_twin("(c) fill_holes", FillHolesWorkflow, "filled", input_path=mem, input_key="sf_c")
+        filled = f["filled"][...]
+        bg_cc, n_bg = ndi.label(sf == 0)
+        faces = [bg_cc[0], bg_cc[-1], bg_cc[:, 0], bg_cc[:, -1], bg_cc[:, :, 0], bg_cc[:, :, -1]]
+        border = np.isin(bg_cc, np.unique(np.concatenate([x.ravel() for x in faces]))) & (bg_cc > 0)
+        if (filled[border] != 0).any() or (filled[(sf == 0) & ~border] == 0).any() or \
+                not np.array_equal(filled[sf > 0], sf[sf > 0]):
+            raise AssertionError("analysis (c): a border background component was filled, or a hole was not")
+        log("analysis", f"(c): {n_bg} background components, {int(border.sum())} voxels on the border kept 0, "
+                        f"{int(((sf == 0) & ~border).sum())} hole voxels filled")
+        del bg_cc, border
+
+        # (d) morphology, node labels, evaluation
+        morph_gpu = tempfile.mkdtemp(prefix="morph-gpu-", dir=root)
+        rec = arm("(d) morphology", MorphologyWorkflow, tmp=morph_gpu, **io)
+        with np.load(morphology_path(rec["tmp"])) as m:
+            ids, sizes, com = m["ids"], m["sizes"], m["com"]
+        # scipy's oracles on the labels renumbered 1..n in id order (its
+        # fast path; the ids themselves are checked against torch.unique)
+        dense = torch.unique(torch.from_numpy(ws.astype(np.int64)).to(dev), return_inverse=True)[1]
+        dense = (dense + int(ws_ids[0] != 0)).cpu().numpy().astype(np.int32)
+        index = np.arange(1, len(ids) + 1)
+        if not np.array_equal(ids, ws_ids[ws_ids != 0].astype(np.uint64)) or not np.array_equal(
+                sizes, ndi.sum_labels(np.ones(ws.shape, np.int64), dense, index).astype(np.int64)):
+            raise AssertionError("analysis (d): morphology sizes differ from scipy.ndimage.sum_labels")
+        want_com = np.array(ndi.center_of_mass(np.ones(ws.shape, np.float64), dense, index))
+        del dense
+        if not np.allclose(com, want_com, rtol=0, atol=1e-9):
+            raise AssertionError(f"analysis (d): centres of mass differ from scipy's by "
+                                 f"{np.abs(com - want_com).max():.3g}")
+        rec = arm("(d) node_labels", NodeLabelWorkflow, **io, labels_path=mem, labels_key="sf")
+        with np.load(node_labels_path(rec["tmp"])) as t:
+            nl_keys, nl_values = t["keys"], t["values"]
+        t_sf = torch.from_numpy(sf.astype(np.int64)).to(dev)
+        seg_ids, inv = torch.unique(t_ws[t_sf > 0], return_inverse=True)
+        lab = t_sf[t_sf > 0]
+        lo = torch.full_like(seg_ids, 2 ** 62).scatter_reduce(0, inv, lab, "amin")
+        hi = torch.zeros_like(seg_ids).scatter_reduce(0, inv, lab, "amax")
+        if not (torch.equal(lo, hi) and np.array_equal(nl_keys.astype(np.int64), seg_ids.cpu().numpy())
+                and np.array_equal(nl_values.astype(np.int64), lo.cpu().numpy())):
+            raise AssertionError("analysis (d): node labels are not each kept segment's own filtered label")
+        del t_sf, t_ws, seg_ids, inv, lab
+        metrics = {}
+        for tag, key in (("self", "ws"), ("gws", "gws")):
+            rec = arm(f"(d) evaluation {tag}", EvaluationWorkflow, input_path=mem, input_key=key, labels_path=mem,
+                      labels_key="ws")
+            metrics[tag] = json.load(open(os.path.join(rec["tmp"], "evaluation.json")))
+        s = metrics["self"]
+        if abs(s["vi_split"]) > 1e-9 or abs(s["vi_merge"]) > 1e-9 or abs(s["rand_precision"] - 1) > 1e-9 or \
+                abs(s["rand_recall"] - 1) > 1e-9:
+            raise AssertionError(f"analysis (d): the watershed against itself: {s}")
+        log("analysis", f"(d): {len(ids)} objects, sizes = scipy, centres of mass within "
+                        f"{np.abs(com - want_com).max():.3g} of scipy; node labels of {len(nl_keys)} segments; "
+                        f"watershed vs itself {s}; graph-watershed filter vs watershed {metrics['gws']}")
+
+        # (e) statistics of the boundary map
+        rec = arm("(e) statistics", DataStatisticsWorkflow, input_path=mem, input_key="bmap")
+        st = json.load(open(os.path.join(rec["tmp"], "statistics.json")))
+        b64 = bmap.astype(np.float64)
+        want = dict(count=float(bmap.size), mean=b64.mean(), std=b64.std(), min=float(bmap.min()),
+                    max=float(bmap.max()))
+        if st["count"] != want["count"] or any(not np.isclose(st[k], want[k], rtol=1e-5 if k == "std" else 1e-6,
+                                                              atol=0) for k in ("mean", "std", "min", "max")):
+            raise AssertionError(f"analysis (e): statistics {st} against numpy {want}")
+        log("analysis", f"(e): {st}")
+
+        # (f) three-level pyramids of the map and the labels
+        factors = [[2, 2, 2]] * 3
+        arm("(f) downscaling mean", DownscalingWorkflow, input_path=mem, input_key="bmap", output_path=mem,
+            output_key_prefix="bmap_pyr", scale_factors=factors, mode="mean")
+        arm("(f) downscaling nearest", DownscalingWorkflow, **io, output_path=mem, output_key_prefix="ws_pyr",
+            scale_factors=factors, mode="nearest")
+        want_b, want_l = bmap, ws
+        for level in (1, 2, 3):
+            n = want_b.shape[0] // 2
+            want_b = want_b.reshape(n, 2, n, 2, n, 2).mean((1, 3, 5))
+            want_l = want_l[::2, ::2, ::2]
+            got_b, got_l = f[f"bmap_pyr/s{level}"][...], f[f"ws_pyr/s{level}"][...]
+            if not np.allclose(got_b, want_b, rtol=1e-5, atol=0) or not np.array_equal(got_l, want_l):
+                raise AssertionError(f"analysis (f): level {level} differs from numpy's block reduction")
+            if f[f"bmap_pyr/s{level}"].attrs["downsamplingFactors"] != [2 ** level] * 3:
+                raise AssertionError(f"analysis (f): level {level}'s downsamplingFactors")
+        log("analysis", "(f): s1-s3 of the map (mean) and the labels (nearest) equal numpy's block reductions")
+
+        # (g) the affine transform
+        arm("(g) transformations order 1", TransformationsWorkflow, input_path=mem, input_key="bmap",
+            output_path=mem, output_key="warped", order=1, fill_value=0.0, **ANALYSIS_AFFINE)
+        crop_twin("(g) transformations order 1", TransformationsWorkflow, "warped", input_path=mem,
+                  input_key="crop_map", order=1, fill_value=0.0, **ANALYSIS_AFFINE)
+        warped = f["warped"][...]
+        want = ndi.affine_transform(b64, np.asarray(ANALYSIS_AFFINE["matrix"]),
+                                    offset=np.asarray(ANALYSIS_AFFINE["offset"]), order=1, mode="constant", cval=0.0)
+        err = float(np.abs(warped.astype(np.float64) - want).max())
+        if err > 1e-3:
+            raise AssertionError(f"analysis (g): order 1 differs from scipy by {err:.3g}")
+        arm("(g) transformations order 0", TransformationsWorkflow, **io, output_path=mem, output_key="warped0",
+            order=0, **ANALYSIS_AFFINE)
+        if not np.array_equal(f["warped0"][...], ndi.affine_transform(
+                ws, np.asarray(ANALYSIS_AFFINE["matrix"]), offset=np.asarray(ANALYSIS_AFFINE["offset"]), order=0,
+                mode="constant", cval=0)):
+            raise AssertionError("analysis (g): order 0 of the labels differs from scipy's")
+        log("analysis", f"(g): order 1 {err:.3g} from scipy, on the crop = the CPU run bit for bit; order 0 of "
+                        f"the labels = scipy")
+        del want, b64
+
+        # (h) skeletons and meshes of the largest objects, beside (d)'s morphology
+        top = [int(i) for i in ids[np.argsort(-sizes, kind="stable")[:ANALYSIS_TOP]]]
+        morph_local = tempfile.mkdtemp(prefix="morph-local-", dir=root)
+        for tag, cls, sub in (("(h) skeletons", SkeletonWorkflow, "skeletons"), ("(h) meshes", MeshWorkflow,
+                                                                                   "meshes")):
+            arts = {}
+            for tgt, tmp in ((target, morph_gpu), ("local", morph_local)):
+                rec = arm(tag, cls, tgt=tgt, tmp=tmp, **io, object_ids=top)
+                arts[tgt] = npz_tree(os.path.join(rec["tmp"], sub))
+            require_same(tag, arts[target], arts["local"])
+        for obj in top:
+            v, fc = (arts[target][f"{obj}.npz/{k}"] for k in ("vertices", "faces"))
+            if mesh_signed_volume(v, fc) != float(sizes[ids == obj][0]):
+                raise AssertionError(f"analysis (h): object {obj}'s mesh volume is not its voxel count")
+        log("analysis", f"(h): objects {top} ({sizes[np.argsort(-sizes, kind='stable')[:ANALYSIS_TOP]].tolist()} "
+                        f"voxels): skeletons and meshes = the CPU run's, mesh volumes = voxel counts")
+
+        # (i) export and checks on the crop
+        cio = dict(input_path=mem, input_key="crop", block=cb)
+        rec = arm("(i) paintera_conversion", PainteraConversionWorkflow, **cio, output_path=mem,
+                  output_key_prefix="paintera", scale_factors=[[2, 2, 2], [2, 2, 2]], resolution=[40.0, 4.0, 4.0])
+        attrs = f["crop"].attrs
+        if attrs["maxId"] != int(crop.max()) or attrs["resolution"] != [40.0, 4.0, 4.0] or \
+                attrs["offset"] != [0.0, 0.0, 0.0]:
+            raise AssertionError(f"analysis (i): paintera attributes {dict(attrs)}")
+        with np.load(label_to_blocks_path(rec["tmp"])) as t:
+            labels, offsets, blks = t["labels"], t["offsets"], t["blocks"]
+        n_b = c // cb[0]
+        want_pairs = sorted((int(lab), (bz * n_b + by) * n_b + bx) for bz in range(n_b) for by in range(n_b)
+                            for bx in range(n_b) for lab in np.unique(crop[bz * cb[0]:(bz + 1) * cb[0],
+                                                                           by * cb[1]:(by + 1) * cb[1],
+                                                                           bx * cb[2]:(bx + 1) * cb[2]]) if lab)
+        got_pairs = [(int(lab), int(b)) for i, lab in enumerate(labels) for b in blks[offsets[i]:offsets[i + 1]]]
+        if got_pairs != want_pairs:
+            raise AssertionError("analysis (i): the label-to-block index differs from per-block np.unique")
+        bdv = "memory://analysis-bdv"
+        arm("(i) paintera_to_bdv", PainteraToBdvWorkflow, **cio, input_key_prefix="paintera", output_path=bdv,
+            scale_factors=[[2, 2, 2], [2, 2, 2]], resolution=[40.0, 4.0, 4.0])
+        g = open_container(bdv)
+        for level, key in enumerate(("crop", "paintera/s1", "paintera/s2")):
+            ds = g[f"setup0/timepoint0/s{level}"]
+            if not np.array_equal(ds[...], f[key][...]) or ds.attrs["downsamplingFactors"] != [2 ** level] * 3 or \
+                    ds.attrs["resolution"] != [40.0 * 2 ** level, 4.0 * 2 ** level, 4.0 * 2 ** level]:
+                raise AssertionError(f"analysis (i): bdv level {level}")
+
+        ms_tmp = tempfile.mkdtemp(prefix="multisets-", dir=root)
+        ms_cfg = os.path.join(ms_tmp, "cfg")
+        os.makedirs(ms_cfg)
+        with open(os.path.join(ms_cfg, "global.config"), "w") as fh:
+            json.dump({"block_shape": [32, 32, 32]}, fh)
+        common = dict(tmp_folder=os.path.join(ms_tmp, "tmp"), config_dir=ms_cfg, max_jobs=8, block_shape=[32] * 3,
+                      scale_factor=[2, 2, 2])
+        ms_cls = {"gpu": (lms.CreateMultisetGPU, lms.DownscaleMultisetGPU),
+                  "local": (lms.CreateMultisetLocal, lms.DownscaleMultisetLocal)}[target]
+        t1 = ms_cls[0](**common, input_path=mem, input_key="crop", output_path=mem, output_key="ms/s1")
+        t2 = ms_cls[1](**common, dependencies=[t1], level=1, level_shape=[c // 2] * 3, output_path=mem,
+                       output_key="ms/s2")
+        rec = tasks_run([t2], "label multisets")
+        log("analysis", f"(i) label_multisets ({target}): wall {rec['wall_s']:.3f} s, peak {rec['peak_gb']:.2f} GB, "
+                        f"launches {rec['launches']} [{card}]")
+        for level in (1, 2):
+            edge, n_blk = 32 * 2 ** level, (c // 2 ** level) // 32
+            for b in range(n_blk ** 3):
+                bz, by, bx = np.unravel_index(b, (n_blk,) * 3)
+                with np.load(os.path.join(lms.multiset_dir(common["tmp_folder"], level), f"block_{b}.npz")) as t:
+                    lab, cnt = t["labels"], t["counts"]
+                u_want, c_want = np.unique(crop[bz * edge:(bz + 1) * edge, by * edge:(by + 1) * edge,
+                                                bx * edge:(bx + 1) * edge], return_counts=True)
+                u_got, inv = np.unique(lab, return_inverse=True)
+                if not (np.array_equal(u_got, u_want) and np.array_equal(np.bincount(inv, weights=cnt).astype(
+                        np.int64), c_want)):
+                    raise AssertionError(f"analysis (i): multiset s{level} block {b}'s counts differ from np.unique")
+
+        cu, cn = np.unique(crop[crop > 0], return_counts=True)
+        big = cu[np.argmax(cn)]
+        touch = set()
+        for axis in range(3):
+            a, b = np.moveaxis(crop, axis, 0)[:-1], np.moveaxis(crop, axis, 0)[1:]
+            touch.update(np.unique(np.concatenate([b[(a == big) & (b != big)], a[(b == big) & (a != big)]])).tolist())
+        near = np.array(sorted(touch - {0}), np.uint64)
+        near_n = cn[np.searchsorted(cu, near)]
+        top_c = np.concatenate([[big], near[np.argsort(-near_n, kind="stable")[:ANALYSIS_TOP - 1]]])
+        sparse = np.where(np.isin(crop, top_c), crop, np.uint64(0))
+        f.require_dataset("sparse", shape=crop.shape, chunks=cb, dtype="uint64")[...] = sparse
+        rec = arm("(i) distances", PairwiseDistanceWorkflow, input_path=mem, input_key="sparse", block=cb,
+                  max_distance=10.0)
+        with np.load(distances_path(rec["tmp"])) as t:
+            table = {tuple(int(x) for x in p): float(d) for p, d in zip(t["pairs"], t["dists"])}
+        bvox = boundary_voxels(sparse) & (sparse != 0)
+        pts = {int(o): np.argwhere(bvox & (sparse == o)).astype(np.float64) for o in top_c}
+        want_t = {}
+        for i, a in enumerate(sorted(pts)):
+            for b in sorted(pts)[i + 1:]:
+                d = float(cdist(pts[a], pts[b]).min())
+                if d <= 10.0:
+                    want_t[(a, b)] = d
+        if sorted(table) != sorted(want_t) or any(abs(table[k] - want_t[k]) > 1e-12 for k in table):
+            raise AssertionError(f"analysis (i): distances {table} against brute force {want_t}")
+        g_tmp = tempfile.mkdtemp(prefix="debugging-", dir=root)
+        arm("(i) graph", GraphWorkflow, tmp=g_tmp, **cio)
+        dbg = {"gpu": (CheckSubGraphsGPU, CheckBlocksGPU), "local": (CheckSubGraphsLocal, CheckBlocksLocal)}[target]
+        dbg_common = dict(tmp_folder=os.path.join(g_tmp, "tmp"), config_dir=os.path.join(g_tmp, "cfg"), max_jobs=8,
+                          block_shape=list(cb))
+        rec = tasks_run([dbg[0](**dbg_common, input_path=mem, input_key="crop"),
+                         dbg[1](**dbg_common, input_path=mem, input_key="crop_map")], "a debugging check")
+        reports = [json.load(open(os.path.join(dbg_common["tmp_folder"], f"{n}.json")))
+                   for n in ("check_sub_graphs", "check_blocks")]
+        if any(r["violations"] for r in reports):
+            raise AssertionError(f"analysis (i): debugging reports {reports}")
+        log("analysis", f"(i) debugging checks ({target}): wall {rec['wall_s']:.3f} s, peak {rec['peak_gb']:.2f} GB, "
+                        f"launches {rec['launches']}; {reports[0]['n_blocks']} block graphs re-extracted, no "
+                        f"violation [{card}]")
+        log("analysis", f"(i) on {c}^3: paintera maxId {attrs['maxId']}, {len(labels)} labels indexed, bdv levels "
+                        f"s0-s2; multiset counts = np.unique per block at s1 and s2; {len(table)} object pairs "
+                        f"within 10 voxels = brute force over {len(top_c)} objects")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        MemoryContainer._registry.pop(mem, None)
+        MemoryContainer._registry.pop("memory://analysis-bdv", None)
+    for row in rows:
+        row["analysis_launches"] = launches.get(row["name"], 0)
+    log("analysis", f"phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+def analysis_alone(K, args) -> None:
+    """``--only analysis``: the main path's volume, the "blockwise" phase's
+    single-pass watershed of it (one run), then the "analysis" phase."""
+    from cluster_tools_tpu_torch.io.containers import MemoryContainer, open_container
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedWorkflow
+    from cluster_tools_tpu_torch.utils.synthetic import synthetic_boundaries
+
+    os.environ["CT_FILL_MODE"], os.environ["CT_TIER_MODE"] = "capacity", "cond"
+    vol = synthetic_boundaries(MAIN_SHAPE, torch.Generator(device="cuda").manual_seed(args.seed))
+    mem = "memory://blockwise"
+    f = open_container(mem)
+    f.require_dataset("boundaries", shape=vol.shape[-3:], chunks=SERVE_BLOCK, dtype="float32")[...] = \
+        vol.reshape(vol.shape[-3:]).cpu().numpy()
+    with tempfile.TemporaryDirectory(prefix="analysis-yardstick-") as root:
+        ws = bw_run(K, root, "ws", WatershedWorkflow, SERVE_BLOCK, input_path=mem, input_key="boundaries",
+                    output_path=mem, output_key="ws", **SERVE_WS)
+    log("analysis", f"yardstick: the single-pass watershed in {ws['wall_s']:.3f} s, launches {ws['launches']}")
+    ref_ws = f["ws"][...]
+    del MemoryContainer._registry[mem], f
+    rows = [{"name": k} for k in KERNELS]
+    phase_analysis(K, vol, ref_ws, rows)
+    log("analysis", "launches: " + json.dumps({r["name"]: r["analysis_launches"] for r in rows}))
+
+
 def main_phases(K, args, gen):
     """Phases 3-9 (kernels, main path, its twins and replays, worst
     cases, tiled seeds); returns the kernel rows, the main path's volume,
@@ -3799,10 +4333,10 @@ def serve_alone(K, args) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["faults", "serve", "fleet"], default=None,
+    ap.add_argument("--only", choices=["faults", "serve", "fleet", "analysis"], default=None,
                     help="build the kernels and run one phase alone on its own 512^3 blockwise yardstick "
-                         "(faults, fleet: the watershed; serve: cc and the watershed); prints no kernels or "
-                         "result line")
+                         "(faults, fleet, analysis: the watershed; serve: cc and the watershed); prints no kernels "
+                         "or result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3825,7 +4359,8 @@ def main() -> int:
         f"wall {time.perf_counter() - t0:.1f}s")
 
     if args.only is not None:
-        {"faults": faults_alone, "serve": serve_alone, "fleet": fleet_alone}[args.only](K, args)
+        {"faults": faults_alone, "serve": serve_alone, "fleet": fleet_alone,
+         "analysis": analysis_alone}[args.only](K, args)
         log("done", f"{time.perf_counter() - t_start:.1f}s")
         print(nvidia_smi())
         return 0
@@ -3843,6 +4378,7 @@ def main() -> int:
     # the fleet's members share the card with this process: its cached blocks go back first
     phase_serve(K, vol, serve_ref, rows,
                 then=lambda root, data: (torch.cuda.empty_cache(), phase_fleet(K, root, data, serve_ref["ws"], rows)))
+    phase_analysis(K, vol, serve_ref["ws"], rows)
     del serve_ref
     phase_inference(K, vol, rows, args.seed)
 

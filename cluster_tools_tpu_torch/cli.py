@@ -58,12 +58,12 @@ WORKFLOWS = {
     "paintera_to_bdv": "cluster_tools_tpu_torch.tasks.paintera:PainteraToBdvWorkflow",
 }
 
-#: the names the port has.  ``size_filter`` stays out until the rest of
-#: ``tasks/postprocess.py`` is ported (ROADMAP item 12b): its workflow is
-#: here, but ``configs size_filter`` writes the defaults of every task
-#: family of the reference's module.
+#: the names the port has
 PORTED = ("connected_components", "thresholded_components", "watershed", "fused_segmentation", "multicut",
-          "agglomerative_clustering", "relabel", "copy_volume", "inference", "ilastik_prediction")
+          "agglomerative_clustering", "relabel", "copy_volume", "inference", "ilastik_prediction", "size_filter",
+          "graph_ws_size_filter", "fill_holes", "cc_on_segmentation", "downscaling", "morphology", "node_labels",
+          "evaluation", "skeletons", "meshes", "transformations", "distances", "statistics", "paintera_conversion",
+          "paintera_to_bdv")
 
 #: the ROADMAP item that ports every other name
 UNPORTED_ITEM = "ROADMAP item 12"

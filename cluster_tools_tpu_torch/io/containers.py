@@ -1125,6 +1125,7 @@ class MemoryDataset(_ChecksumOps):
         self.chunks = chunks
         self._checksums = _ChecksumIndex(None)
         self._label = label
+        self._attrs: Dict = {}
 
     shape = property(lambda self: self._arr.shape)
     dtype = property(lambda self: self._arr.dtype)
@@ -1155,6 +1156,13 @@ class MemoryDataset(_ChecksumOps):
     def write_async(self, bb, value) -> Future:
         self[bb] = value
         return _resolved(None)
+
+    @property
+    def attrs(self) -> Dict:
+        return dict(self._attrs)
+
+    def update_attrs(self, **kwargs) -> None:
+        self._attrs.update(kwargs)
 
 
 class MemoryContainer:

@@ -220,6 +220,18 @@ def block_rag(seg: np.ndarray, values: Optional[np.ndarray] = None, inner_shape:
     return out
 
 
+def unique_pair_counts(pairs: np.ndarray):
+    """``np.unique(pairs, axis=0, return_counts=True)`` for ``[m, 2]``
+    non-negative integer rows, through one 64-bit key when both columns fit
+    in 32 bits (same rows, same order), else the structured sort.  Returns
+    ``(rows, counts)``; rows keep ``pairs``' dtype."""
+    if len(pairs) and int(pairs.max()) < 2**32 and (pairs.dtype.kind == "u" or int(pairs.min()) >= 0):
+        uk, counts = np.unique(_packed_keys(pairs), return_counts=True)
+        rows = np.stack([uk >> np.uint64(32), uk & np.uint64(0xFFFFFFFF)], axis=1).astype(pairs.dtype)
+        return rows, counts
+    return np.unique(pairs, axis=0, return_counts=True)
+
+
 def unique_pairs(pairs: np.ndarray):
     """``np.unique(pairs, axis=0, return_inverse=True)`` for ``[m, 2]``
     non-negative integer rows: through one 64-bit key when both columns

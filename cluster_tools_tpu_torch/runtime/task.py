@@ -112,6 +112,9 @@ class BaseTask:
         self.max_jobs = int(max_jobs)
         self.dependencies = list(dependencies or [])
         self.params = params
+        if self.target == "gpu":
+            # a task for the card raises without one, whatever it runs on
+            target_device("gpu")
         os.makedirs(tmp_folder, exist_ok=True)
         # identity includes a parameter hash: differently parameterized
         # instances of one task class get distinct targets and markers

@@ -15,6 +15,7 @@ store, and the executor's in-flight budget less the cache's.
 
 import json
 import shutil
+import signal
 import threading
 import time
 
@@ -23,12 +24,32 @@ import pytest
 
 from cluster_tools_tpu.io import chunk_cache as j_chunk_cache
 from cluster_tools_tpu.io.containers import open_container as j_open
+from cluster_tools_tpu.runtime import supervision as jsup
 from cluster_tools_tpu_torch.io import chunk_cache
 from cluster_tools_tpu_torch.io.containers import HandoffDataset, open_container
 from cluster_tools_tpu_torch.runtime import executor as pex
+from cluster_tools_tpu_torch.runtime import supervision as psup
 from cluster_tools_tpu_torch.runtime.task import BaseTask, build
 from cluster_tools_tpu_torch.utils import function_utils as fu
 from cluster_tools_tpu_torch.utils.volume_utils import Blocking
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _restore_drain_handlers():
+    """Both packages' executors arm a SIGTERM/SIGUSR1 drain handler in the
+    main thread and keep it: after this file's last case, restore both
+    signals, both packages' armed flags and their drain latches, so a later
+    file in this worker (the reference's preempt test above all) finds them
+    as they were (ROADMAP fact 19)."""
+    saved = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGUSR1)}
+    flags = [(mod, mod._drain_installed) for mod in (jsup, psup)]
+    yield
+    for sig, handler in saved.items():
+        signal.signal(sig, handler)
+    for mod, flag in flags:
+        mod._drain_installed = flag
+        mod.reset_drain()
+
 
 FORMATS = ("zarr", "n5")
 

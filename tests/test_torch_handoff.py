@@ -14,6 +14,7 @@ executor's admission gate.
 
 import json
 import os
+import signal
 import threading
 import time
 
@@ -22,14 +23,34 @@ import pytest
 import scipy.ndimage as ndi
 import torch
 
+from cluster_tools_tpu.runtime import supervision as jsup
 from cluster_tools_tpu_torch.io import containers as pcont
 from cluster_tools_tpu_torch.io.containers import ChunkCorruptionError, HandoffDataset
 from cluster_tools_tpu_torch.parallel import device_pool
 from cluster_tools_tpu_torch.runtime import executor as pex
 from cluster_tools_tpu_torch.runtime import handoff
+from cluster_tools_tpu_torch.runtime import supervision as psup
 from cluster_tools_tpu_torch.runtime.task import BaseTask, build
 from cluster_tools_tpu_torch.utils import function_utils as fu
 from cluster_tools_tpu_torch.utils.volume_utils import Blocking, file_reader
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _restore_drain_handlers():
+    """Both packages' executors arm a SIGTERM/SIGUSR1 drain handler in the
+    main thread and keep it: after this file's last case, restore both
+    signals, both packages' armed flags and their drain latches, so a later
+    file in this worker (the reference's preempt test above all) finds them
+    as they were (ROADMAP fact 19)."""
+    saved = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGUSR1)}
+    flags = [(mod, mod._drain_installed) for mod in (jsup, psup)]
+    yield
+    for sig, handler in saved.items():
+        signal.signal(sig, handler)
+    for mod, flag in flags:
+        mod._drain_installed = flag
+        mod.reset_drain()
+
 
 torch.set_num_threads(1)
 

@@ -29,6 +29,7 @@ components workflow under injected faults against the JAX package's.
 import importlib.util
 import json
 import os
+import signal
 
 import numpy as np
 import pytest
@@ -39,6 +40,7 @@ from cluster_tools_tpu.io import verified as jverified
 from cluster_tools_tpu.io.containers import open_container as j_open
 from cluster_tools_tpu.runtime import faults as jfaults
 from cluster_tools_tpu.runtime import repair as jrepair
+from cluster_tools_tpu.runtime import supervision as jsup
 from cluster_tools_tpu.runtime.task import build as j_build
 from cluster_tools_tpu.tasks.connected_components import ConnectedComponentsWorkflow as JCC
 from cluster_tools_tpu_torch.io import chunk_cache
@@ -47,6 +49,7 @@ from cluster_tools_tpu_torch.io.containers import ChunkCorruptionError, HandoffD
 from cluster_tools_tpu_torch.io.verified import MissingSidecarError, ProductCorruptionError
 from cluster_tools_tpu_torch.parallel import device_pool
 from cluster_tools_tpu_torch.runtime import faults, handoff, repair
+from cluster_tools_tpu_torch.runtime import supervision as psup
 from cluster_tools_tpu_torch.runtime.executor import BlockwiseExecutor, region_verifier
 from cluster_tools_tpu_torch.runtime.task import build
 from cluster_tools_tpu_torch.tasks.connected_components import ConnectedComponentsWorkflow as PCC
@@ -54,7 +57,26 @@ from cluster_tools_tpu_torch.tasks.copy_volume import CopyVolumeLocal
 from cluster_tools_tpu_torch.utils import function_utils as fu
 from cluster_tools_tpu_torch.utils.volume_utils import Blocking
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _restore_drain_handlers():
+    """Both packages' executors arm a SIGTERM/SIGUSR1 drain handler in the
+    main thread and keep it: after this file's last case, restore both
+    signals, both packages' armed flags and their drain latches, so a later
+    file in this worker (the reference's preempt test above all) finds them
+    as they were (ROADMAP fact 19)."""
+    saved = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGUSR1)}
+    flags = [(mod, mod._drain_installed) for mod in (jsup, psup)]
+    yield
+    for sig, handler in saved.items():
+        signal.signal(sig, handler)
+    for mod, flag in flags:
+        mod._drain_installed = flag
+        mod.reset_drain()
+
+
 torch.set_num_threads(1)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

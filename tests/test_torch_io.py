@@ -11,6 +11,7 @@ refused with ``NotImplementedError``.
 
 import json
 import os
+import signal
 import sys
 
 import numpy as np
@@ -18,11 +19,13 @@ import pytest
 import torch
 
 from cluster_tools_tpu.io.containers import ZarrContainer as JZarr
+from cluster_tools_tpu.runtime import supervision as jsup
 from cluster_tools_tpu.runtime.executor import morton_order as j_morton
 from cluster_tools_tpu.tasks.write import apply_assignment_np as j_apply
 from cluster_tools_tpu.utils import volume_utils as jvu
 from cluster_tools_tpu_torch.io.containers import ZarrContainer, open_container
 from cluster_tools_tpu_torch.runtime import executor as pex
+from cluster_tools_tpu_torch.runtime import supervision as psup
 from cluster_tools_tpu_torch.runtime.task import build, get_task_cls
 from cluster_tools_tpu_torch.tasks import connected_components as pcc
 from cluster_tools_tpu_torch.tasks import relabel as prl
@@ -30,6 +33,24 @@ from cluster_tools_tpu_torch.tasks import watershed as pws
 from cluster_tools_tpu_torch.tasks.write import apply_assignment_np
 from cluster_tools_tpu_torch.utils import function_utils as fu
 from cluster_tools_tpu_torch.utils import volume_utils as pvu
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _restore_drain_handlers():
+    """Both packages' executors arm a SIGTERM/SIGUSR1 drain handler in the
+    main thread and keep it: after this file's last case, restore both
+    signals, both packages' armed flags and their drain latches, so a later
+    file in this worker (the reference's preempt test above all) finds them
+    as they were (ROADMAP fact 19)."""
+    saved = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGUSR1)}
+    flags = [(mod, mod._drain_installed) for mod in (jsup, psup)]
+    yield
+    for sig, handler in saved.items():
+        signal.signal(sig, handler)
+    for mod, flag in flags:
+        mod._drain_installed = flag
+        mod.reset_drain()
+
 
 SHAPE = (10, 7, 13)
 CHUNKS = (4, 4, 8)

@@ -355,7 +355,7 @@ def test_unported_workflows_and_adoption_are_refused_with_their_items(tmp_path):
     base = str(tmp_path)
     server, client = _start(base, max_workers=1)
     try:
-        for name in ("morphology", "lifted_multicut", "mutex_watershed", "size_filter"):
+        for name in ("lifted_multicut", "mutex_watershed", "stitching"):
             with pytest.raises(ServeRejected) as ei:
                 client.submit(tenant="t", request_id=f"u-{name}", workflow=name)
             assert ei.value.code == NOT_PORTED and ei.value.http_status == 501

@@ -12,6 +12,7 @@ fault-injection, trace and handoff cases.
 
 import itertools
 import json
+import signal
 
 import jax
 import jax.numpy as jnp
@@ -22,11 +23,30 @@ import torch
 from cluster_tools_tpu.parallel import batch_shard as j_bs
 from cluster_tools_tpu.parallel import block_pool as j_pool
 from cluster_tools_tpu.runtime import executor as j_ex
+from cluster_tools_tpu.runtime import supervision as jsup
 from cluster_tools_tpu_torch.parallel import batch_shard as bs
 from cluster_tools_tpu_torch.parallel import block_pool
 from cluster_tools_tpu_torch.parallel import device_pool
 from cluster_tools_tpu_torch.runtime import executor as pex
+from cluster_tools_tpu_torch.runtime import supervision as psup
 from cluster_tools_tpu_torch.utils.volume_utils import Blocking, pad_block_to
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _restore_drain_handlers():
+    """Both packages' executors arm a SIGTERM/SIGUSR1 drain handler in the
+    main thread and keep it: after this file's last case, restore both
+    signals, both packages' armed flags and their drain latches, so a later
+    file in this worker (the reference's preempt test above all) finds them
+    as they were (ROADMAP fact 19)."""
+    saved = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGUSR1)}
+    flags = [(mod, mod._drain_installed) for mod in (jsup, psup)]
+    yield
+    for sig, handler in saved.items():
+        signal.signal(sig, handler)
+    for mod, flag in flags:
+        mod._drain_installed = flag
+        mod.reset_drain()
 
 
 @pytest.fixture(autouse=True)
