@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cluster_tools_tpu_torch``) on one GPU.
 
-Usage: ``python3 chip_smoke.py [--seed 0] [--only faults|serve|fleet|analysis]``
+Usage: ``python3 chip_smoke.py [--seed 0] [--only faults|serve|fleet|analysis|lifted]``
 
 Phases, each one line of output, each raising on failure:
 
@@ -224,6 +224,20 @@ Phases, each one line of output, each raising on failure:
     and launches, each gated against scipy / numpy oracles or its CPU run
     (the gates in ``phase_analysis``).  The kernel rows gain
     ``analysis_launches``;
+13d. lifted (``phase_lifted``; alone with ``--only lifted``, which adds
+    its arm (a) at 512^3, ``lifted_full``): the lifted multicut, the
+    mutex-watershed blocks and stitching (ROADMAP item 12c), each arm on
+    the card and on the CPU, equal bit for bit: (a)
+    ``LiftedMulticutSegmentationWorkflow`` with its own watershed (B1-B4
+    launched) on the first 128^3 of the main path's map, the main path's
+    cc labels as the attribution, and its global solve again with 2
+    shards; (b) ``MwsWorkflow`` with and without its stitching on
+    affinities of a ``synthetic_em_volume`` ground truth, scored by
+    ``EvaluationWorkflow``; (c) ``StitchingWorkflow`` with
+    ``merge_mode="multicut"`` on (b)'s independent blocks with 1 and 2
+    shards.  Prints walls, per-task seconds, graph and lifted sizes,
+    energies, peak device GB and peak host RSS by task (the gates in
+    ``phase_lifted``).  The kernel rows gain ``lifted_launches``;
 14. inference (``phase_inference``): ``InferenceWorkflow`` with the
     full-width U-Net (base 16, depth 2, GroupNorm, bfloat16; seeded weights
     saved with the port's ``save_checkpoint`` and read back from the npz) on
@@ -3385,7 +3399,7 @@ def an_run(K, root: str, tag: str, workflow_cls, target: str, block, tmp: str = 
     if not ok:
         logs = "".join(open(os.path.join(tmp, "tmp", f)).read()[-3000:]
                        for f in sorted(os.listdir(os.path.join(tmp, "tmp"))) if f.endswith(".log"))
-        raise AssertionError(f"analysis {tag} ({target}): the workflow failed; task logs:\n{logs}")
+        raise AssertionError(f"{tag} ({target}): the workflow failed; task logs:\n{logs}")
     tasks = Counter()
     for doc in parse_runtimes(os.path.join(tmp, "tmp")).values():
         tasks[doc["task"]] += doc.get("runtime_s", 0.0)
@@ -3860,6 +3874,347 @@ def analysis_alone(K, args) -> None:
     log("analysis", "launches: " + json.dumps({r["name"]: r["analysis_launches"] for r in rows}))
 
 
+# the "lifted" phase: arm (a), the lifted multicut chain with its own
+# watershed, on the first LIFTED_CROP^3 of the main path's map (block
+# LIFTED_BLOCK), the main path's cc labels as the attribution; arms (b) and
+# (c), the mutex watershed and stitching, on affinities of a synthetic EM
+# ground truth of LIFTED_EM_SHAPE (block LIFTED_EM_BLOCK)
+LIFTED_CROP = 128
+LIFTED_BLOCK = (64, 64, 64)
+LIFTED_EM_SHAPE = (32, 128, 128)
+LIFTED_EM_BLOCK = (32, 64, 64)
+LIFTED_EM_OBJECTS = 16
+# the lifted tasks whose host memory the phase reports
+LIFTED_HOST_TASKS = ("sparse_lifted_neighborhood", "costs_from_node_labels", "solve_lifted_subproblems",
+                     "reduce_lifted_problem", "solve_lifted_global")
+
+
+class RssPeak:
+    """Peak resident set size of this process (``VmRSS`` of
+    ``/proc/self/status``, sampled every ``period_s`` on a thread) over a
+    ``with`` block, in all and by the task running at the sample
+    (``runtime.faults.current_task``); ``base`` is the size at entry.  GB.
+
+    Sampled, not ``VmHWM``: the process's high-water mark keeps the peak of
+    the phases before this one and cannot be reset without writing to
+    ``/proc``, and the phase reports the lifted neighbourhood's own peak."""
+
+    def __init__(self, period_s: float = 0.02):
+        import threading
+
+        self.period_s = period_s
+        self.peak = self.base = 0.0
+        self.by_task = Counter()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+
+    @staticmethod
+    def rss_gb() -> float:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024 / 1e9
+        return float("nan")
+
+    def _sample(self):
+        from cluster_tools_tpu_torch.runtime import faults
+
+        while not self._stop.is_set():
+            rss = self.rss_gb()
+            self.peak = max(self.peak, rss)
+            task = faults.current_task()
+            if task is not None:
+                name = task.split(".")[0]
+                self.by_task[name] = max(self.by_task[name], rss)
+            self._stop.wait(self.period_s)
+
+    def __enter__(self):
+        self.base = self.peak = self.rss_gb()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.rss_gb())
+
+    def line(self) -> str:
+        tasks = ", ".join(f"{t} {self.by_task[t]:.2f}" for t in LIFTED_HOST_TASKS if t in self.by_task)
+        return f"peak host RSS {self.peak:.2f} GB (at entry {self.base:.2f}; by task: {tasks})"
+
+
+def affinities_from_labels(gt: np.ndarray, offsets, noise: float, seed: int) -> np.ndarray:
+    """Affinities of a label volume: attractive channels (the first ndim) 0.9
+    inside an object and 0.1 across a boundary, long-range channels the
+    reverse, plus normal noise from ``default_rng(seed)``, clipped."""
+    affs = np.zeros((len(offsets),) + gt.shape, np.float32)
+    for c, off in enumerate(offsets):
+        src = tuple(slice(max(0, -o), n - max(0, o)) for o, n in zip(off, gt.shape))
+        dst = tuple(slice(max(0, o), n - max(0, -o)) for o, n in zip(off, gt.shape))
+        same = gt[src] == gt[dst]
+        affs[c][src] = np.where(same, 0.9, 0.1) if c < gt.ndim else np.where(same, 0.1, 0.9)
+    affs += np.random.default_rng(seed).normal(0, noise, affs.shape).astype(np.float32)
+    return np.clip(affs, 0, 1)
+
+
+def npz_arrays(path: str, prefix: str) -> dict:
+    with np.load(path) as f:
+        return {f"{prefix}/{k}": f[k] for k in f.files}
+
+
+def solver_of(tmp: str, task: str) -> dict:
+    """The ``solver`` block (and energy) of ``task``'s success manifest in ``tmp``."""
+    for fn in sorted(os.listdir(tmp)):
+        if fn.split(".")[0] == task and fn.endswith(".success.json"):
+            doc = json.load(open(os.path.join(tmp, fn)))
+            return dict(doc.get("solver", {}), n_segments=doc.get("n_segments"), n_components=doc.get("n_components"))
+    raise AssertionError(f"lifted: no success manifest of {task} in {tmp}")
+
+
+def solver_line(sv: dict) -> str:
+    return (f"energy {sv.get('energy')!r}, sharded {sv.get('sharded')}, shards {sv.get('shards')}, "
+            f"reduce_plane {sv.get('reduce_plane', '-')}, degraded {sv.get('degraded', 'no')}, "
+            f"rounds {sv.get('rounds')}")
+
+
+def lifted_chain(K, root: str, tag: str, target: str, block, **params) -> dict:
+    """One ``LiftedMulticutSegmentationWorkflow`` run (:func:`an_run`) under
+    :class:`RssPeak`; adds the graph's sizes, the lifted edges, the global
+    solve's manifest and the host peak to the record."""
+    from cluster_tools_tpu_torch.tasks.graph import load_global_graph
+    from cluster_tools_tpu_torch.tasks.lifted_features import lifted_problem_path
+    from cluster_tools_tpu_torch.workflows import LiftedMulticutSegmentationWorkflow
+
+    with RssPeak() as rss:
+        rec = an_run(K, root, tag, LiftedMulticutSegmentationWorkflow, target, block, **params)
+    nodes, _, edges, _ = load_global_graph(rec["tmp"])
+    with np.load(lifted_problem_path(rec["tmp"])) as f:
+        n_lifted = len(f["edges"])
+    rec.update(rss=rss, nodes=len(nodes), edges=len(edges), lifted=n_lifted,
+               solver=solver_of(rec["tmp"], "solve_lifted_global"))
+    slow = ", ".join(f"{t} {x:.3f}" for t, x in rec["tasks"].most_common(6))
+    log("lifted", f"{tag} ({target}): wall {rec['wall_s']:.3f} s (tasks, s: {slow}); {rec['nodes']} nodes, "
+                  f"{rec['edges']} edges, {n_lifted} lifted edges; {solver_line(rec['solver'])}; peak device "
+                  f"{rec['peak_gb']:.2f} GB; {rss.line()}; launches {rec['launches']}")
+    return rec
+
+
+def sharded_global(K, rec: dict, target: str, block, shards: int, **io) -> dict:
+    """SolveLiftedGlobal of ``rec``'s run again with ``solver_shards`` (its
+    problem files as they are; the unsharded assignment table kept aside):
+    returns the manifest's solver block and the assignment table."""
+    from cluster_tools_tpu_torch.runtime.task import build as run_dag
+    from cluster_tools_tpu_torch.tasks import lifted_multicut as lmc
+
+    tmp = rec["tmp"]
+    path = lmc.lmc_assignments_path(tmp)
+    shutil.copy(path, path + ".s1")
+    cls = lmc.SolveLiftedGlobalGPU if target == "gpu" else lmc.SolveLiftedGlobalLocal
+    task = cls(tmp_folder=tmp, config_dir=os.path.join(os.path.dirname(tmp), "cfg"), max_jobs=8, scale=1,
+               block_shape=list(block), solver_shards=shards, **io)
+    t0 = time.perf_counter()
+    if not run_dag([task]):
+        raise AssertionError(f"lifted: the {shards}-shard global solve ({target}) failed")
+    wall = time.perf_counter() - t0
+    doc = json.load(open(os.path.join(tmp, f"{task.uid}.success.json")))
+    table = npz_arrays(path, f"lmc_s{shards}")
+    shutil.move(path + ".s1", path)
+    return dict(doc["solver"], wall_s=wall, table=table)
+
+
+def phase_lifted(K, vol: torch.Tensor, cc: np.ndarray, rows: list, target: str = "gpu") -> None:
+    """Lifted multicut, mutex-watershed blocks and stitching on the card
+    (ROADMAP item 12c).  Every arm runs its workflow with ``target`` (the
+    card) and with ``target="local"`` (the CPU), equal bit for bit:
+
+    (a) ``LiftedMulticutSegmentationWorkflow`` on the first
+        ``LIFTED_CROP``^3 of the main path's map (block ``LIFTED_BLOCK``),
+        with its own watershed (B1-B4 through the sweep: each launched) and
+        the main path's cc labels (scipy's partition, held in "main") as
+        the attribution; the CPU run takes the card's watershed
+        (``skip_ws``).  Gates: labels, ``lmc_assignments.npz`` and
+        ``lifted_problem.npz`` equal; then ``SolveLiftedGlobal`` again with
+        ``solver_shards=2`` on both (the reduce tree, packet plane):
+        assignment tables equal and the solve sharded, undegraded.  Prints
+        wall, per-task s, nodes, edges, lifted edges, energies, peak device
+        GB, peak host RSS by task and launches;
+    (b) ``MwsWorkflow`` with its stitching, and without (the independent
+        blocks), on ``affinities_from_labels`` of a ``synthetic_em_volume``
+        ground truth (``LIFTED_EM_SHAPE``, default offsets): equal, every
+        voxel labelled; the adapted-RAND error of the stitched labels
+        against the ground truth through ``EvaluationWorkflow``;
+    (c) ``StitchingWorkflow`` with ``merge_mode="multicut"`` on (b)'s
+        independent blocks and the volume's boundary map, with
+        ``solver_shards`` 1 and 2 (the contraction engine's torch rung on
+        the card): equal, fewer labels than blocks' labels, energies and
+        the solves' planes printed.
+
+    The kernel rows gain ``lifted_launches`` (the card's runs, summed)."""
+    from cluster_tools_tpu_torch.io.containers import MemoryContainer, open_container
+    from cluster_tools_tpu_torch.tasks.evaluation import EvaluationWorkflow
+    from cluster_tools_tpu_torch.tasks.lifted_features import lifted_problem_path
+    from cluster_tools_tpu_torch.tasks.lifted_multicut import lmc_assignments_path
+    from cluster_tools_tpu_torch.tasks.mutex_watershed import DEFAULT_OFFSETS, MwsWorkflow
+    from cluster_tools_tpu_torch.tasks.stitching import StitchingWorkflow
+    from cluster_tools_tpu_torch.utils.synthetic import synthetic_em_volume
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    e, block = LIFTED_CROP, LIFTED_BLOCK
+    mem = "memory://lifted"
+    f = open_container(mem)
+    bmap = vol.reshape(vol.shape[-3:])[:e, :e, :e].cpu().numpy()
+    f.require_dataset("bmap", shape=bmap.shape, chunks=block, dtype="float32")[...] = bmap
+    f.require_dataset("cc", shape=bmap.shape, chunks=block, dtype="uint64")[...] = cc[:e, :e, :e].astype(np.uint64)
+    launches = Counter()
+    root = tempfile.mkdtemp(prefix="lifted-")
+
+    def same(what, a: dict, b: dict):
+        if sorted(a) != sorted(b):
+            raise AssertionError(f"lifted {what}: {sorted(set(a) ^ set(b))[:5]} on one side only")
+        for k in a:
+            if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"lifted {what}: {k} differs between the card's run and the CPU's")
+
+    def arm(tag, cls, tgt, blk, **params):
+        rec = an_run(K, root, tag, cls, tgt, blk, **params)
+        if tgt == target:
+            launches.update(rec["launches"])
+        log("lifted", f"{tag} ({tgt}): wall {rec['wall_s']:.3f} s, peak {rec['peak_gb']:.2f} GB, launches "
+                      f"{rec['launches']}")
+        return rec
+
+    try:
+        # (a) the lifted multicut chain with its watershed
+        lio = dict(input_path=mem, input_key="bmap", ws_path=mem, ws_key="ws", labels_path=mem, labels_key="cc",
+                   output_path=mem)
+        got = lifted_chain(K, root, "(a) lifted_multicut", target, block, output_key="seg", **lio, **SERVE_WS)
+        launches.update(got["launches"])
+        if target == "gpu":
+            missing = [k for k in MAIN_PATH_KERNELS if got["launches"].get(k, 0) == 0]
+            if missing:
+                raise AssertionError(f"lifted (a): the watershed launched no {missing}")
+        want = lifted_chain(K, root, "(a) lifted_multicut, the card's watershed", "local", block,
+                            output_key="seg_local", skip_ws=True, **lio)
+        arrays = {}
+        for tag, rec, key in (("card", got, "seg"), ("cpu", want, "seg_local")):
+            arrays[tag] = dict(seg=f[key][...], **npz_arrays(lmc_assignments_path(rec["tmp"]), "lmc"),
+                               **npz_arrays(lifted_problem_path(rec["tmp"]), "lifted"))
+        same("(a) labels, lmc_assignments.npz, lifted_problem.npz", arrays["card"], arrays["cpu"])
+        io = dict(input_path=mem, input_key="ws")
+        s2 = sharded_global(K, got, target, block, 2, **io)
+        s2_cpu = sharded_global(K, want, "local", block, 2, **io)
+        same("(a) the 2-shard lmc_assignments.npz", s2["table"], s2_cpu["table"])
+        if not s2["sharded"] or "degraded" in s2:
+            raise AssertionError(f"lifted (a): the 2-shard solve did not run sharded: {s2}")
+        log("lifted", f"(a) gates: labels, lmc_assignments.npz and lifted_problem.npz = the CPU's; the 2-shard "
+                      f"tables = the CPU's; energy unsharded {got['solver']['energy']!r} | 2 shards "
+                      f"{s2['energy']!r} ({s2['wall_s']:.3f} s; {solver_line(s2)}) [{card}]")
+
+        # (b) the mutex watershed with and without its stitching
+        em_bmap, gt, _ = synthetic_em_volume(shape=LIFTED_EM_SHAPE, n_objects=LIFTED_EM_OBJECTS, seed=5,
+                                             with_mask=False)
+        affs = affinities_from_labels(gt, DEFAULT_OFFSETS, 0.05, 5)
+        eb = LIFTED_EM_BLOCK
+        f.require_dataset("affs", shape=affs.shape, chunks=(len(DEFAULT_OFFSETS),) + eb, dtype="float32")[...] = affs
+        f.require_dataset("em_bmap", shape=gt.shape, chunks=eb, dtype="float32")[...] = em_bmap
+        f.require_dataset("gt", shape=gt.shape, chunks=eb, dtype="uint64")[...] = gt
+        mws = dict(input_path=mem, input_key="affs", output_path=mem)
+        for tgt in (target, "local"):
+            arm("(b) mutex_watershed", MwsWorkflow, tgt, eb, output_key=f"mws_{tgt}", **mws)
+            arm("(b) mutex_watershed, stitch=False", MwsWorkflow, tgt, eb, output_key=f"blocks_{tgt}", stitch=False,
+                **mws)
+        for key in ("mws", "blocks"):
+            same(f"(b) {key}", {key: f[f"{key}_{target}"][...]}, {key: f[f"{key}_local"][...]})
+        stitched, blocks = f[f"mws_{target}"][...], f[f"blocks_{target}"][...]
+        if not (stitched > 0).all():
+            raise AssertionError("lifted (b): the stitched MWS left voxels unlabelled")
+        ev = arm("(b) evaluation", EvaluationWorkflow, target, eb, input_path=mem, input_key=f"mws_{target}",
+                 labels_path=mem, labels_key="gt")
+        measures = json.load(open(os.path.join(ev["tmp"], "evaluation.json")))
+        log("lifted", f"(b) gates: stitched and independent blocks = the CPU's; {len(np.unique(blocks))} labels in "
+                      f"the blocks -> {len(np.unique(stitched))} stitched, ground truth "
+                      f"{len(np.unique(gt))} objects; adapted-RAND error {measures['adapted_rand_error']!r}, VI "
+                      f"split {measures['vi_split']!r} merge {measures['vi_merge']!r} [{card}]")
+
+        # (c) stitch-via-multicut on the independent blocks
+        for shards in (1, 2):
+            out = {}
+            for tgt in (target, "local"):
+                key = f"st{shards}_{tgt}"
+                f.require_dataset(key, shape=gt.shape, chunks=eb, dtype="uint64")[...] = f[f"blocks_{tgt}"][...]
+                rec = arm(f"(c) stitching multicut, {shards} shard(s)", StitchingWorkflow, tgt, eb, seg_path=mem,
+                          seg_key=key, input_path=mem, input_key="em_bmap", merge_mode="multicut",
+                          stitch_threshold=0.5, solver_shards=shards)
+                out[tgt] = (f[key][...], solver_of(rec["tmp"], "merge_stitch_assignments"))
+            same(f"(c) {shards} shard(s)", {"seg": out[target][0]}, {"seg": out["local"][0]})
+            n_out = len(np.unique(out[target][0]))
+            if n_out >= len(np.unique(blocks)):
+                raise AssertionError(f"lifted (c): {shards} shard(s) merged nothing")
+            log("lifted", f"(c) {shards} shard(s) gates: = the CPU's; {n_out} labels; card "
+                          f"{solver_line(out[target][1])} | CPU energy {out['local'][1].get('energy')!r}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        MemoryContainer._registry.pop(mem, None)
+    for row in rows:
+        row["lifted_launches"] = launches.get(row["name"], 0)
+    log("lifted", f"phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+def lifted_full(K, vol: torch.Tensor, cc: np.ndarray) -> None:
+    """Arm (a) at full width (``--only lifted``): the config-4 shape, the
+    main path's 512^3 map, the "blockwise" phase's single-pass watershed of
+    it (block 128^3, ``skip_ws``) and the main path's cc labels as the
+    attribution, on the card, unsharded and then the global solve with 2
+    shards.  Prints what the phase's arm (a) prints."""
+    from cluster_tools_tpu_torch.io.containers import MemoryContainer, open_container
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedWorkflow
+
+    t0 = time.perf_counter()
+    card = nvidia_smi()
+    mem = "memory://lifted-full"
+    f = open_container(mem)
+    b_np = vol.reshape(vol.shape[-3:]).cpu().numpy()
+    f.require_dataset("boundaries", shape=b_np.shape, chunks=SERVE_BLOCK, dtype="float32")[...] = b_np
+    f.require_dataset("cc", shape=b_np.shape, chunks=SERVE_BLOCK, dtype="uint64")[...] = cc.astype(np.uint64)
+    root = tempfile.mkdtemp(prefix="lifted-full-")
+    try:
+        ws = bw_run(K, root, "ws", WatershedWorkflow, SERVE_BLOCK, input_path=mem, input_key="boundaries",
+                    output_path=mem, output_key="ws", **SERVE_WS)
+        log("lifted-full", f"the single-pass watershed in {ws['wall_s']:.3f} s, launches {ws['launches']}")
+        rec = lifted_chain(K, root, "lifted_multicut 512^3", "gpu", SERVE_BLOCK, input_path=mem,
+                           input_key="boundaries", ws_path=mem, ws_key="ws", labels_path=mem, labels_key="cc",
+                           output_path=mem, output_key="seg", skip_ws=True)
+        seg = f["seg"][...]
+        if seg.shape != b_np.shape or int(seg.min()) < 1:
+            raise AssertionError("lifted-full: the labels are malformed")
+        log("lifted-full", f"{len(np.unique(seg))} segments from {rec['nodes']} supervoxels")
+        s2 = sharded_global(K, rec, "gpu", SERVE_BLOCK, 2, input_path=mem, input_key="ws")
+        log("lifted-full", f"global solve with 2 shards: {s2['wall_s']:.3f} s, {solver_line(s2)} | unsharded "
+                           f"energy {rec['solver']['energy']!r}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        MemoryContainer._registry.pop(mem, None)
+    log("lifted-full", f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def lifted_alone(K, args) -> None:
+    """``--only lifted``: the main path's volume and scipy's labels of its
+    foreground (the main path's cc partition), the "lifted" phase, then its
+    arm (a) at full width (:func:`lifted_full`)."""
+    import scipy.ndimage as ndi
+
+    from cluster_tools_tpu_torch.utils.synthetic import synthetic_boundaries
+
+    os.environ["CT_FILL_MODE"], os.environ["CT_TIER_MODE"] = "capacity", "cond"
+    vol = synthetic_boundaries(MAIN_SHAPE, torch.Generator(device="cuda").manual_seed(args.seed))
+    cc, n = ndi.label((vol[0] < torch.tensor(np.float32(0.45), device="cuda")).cpu().numpy())
+    log("lifted", f"attribution: scipy's labels of the main path's foreground, {n} components")
+    rows = [{"name": k} for k in KERNELS]
+    phase_lifted(K, vol, cc, rows)
+    log("lifted", "launches: " + json.dumps({r["name"]: r["lifted_launches"] for r in rows}))
+    lifted_full(K, vol, cc)
+
 def main_phases(K, args, gen):
     """Phases 3-9 (kernels, main path, its twins and replays, worst
     cases, tiled seeds); returns the kernel rows, the main path's volume,
@@ -4333,10 +4688,10 @@ def serve_alone(K, args) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["faults", "serve", "fleet", "analysis"], default=None,
+    ap.add_argument("--only", choices=["faults", "serve", "fleet", "analysis", "lifted"], default=None,
                     help="build the kernels and run one phase alone on its own 512^3 blockwise yardstick "
-                         "(faults, fleet, analysis: the watershed; serve: cc and the watershed); prints no kernels "
-                         "or result line")
+                         "(faults, fleet, analysis: the watershed; serve: cc and the watershed; lifted: the main "
+                         "path's cc labels, then its arm (a) at 512^3); prints no kernels or result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4360,7 +4715,7 @@ def main() -> int:
 
     if args.only is not None:
         {"faults": faults_alone, "serve": serve_alone, "fleet": fleet_alone,
-         "analysis": analysis_alone}[args.only](K, args)
+         "analysis": analysis_alone, "lifted": lifted_alone}[args.only](K, args)
         log("done", f"{time.perf_counter() - t_start:.1f}s")
         print(nvidia_smi())
         return 0
@@ -4380,6 +4735,7 @@ def main() -> int:
                 then=lambda root, data: (torch.cuda.empty_cache(), phase_fleet(K, root, data, serve_ref["ws"], rows)))
     phase_analysis(K, vol, serve_ref["ws"], rows)
     del serve_ref
+    phase_lifted(K, vol, ref, rows)
     phase_inference(K, vol, rows, args.seed)
 
     log("done", f"{time.perf_counter() - t_start:.1f}s")

@@ -13,9 +13,9 @@ materializes a workflow's default task configs into a config_dir for
 editing (the reference's ``get_config`` pattern); ``report`` prints the
 runtime table.
 
-:data:`WORKFLOWS` keeps every name of the reference's registry.  A name
-not in :data:`PORTED` raises ``NotImplementedError`` naming
-:data:`UNPORTED_ITEM` when it is resolved (never at import).
+:data:`WORKFLOWS` keeps every name of the reference's registry, each
+resolved to the port's class of the same name when it is resolved
+(never at import).
 """
 
 from __future__ import annotations
@@ -58,24 +58,11 @@ WORKFLOWS = {
     "paintera_to_bdv": "cluster_tools_tpu_torch.tasks.paintera:PainteraToBdvWorkflow",
 }
 
-#: the names the port has
-PORTED = ("connected_components", "thresholded_components", "watershed", "fused_segmentation", "multicut",
-          "agglomerative_clustering", "relabel", "copy_volume", "inference", "ilastik_prediction", "size_filter",
-          "graph_ws_size_filter", "fill_holes", "cc_on_segmentation", "downscaling", "morphology", "node_labels",
-          "evaluation", "skeletons", "meshes", "transformations", "distances", "statistics", "paintera_conversion",
-          "paintera_to_bdv")
 
-#: the ROADMAP item that ports every other name
-UNPORTED_ITEM = "ROADMAP item 12"
-
-
-def resolve_spec(name: str, spec: str):
-    """The workflow class behind ``spec`` (``module:Class``); a registered
-    ``name`` not in :data:`PORTED` raises ``NotImplementedError``."""
+def resolve_spec(spec: str):
+    """The workflow class behind ``spec`` (``module:Class``)."""
     import importlib
 
-    if name in WORKFLOWS and name not in PORTED:
-        raise NotImplementedError(f"workflow {name!r} is not ported: {UNPORTED_ITEM}")
     mod_name, cls_name = spec.split(":", 1)
     return getattr(importlib.import_module(mod_name), cls_name)
 
@@ -88,7 +75,7 @@ def _resolve(name: str):
             f"unknown workflow {name!r}; available:\n  "
             + "\n  ".join(sorted(WORKFLOWS))
         )
-    return resolve_spec(name, spec)
+    return resolve_spec(spec)
 
 
 def cmd_run(args) -> int:

@@ -15,10 +15,15 @@ reference's solver core behind ``utils/segmentation_utils.py``'s registry.
 - :func:`multicut_energy` -- the objective, the sum of the costs of cut
   edges (costs > 0 attractive, < 0 repulsive; minimised).
 
+- :func:`lifted_greedy_additive` -- GAEC for the lifted multicut:
+  contractions along local edges only, priorities local + lifted;
+  :func:`lifted_multicut_energy` its objective.
+
 GAEC and KL run in the host C++ rung (:mod:`..native`), as the
 reference's do where its library loads; their Python paths, which compute
-the same labels, run inside ``native.force_python()``.  The lifted solvers
-wait for ROADMAP item 12.
+the same labels, run inside ``native.force_python()``.  The lifted GAEC is
+the reference's Python heap, line for line (the merge order depends on
+its dict order and tie order); without lifted edges it is the GAEC above.
 
 Sign convention matches ``probs_to_costs``: ``w = log((1-p)/p)``.
 """
@@ -575,3 +580,121 @@ def contract_graph(
     new_edges, inv = unique_pairs(pairs)
     new_costs = np.bincount(inv, weights=w, minlength=len(new_edges))
     return new_edges.astype(np.int64), new_costs
+
+
+def lifted_multicut_energy(edges: np.ndarray, costs: np.ndarray, lifted_edges: np.ndarray,
+                           lifted_costs: np.ndarray, node_labels: np.ndarray) -> float:
+    """Lifted objective: local cut costs + lifted cut costs (lower is
+    better; a lifted edge is cut when its endpoints are in different
+    clusters, whatever the graph's connectivity)."""
+    e = multicut_energy(edges, costs, node_labels)
+    if len(lifted_edges):
+        cut = node_labels[lifted_edges[:, 0]] != node_labels[lifted_edges[:, 1]]
+        e += float(np.asarray(lifted_costs, np.float64)[cut].sum())
+    return e
+
+
+def lifted_frontier_capable() -> bool:
+    """Whether the lifted objective has a frontier-abstention formulation.
+
+    It does not: a lifted edge adds to a cluster pair's priority only while
+    the pair stays graph-connected, a property of the whole partition that
+    a shard cannot decide from its boundary frontier.  So the collective
+    reduce plane (like ``frontier_contraction``) refuses lifted problems,
+    and they stay on the host GAEC."""
+    return False
+
+
+def lifted_greedy_additive(n_nodes: int, edges: np.ndarray, costs: np.ndarray, lifted_edges: np.ndarray,
+                           lifted_costs: np.ndarray, stop_cost: float = 0.0) -> np.ndarray:
+    """GAEC for the lifted multicut (Keuper et al. style).
+
+    Clusters contract only along local edges, but a merge's priority is
+    the combined local + lifted cost between the two clusters; lifted
+    weights merge additively beside local ones.  Heap entries are
+    ``(-priority, u, v)``; an entry is stale when its pair is no longer
+    locally adjacent or its priority moved by more than 1e-12.  Returns
+    int64 labels 0..k-1."""
+    n_nodes = int(n_nodes)
+    edges = np.asarray(edges, dtype=np.int64)
+    costs = np.asarray(costs, dtype=np.float64)
+    lifted_edges = np.asarray(lifted_edges, dtype=np.int64).reshape(-1, 2)
+    lifted_costs = np.asarray(lifted_costs, dtype=np.float64)
+    if len(lifted_edges) == 0:
+        return greedy_additive(n_nodes, edges, costs, stop_cost)
+
+    parent = np.arange(n_nodes, dtype=np.int64)
+
+    def find(x: int) -> int:
+        root = x
+        while parent[root] != root:
+            root = parent[root]
+        while parent[x] != root:
+            parent[x], x = root, parent[x]
+        return root
+
+    local: list = [dict() for _ in range(n_nodes)]
+    lifted: list = [dict() for _ in range(n_nodes)]
+    for (u, v), w in zip(edges, costs):
+        if u == v:
+            continue
+        u, v = int(u), int(v)
+        local[u][v] = local[u].get(v, 0.0) + w
+        local[v][u] = local[u][v]
+    for (u, v), w in zip(lifted_edges, lifted_costs):
+        if u == v:
+            continue
+        u, v = int(u), int(v)
+        lifted[u][v] = lifted[u].get(v, 0.0) + w
+        lifted[v][u] = lifted[u][v]
+
+    def prio(u, v):
+        return local[u][v] + lifted[u].get(v, 0.0)
+
+    heap = [(-prio(u, v), u, v) for u in range(n_nodes) for v in local[u] if u < v]
+    heapq.heapify(heap)
+
+    while heap:
+        neg_w, u, v = heapq.heappop(heap)
+        w = -neg_w
+        if w <= stop_cost:
+            break
+        ru, rv = find(u), find(v)
+        if ru == rv:
+            continue
+        if rv not in local[ru] or abs(prio(ru, rv) - w) > 1e-12:
+            continue  # stale
+        if len(local[ru]) + len(lifted[ru]) < len(local[rv]) + len(lifted[rv]):
+            ru, rv = rv, ru
+        parent[rv] = ru
+        del local[ru][rv]
+        lifted[ru].pop(rv, None)
+        for x, wx in local[rv].items():
+            if x == ru:
+                continue
+            nw = local[ru].get(x, 0.0) + wx
+            local[ru][x] = nw
+            local[x][ru] = nw
+            del local[x][rv]
+        for x, wx in lifted[rv].items():
+            if x == ru:
+                continue
+            nw = lifted[ru].get(x, 0.0) + wx
+            lifted[ru][x] = nw
+            lifted[x][ru] = nw
+            del lifted[x][rv]
+        # re-push only the pairs whose priority changed: the local
+        # neighbours inherited from rv, and ru's local neighbours whose
+        # lifted part changed
+        changed = set(local[rv]) | (set(lifted[rv]) & set(local[ru]))
+        changed.discard(ru)
+        local[rv].clear()
+        lifted[rv].clear()
+        for x in changed:
+            if x in local[ru]:
+                p = prio(ru, x)
+                if p > stop_cost:
+                    heapq.heappush(heap, (-p, ru, x))
+
+    roots = np.array([find(i) for i in range(n_nodes)], dtype=np.int64)
+    return _relabel_consecutive(roots)

@@ -45,9 +45,11 @@ hang or error at a level) degrades to the packet plane.  Spans:
 process, ``solve.worker``/``hop_wait`` in a worker and
 ``solve.worker_group`` around the group; instants ``degraded:packet_plane``
 and ``degraded:unsharded_solve``.  A traced driver hands its shard
-directory to the workers (``CTT_TRACE``).  Not ported: lifted edges
-through the tree (item 12: the port has no lifted solver, so a group with
-lifted edges raises).
+directory to the workers (``CTT_TRACE``).  Lifted edges ride the tree
+as in the reference: contracted endpoints relabel, parallel lifted edges
+add, and a node with lifted edges runs the lifted GAEC on the packet plane
+and in the worker group; the collective plane refuses them
+(:func:`..ops.multicut.lifted_frontier_capable`).
 """
 
 from __future__ import annotations
@@ -72,9 +74,6 @@ _ENV_WAIT = "CT_RT_WAIT_S"
 #: default patience of a worker polling for a sibling's packet before it
 #: declares the reduce hop lost and fails
 DEFAULT_HOP_WAIT_S = 120.0
-
-LIFTED_REFUSAL = ("lifted edges through the reduce tree need the lifted solver, which is not ported: "
-                  "ROADMAP Queue A item 12")
 
 
 class ShardedSolveError(RuntimeError):
@@ -285,11 +284,15 @@ def default_tree_solver(mode: str = "max", threshold: float = 0.0, impl: str = "
     """The default per-tree-node solver: frontier-aware contraction rounds
     (GAEC for ``mode='max'``, average linkage for ``'min'``); a node with no
     frontier runs the contraction engine (``impl`` on ``device``: the torch
-    rung on the card).  Lifted edges raise (ROADMAP item 12)."""
+    rung on the card).  A node with lifted edges runs the lifted GAEC on the
+    host (boundary-blind: the lifted objective has no frontier
+    formulation)."""
 
     def solve(n, edges, payload, frontier, lifted_edges, lifted_payload):
         if lifted_edges is not None and len(lifted_edges):
-            raise NotImplementedError(LIFTED_REFUSAL)
+            from ..ops.multicut import lifted_greedy_additive
+
+            return lifted_greedy_additive(n, edges, payload[:, 0], lifted_edges, lifted_payload[:, 0])
         if len(edges) == 0:
             return np.arange(n, dtype=np.int64)
         if frontier is not None and len(frontier[0]):
@@ -623,8 +626,11 @@ class CollectiveReducePlane:
         for gi, children in enumerate(groups):
             members, sub_edges, sub_payload, frontier, sub_le, sub_lp, n_int = _group_problem(state, children)
             if sub_le is not None and len(sub_le):
-                raise ShardedSolveError("lifted edges have no frontier formulation: the collective plane refuses "
-                                        "the group (ROADMAP Queue A item 12)")
+                from ..ops.multicut import lifted_frontier_capable
+
+                if not lifted_frontier_capable():
+                    raise ShardedSolveError("lifted edges have no frontier formulation — collective plane refuses "
+                                            "the group")
             internal_total += n_int
             if len(members) == 0:
                 results[gi] = (members, np.zeros(0, np.int64))

@@ -4,12 +4,14 @@ Port of ``cluster_tools_tpu/runtime/server.py`` with the same names, HTTP
 routes, journal records and state files, adapted in four places: a payload
 that names no ``target`` runs on ``"gpu"`` (the card; it fails with the
 device error where there is none, never on the CPU); workflow names resolve
-through :data:`..cli.WORKFLOWS`, where an unported one raises
-``NotImplementedError`` (HTTP 501 ``not_ported``); ``program_cache_size``
-and the ``programs`` block are kept for configs written for the reference
-but hold nothing (see :meth:`PipelineServer.program_cache_stats`); and a
-request's record carries ``kernel_launches``, the hand-kernel launches
-counted under it, when there were any.  Journal adoption
+through :data:`..cli.WORKFLOWS`, which resolves every name of the
+reference's, and a submission that raises ``NotImplementedError`` (what
+the port still lacks: ROADMAP item 8b) answers HTTP 501 ``not_ported``;
+``program_cache_size`` and the ``programs`` block are kept for configs
+written for the reference but hold nothing (see
+:meth:`PipelineServer.program_cache_stats`); and a request's record
+carries ``kernel_launches``, the hand-kernel launches counted under it,
+when there were any.  Journal adoption
 (:meth:`PipelineServer.adopt_journal`, ``POST /adopt``) is the reference's,
 so a port server adopts a journal the JAX package's server wrote and the
 reverse (``runtime/fleet.py``).
@@ -146,8 +148,7 @@ def _payload_fingerprint(payload: Dict[str, Any]) -> str:
 
 def _resolve_workflow(name: str):
     """A workflow class from the CLI registry (:data:`..cli.WORKFLOWS`) or
-    an explicit ``module:Class`` spec; a registered name the port has not
-    ported raises ``NotImplementedError`` naming its ROADMAP item."""
+    an explicit ``module:Class`` spec."""
     from ..cli import WORKFLOWS, resolve_spec
 
     spec = WORKFLOWS.get(name, name)
@@ -156,7 +157,7 @@ def _resolve_workflow(name: str):
             f"unknown workflow {name!r}; known: {sorted(WORKFLOWS)} "
             "(or pass an explicit 'module:Class' spec)"
         )
-    return resolve_spec(name, spec)
+    return resolve_spec(spec)
 
 
 class PipelineServer:
@@ -1371,7 +1372,7 @@ class _RequestHandler(BaseHTTPRequestHandler):
                 "error": e.code, "tenant": e.tenant, "detail": e.detail,
             })
         except NotImplementedError as e:
-            # a workflow the port has not ported: refused, naming its item
+            # what the port has not ported (ROADMAP item 8b): refused, naming its item
             self._reply(501, {"error": NOT_PORTED, "detail": str(e)})
         except (ValueError, KeyError) as e:
             self._reply(400, {"error": "bad_request", "detail": str(e)})

@@ -7,4 +7,6 @@ pixel-classification prediction (``ilastik``), the fused mesh step
 analysis and export tasks: ``postprocess``, ``statistics``,
 ``downscaling``, ``morphology``, ``node_labels``, ``evaluation``,
 ``distances``, ``skeletons``, ``meshes``, ``transformations``,
-``paintera``, ``label_multisets`` and ``debugging``."""
+``paintera``, ``label_multisets`` and ``debugging``, and the lifted
+multicut, mutex-watershed and stitching tasks: ``lifted_features``,
+``lifted_multicut``, ``mutex_watershed`` and ``stitching``."""

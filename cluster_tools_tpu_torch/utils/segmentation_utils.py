@@ -5,8 +5,10 @@ to its counterpart in :mod:`..ops.multicut` (GAEC, Kernighan-Lin, fusion
 moves, the decomposition solver, greedy node moves) or to the round-based
 engine of :mod:`..ops.contraction` (``gaec_parallel``,
 ``average_parallel``).  The engine's solvers (flag ``round_engine``) take
-the solve's ``device``; the others run on the host.  Lifted solvers are
-ROADMAP Queue A item 12.
+the solve's ``device``; the others run on the host.  As in the
+reference, the registry has no lifted key: the lifted tasks call
+:func:`..ops.multicut.lifted_greedy_additive` themselves, and an unknown
+key raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -72,8 +74,6 @@ key_to_agglomerator = {
 
 
 def get_multicut_solver(key: str):
-    if "lifted" in key:
-        raise NotImplementedError(f"lifted multicut solver {key!r} is not ported: ROADMAP Queue A item 12")
     try:
         return key_to_agglomerator[key]
     except KeyError:

@@ -7,9 +7,17 @@ normalisation.  Twelve passes give ~20-voxel objects, the scale of CREMI
 neurites at native resolution.  Two makers: numpy from an integer seed (the
 tests feed it to the JAX reference and the port alike) and torch on the
 device from a ``torch.Generator`` (the on-card run).
+
+Port of ``cluster_tools_tpu/utils/synthetic.py`` besides:
+:func:`synthetic_em_volume` (anisotropic Voronoi cells with exact ground
+truth, membrane-like boundaries, an ellipsoid mask) and :func:`grid_rag`
+(a grid-adjacency graph with noisy signed costs), numpy from one seed,
+drawn in the reference's order so both packages see the same arrays.
 """
 
 from __future__ import annotations
+
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +49,75 @@ def synthetic_boundaries(shape, generator: torch.Generator, passes: int = DEFAUL
             v = (v + torch.roll(v, 1, axis) + torch.roll(v, -1, axis)) / 3.0
     lo, hi = v.min(), v.max()
     return (v - lo) / torch.clamp(hi - lo, min=1e-6)
+
+
+def synthetic_em_volume(shape: Tuple[int, int, int] = (24, 96, 96), n_objects: int = 12,
+                        sampling: Sequence[float] = (40.0, 4.0, 4.0), boundary_width: float = 2.0,
+                        noise: float = 0.05, smooth: float = 0.7, with_mask: bool = True, seed: int = 0):
+    """Returns ``(boundaries float32 [0,1], gt uint64, mask bool)``.
+
+    Ground truth: anisotropic Voronoi cells of ``n_objects`` uniform centres
+    in physical coordinates (``sampling`` nm a voxel), labels 1..n_objects
+    and 0 only outside the mask.  Boundaries: ``exp(-d / boundary_width)``
+    of the voxel distance ``d`` (z weighted 2) to the one-voxel interfaces
+    (the lower voxel of each differing pair), smoothed by ``smooth``, plus
+    normal noise of ``noise``, clipped.  Mask: the inscribed ellipsoid."""
+    rng = np.random.default_rng(seed)
+    shape = tuple(int(s) for s in shape)
+    samp = np.asarray(sampling, np.float64)
+    phys = np.array(shape) * samp
+    centers = rng.random((n_objects, 3)) * phys
+    zz, yy, xx = np.meshgrid(np.arange(shape[0]) * samp[0], np.arange(shape[1]) * samp[1],
+                             np.arange(shape[2]) * samp[2], indexing="ij")
+    coords = np.stack([zz, yy, xx], axis=-1)
+    d = np.full(shape, np.inf)
+    gt = np.zeros(shape, np.uint64)
+    for i, c in enumerate(centers):
+        di = np.sqrt(((coords - c) ** 2).sum(-1))
+        closer = di < d
+        d = np.where(closer, di, d)
+        gt[closer] = i + 1
+
+    from scipy import ndimage
+
+    interfaces = np.zeros(shape, bool)
+    for axis in range(3):
+        a = [slice(None)] * 3
+        b = [slice(None)] * 3
+        a[axis] = slice(0, -1)
+        b[axis] = slice(1, None)
+        interfaces[tuple(a)] |= gt[tuple(a)] != gt[tuple(b)]
+    vox_dist = ndimage.distance_transform_edt(~interfaces, sampling=(2.0, 1.0, 1.0))
+    boundaries = np.exp(-vox_dist / max(boundary_width, 1e-6))
+    if smooth > 0:
+        boundaries = ndimage.gaussian_filter(boundaries, smooth)
+    if noise > 0:
+        boundaries = boundaries + rng.normal(0, noise, shape)
+    boundaries = np.clip(boundaries, 0.0, 1.0).astype(np.float32)
+    if with_mask:
+        rel = (np.stack([zz, yy, xx], -1) / phys) * 2.0 - 1.0
+        mask = (rel**2).sum(-1) <= 1.0
+    else:
+        mask = np.ones(shape, bool)
+    gt = np.where(mask, gt, 0).astype(np.uint64)
+    return boundaries, gt, mask
+
+
+def grid_rag(g: int = 16, seed: int = 0, mu: float = 0.2, sigma: float = 1.0) -> Tuple[int, np.ndarray, np.ndarray]:
+    """Grid-adjacency graph of ``g``^3 nodes (the shape of watershed-fragment
+    graphs) with normal(``mu``, ``sigma``) costs: ``(n_nodes, edges [m, 2],
+    costs [m])``, the edges axis by axis."""
+    rng = np.random.default_rng(seed)
+    n = g**3
+    ids = np.arange(n).reshape(g, g, g)
+    parts = []
+    for ax in range(3):
+        a = np.moveaxis(ids, ax, 0)[:-1].ravel()
+        b = np.moveaxis(ids, ax, 0)[1:].ravel()
+        parts.append(np.stack([a, b], 1))
+    edges = np.concatenate(parts)
+    costs = rng.normal(mu, sigma, len(edges))
+    return n, edges, costs
 
 
 def serpentine_order(tile) -> np.ndarray:

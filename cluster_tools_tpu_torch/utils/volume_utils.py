@@ -86,6 +86,12 @@ class Blocking:
             outer_end = tuple(min(s, e + h) for e, h, s in zip(end, halo, self.shape))
         return Block(block_id, begin, end, outer_begin, outer_end)
 
+    def neighbor_id(self, block_id: int, axis: int, direction: int) -> Optional[int]:
+        """Grid neighbour of ``block_id`` along ``axis`` (+1/-1), or None at the edge."""
+        offset = [0] * len(self.shape)
+        offset[axis] = direction
+        return self.neighbor_id_offset(block_id, offset)
+
     def neighbor_id_offset(self, block_id: int, offset: Sequence[int]) -> Optional[int]:
         """Grid neighbour at a per-axis offset (diagonals included), or None."""
         pos = [p + int(o) for p, o in zip(self.block_grid_position(block_id), offset)]

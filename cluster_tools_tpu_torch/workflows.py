@@ -9,8 +9,9 @@ chains
 and ``AgglomerativeClusteringWorkflow`` the same with average-linkage
 agglomeration in place of costs and multicut.  ``target`` selects the
 stage tasks (``gpu``, the default, or ``local``); ``get_config()``
-aggregates every stage's defaults.  The lifted workflow is ROADMAP Queue A
-item 12.
+aggregates every stage's defaults.  ``LiftedMulticutSegmentationWorkflow``
+adds a node-label attribution that induces sparse lifted edges and solves
+the lifted multicut.
 """
 
 from __future__ import annotations
@@ -35,8 +36,9 @@ def _pick(p: Dict[str, Any], *names: str) -> Dict[str, Any]:
 
 
 def _supervoxel_graph_features(wf: WorkflowBase):
-    """The shared head of both workflows: watershed (unless ``skip_ws``),
-    graph and edge features; returns ``(common, grid, features task)``."""
+    """The shared head of the workflows: watershed (unless ``skip_ws``),
+    graph and edge features; returns ``(common, grid, graph task,
+    features task)``."""
     p = wf.params
     common = dict(tmp_folder=wf.tmp_folder, config_dir=wf.config_dir, max_jobs=wf.max_jobs)
     ws_path, ws_key = p["ws_path"], p["ws_key"]
@@ -53,7 +55,7 @@ def _supervoxel_graph_features(wf: WorkflowBase):
         **common, target=wf.target, dependencies=[g], input_path=p["input_path"], input_key=p["input_key"],
         labels_path=ws_path, labels_key=ws_key, **_pick(p, "channel"), **grid,
     )
-    return common, grid, feats
+    return common, grid, g, feats
 
 
 def _write(wf: WorkflowBase, common, dep, assignment_path: str):
@@ -86,7 +88,7 @@ class MulticutSegmentationWorkflow(WorkflowBase):
 
     def requires(self):
         p = self.params
-        common, grid, feats = _supervoxel_graph_features(self)
+        common, grid, _, feats = _supervoxel_graph_features(self)
         costs = get_task_cls(costs_mod, "ProbsToCosts", self.target)(
             **common, dependencies=[feats], **_pick(p, "beta", "weighting_scheme", "weighting_exponent"))
         mc = mc_mod.MulticutWorkflow(
@@ -121,7 +123,7 @@ class AgglomerativeClusteringWorkflow(WorkflowBase):
     task_name = "agglomerative_clustering_workflow"
 
     def requires(self):
-        common, _, feats = _supervoxel_graph_features(self)
+        common, _, _, feats = _supervoxel_graph_features(self)
         ac = get_task_cls(ac_mod, "AgglomerativeClustering", self.target)(
             **common, dependencies=[feats], threshold=self.params.get("agglomeration_threshold", 0.5))
         return [_write(self, common, ac, ac_mod.agglomerative_assignments_path(self.tmp_folder))]
@@ -139,10 +141,60 @@ class AgglomerativeClusteringWorkflow(WorkflowBase):
 
 
 class LiftedMulticutSegmentationWorkflow(WorkflowBase):
-    """Lifted multicut segmentation: not ported (ROADMAP Queue A item 12)."""
+    """Lifted multicut segmentation: the multicut chain plus a node-label
+    attribution that induces sparse lifted edges --
+
+        ws -> graph -> features -> costs
+           -> node_labels (overlap with ``labels_path/labels_key``, e.g. a
+              nucleus or semantic segmentation)
+           -> sparse lifted neighbourhood -> lifted costs
+           -> hierarchical lifted multicut -> write
+
+    Params beyond :class:`MulticutSegmentationWorkflow`'s:
+    ``labels_path/labels_key`` (the attribution volume),
+    ``max_graph_distance``, ``w_attractive``/``w_repulsive``."""
 
     task_name = "lifted_multicut_segmentation_workflow"
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("LiftedMulticutSegmentationWorkflow (lifted multicut) is not ported: "
-                                  "ROADMAP Queue A item 12")
+    def requires(self):
+        from .tasks import lifted_features as lf_mod
+        from .tasks import lifted_multicut as lmc_mod
+        from .tasks import node_labels as nl_mod
+
+        p = self.params
+        common, grid, g, feats = _supervoxel_graph_features(self)
+        costs = get_task_cls(costs_mod, "ProbsToCosts", self.target)(
+            **common, dependencies=[feats], **_pick(p, "beta", "weighting_scheme", "weighting_exponent"))
+        nl = nl_mod.NodeLabelWorkflow(**common, target=self.target, dependencies=[g], input_path=p["ws_path"],
+                                      input_key=p["ws_key"], labels_path=p["labels_path"],
+                                      labels_key=p["labels_key"], **grid)
+        lifted_nh = get_task_cls(lf_mod, "SparseLiftedNeighborhood", self.target)(
+            **common, dependencies=[g], **_pick(p, "max_graph_distance"))
+        lifted_costs = get_task_cls(lf_mod, "CostsFromNodeLabels", self.target)(
+            **common, dependencies=[nl, lifted_nh], **_pick(p, "w_attractive", "w_repulsive"))
+        lmc = lmc_mod.LiftedMulticutWorkflow(
+            **common, target=self.target, dependencies=[costs, lifted_costs], input_path=p["ws_path"],
+            input_key=p["ws_key"], **_pick(p, "n_scales", "solver_shards", "reduce_fanout", "solver_workers"),
+            **grid,
+        )
+        return [_write(self, common, lmc, lmc_mod.lmc_assignments_path(self.tmp_folder))]
+
+    @staticmethod
+    def get_config() -> Dict[str, Dict[str, Any]]:
+        """Aggregated per-task default configs."""
+        from .tasks import lifted_features as lf_mod
+        from .tasks import lifted_multicut as lmc_mod
+        from .tasks import node_labels as nl_mod
+
+        return {
+            "global": WorkflowBase.default_global_config(),
+            "watershed": ws_mod.WatershedBase.default_task_config(),
+            "initial_sub_graphs": graph_mod.InitialSubGraphsBase.default_task_config(),
+            "block_edge_features": feat_mod.BlockEdgeFeaturesBase.default_task_config(),
+            "probs_to_costs": costs_mod.ProbsToCostsBase.default_task_config(),
+            "block_node_labels": nl_mod.BlockNodeLabelsBase.default_task_config(),
+            "sparse_lifted_neighborhood": lf_mod.SparseLiftedNeighborhoodBase.default_task_config(),
+            "costs_from_node_labels": lf_mod.CostsFromNodeLabelsBase.default_task_config(),
+            "solve_lifted_subproblems": lmc_mod.SolveLiftedSubproblemsBase.default_task_config(),
+            "solve_lifted_global": lmc_mod.SolveLiftedGlobalBase.default_task_config(),
+        }

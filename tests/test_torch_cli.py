@@ -5,8 +5,8 @@
 "local"``), ``configs`` writes the same config files for every ported
 workflow, ``report`` tabulates the same tasks, and ``run copy_volume`` in
 process writes the same cast volume.  The registry keeps every
-name of the reference's; an unported one is refused naming ROADMAP item 12
-when it is resolved, and ``run`` defaults to the card.
+name of the reference's and resolves each to the port's class of the same
+name, and ``run`` defaults to the card.
 """
 
 import contextlib
@@ -40,20 +40,19 @@ def _cli(side, *args):
 
 
 def test_registry_keeps_every_reference_name():
+    """Every name of the reference's resolves, none is refused (the lifted
+    multicut, the mutex watershed and stitching included)."""
     assert set(pcli.WORKFLOWS) == set(jcli.WORKFLOWS)
-    assert set(pcli.PORTED) <= set(pcli.WORKFLOWS)
-    for name in pcli.PORTED:
+    assert not hasattr(pcli, "PORTED") and not hasattr(pcli, "UNPORTED_ITEM")
+    for name in pcli.WORKFLOWS:
         cls = pcli._resolve(name)
         assert cls.__module__.startswith("cluster_tools_tpu_torch.")
         assert cls.__name__ == jcli.WORKFLOWS[name].split(":")[1]
-    for name in sorted(set(pcli.WORKFLOWS) - set(pcli.PORTED)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            pcli._resolve(name)
     with pytest.raises(SystemExit):
         pcli._resolve("definitely_not_a_workflow")
 
 
-@pytest.mark.parametrize("name", sorted(pcli.PORTED))
+@pytest.mark.parametrize("name", sorted(pcli.WORKFLOWS))
 def test_configs_equal_the_reference(tmp_path, name):
     files = {}
     for side, mod in (("jax", jcli), ("port", pcli)):

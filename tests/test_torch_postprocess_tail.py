@@ -192,7 +192,7 @@ CASES = {
     "graph_watershed_size_filter": _graph_ws,
     "cli_run_and_report": _cli_run_and_report,
     "cli_configs": _configs(["multicut"]),
-    "cli_configs_every_workflow": _configs(sorted(pcli.PORTED)),
+    "cli_configs_every_workflow": _configs(sorted(pcli.WORKFLOWS)),
 }
 
 
@@ -280,17 +280,16 @@ def test_cli_configs(tmp_path, jax_run):
 
 
 def test_cli_configs_every_workflow(tmp_path, jax_run):
-    """configs works for every ported workflow and writes the reference's
-    files (a task-module workflow aggregates its module's task defaults);
-    an unported name is refused naming its ROADMAP item."""
+    """configs works for every workflow of the reference's registry and
+    writes the reference's files (a task-module workflow aggregates its
+    module's task defaults); no name is left unported."""
     files = _both("cli_configs_every_workflow", tmp_path, jax_run)
-    for wf in pcli.PORTED:
+    for wf in pcli.WORKFLOWS:
         names = [k.split("/", 1)[1] for k in files if k.startswith(wf + "/")]
         assert "global.config" in names and len(names) >= 2 and "base.config" not in names, (wf, names)
-    for wf in sorted(set(pcli.WORKFLOWS) - set(pcli.PORTED)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            pcli.main(["configs", wf, "--out", str(tmp_path / f"cfg_{wf}")])
-    assert sorted(set(pcli.WORKFLOWS) - set(pcli.PORTED)) == ["lifted_multicut", "mutex_watershed", "stitching"]
+    assert sorted(set(jcli.WORKFLOWS) - set(pcli.WORKFLOWS)) == []
+    for wf in ("lifted_multicut", "mutex_watershed", "stitching"):
+        assert f"{wf}/global.config" in files
 
 
 def test_gpu_tasks_raise_without_a_card(tmp_path):

@@ -3,7 +3,8 @@ against the JAX package's, on the CPU: the scenarios of
 ``tests/test_reduce_tree.py`` (topology, Morton and contiguous partitions,
 frontier contraction, the in-process sharded solve in max and min mode
 across pool widths, the degenerate single shard, the degrade ladder through
-a raising partition thunk, the counters), each on the same numpy inputs
+a raising partition thunk, the counters, lifted edges carried through
+the tree), each on the same numpy inputs
 through both packages, with the contraction ``impl`` pinned to ``numpy`` on
 both sides (each package under its ``native.force_python()``).  Labels and
 integer counters are compared bit for bit; the only tolerance is the
@@ -170,10 +171,15 @@ def test_sharded_solve_average_linkage_mode(fanout):
 
 
 def test_sharded_solve_refuses_lifted_edges():
+    """Lifted edges ride the tree (none is refused any more): a strong
+    lifted repulsion between the grid's far corners, solved on the packet
+    plane, gives the reference's labels and counters and cuts the pair."""
     n, edges, costs, node_shard = _grid_problem(g=6, shards=2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        prt.sharded_solve(n, edges, costs, node_shard, lifted_edges=np.array([[0, n - 1]]),
-                          lifted_payload=np.array([-1e4]), device="cpu")
+    lifted = dict(lifted_edges=np.array([[0, n - 1]]), lifted_payload=np.array([-1e4]))
+    (lj, _), (lp, info), jd, pd = _both("sharded_solve", n, edges, costs, node_shard, **lifted)
+    np.testing.assert_array_equal(lp, lj)
+    _same_counters(jd, pd)
+    assert info["reduce_plane"] == "host" and lp[0] != lp[n - 1]
 
 
 def test_tree_rounds_counted_for_frontier_solves():
@@ -252,10 +258,19 @@ def test_solve_entry_degrades_when_worker_group_cannot_form(tmp_path):
 
 
 def test_solve_entry_degrades_lifted_edges_to_the_unsharded_solve(tmp_path):
+    """The attributed entry point with lifted edges no longer degrades: it
+    solves sharded on the packet plane, with the reference's labels, and
+    records nothing."""
     n, edges, costs, node_shard = _grid_problem(g=6, shards=2)
     expect = gaec_parallel(n, edges, costs, impl="numpy")
-    labels, info = prt.solve_with_reduce_tree(n, edges, costs, node_shard=node_shard,
-                                              lifted_edges=np.array([[0, n - 1]]), lifted_payload=np.array([-1e4]),
-                                              **_entry(prt, tmp_path, "lifted", unsharded=lambda: expect))
-    np.testing.assert_array_equal(labels, expect)
-    assert info["degraded"] == "unsharded_solve" and "item 12" in info["error"]
+    got = {}
+    for tag, mod in (("jax", jrt), ("port", prt)):
+        labels, info = mod.solve_with_reduce_tree(n, edges, costs, node_shard=node_shard,
+                                                  lifted_edges=np.array([[0, n - 1]]),
+                                                  lifted_payload=np.array([-1e4]),
+                                                  **_entry(mod, tmp_path, tag, unsharded=lambda: expect))
+        assert info["sharded"] is True and "degraded" not in info, info
+        assert not (tmp_path / f"{tag}.json").exists()
+        got[tag] = labels
+    np.testing.assert_array_equal(got["port"], got["jax"])
+    assert got["port"][0] != got["port"][n - 1]

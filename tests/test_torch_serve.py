@@ -14,9 +14,10 @@ against the JAX package's, on the CPU.
   unknown requests, HTTP backpressure, idempotent replay, re-enqueue of a
   journal the JAX package wrote, crash-loop quarantine, a torn journal
   tail, ``scripts/progress.py`` and ``scripts/failures_report.py`` over the
-  port's base directory, unported workflow names refused with their
-  ROADMAP items and ``/adopt`` without the adoption claim refused, and a request naming no target failing with
-  the device error where there is no card.
+  port's base directory, a ``mutex_watershed`` request served with the
+  direct run's labels and ``/adopt`` without the adoption claim refused,
+  and a request naming no target failing with the device error where
+  there is no card.
 - ``python -m cluster_tools_tpu_torch.serve`` as a child: serve, ``--status``,
   SIGTERM drains with exit 114, the restart replays.  Every child is reaped
   in a ``finally``; no test starts the JAX package's serve entry point.
@@ -48,7 +49,7 @@ from cluster_tools_tpu_torch.runtime import admission, faults, handoff, scrub, s
 from cluster_tools_tpu_torch.runtime import journal as journal_mod
 from cluster_tools_tpu_torch.runtime.admission import REJECT_DUPLICATE, REJECT_FAULT, REJECT_QUEUE
 from cluster_tools_tpu_torch.runtime.executor import BlockwiseExecutor
-from cluster_tools_tpu_torch.runtime.server import (NOT_PORTED, QUARANTINE_CRASH_LOOP, PipelineServer, ServeClient,
+from cluster_tools_tpu_torch.runtime.server import (QUARANTINE_CRASH_LOOP, PipelineServer, ServeClient,
                                                     ServeRejected, _payload_fingerprint)
 from cluster_tools_tpu_torch.utils import function_utils as fu
 from cluster_tools_tpu_torch.utils.volume_utils import Blocking, file_reader
@@ -350,16 +351,40 @@ def test_duplicate_and_unknown_requests(tmp_path):
 
 
 def test_unported_workflows_and_adoption_are_refused_with_their_items(tmp_path):
+    """The names ROADMAP item 12 ported are served: a small
+    ``mutex_watershed`` request (with its stitching) finishes with the labels
+    of the same workflow run directly.  Adoption without the peer's claim
+    stays refused."""
     from cluster_tools_tpu_torch.runtime import netio
+    from cluster_tools_tpu_torch.runtime.task import build
+    from cluster_tools_tpu_torch.tasks.mutex_watershed import MwsWorkflow
+
+    from .test_mws_stitching import OFFSETS, make_affinities
 
     base = str(tmp_path)
+    gt = np.ones((8, 16, 16), np.uint64)
+    gt[:, 6:, :] = 2
+    gt[:, :, 10:] += 2
+    affs = make_affinities(gt, OFFSETS, noise=0.02, rng=np.random.default_rng(3))
+    data = os.path.join(base, "affs.zarr")
+    file_reader(data).require_dataset("affs", shape=affs.shape, chunks=(len(OFFSETS), 8, 8, 8),
+                                      dtype="float32")[...] = affs
+    params = dict(input_path=data, input_key="affs", output_path=data, offsets=OFFSETS, halo=[2, 2, 2],
+                  block_shape=[8, 8, 8])
+    os.makedirs(os.path.join(base, "direct_cfg"))
+    with open(os.path.join(base, "direct_cfg", "global.config"), "w") as f:
+        json.dump({"block_shape": [8, 8, 8]}, f)
+    assert build([MwsWorkflow(tmp_folder=os.path.join(base, "direct"), config_dir=os.path.join(base, "direct_cfg"),
+                              max_jobs=2, target="local", output_key="direct", **params)])
     server, client = _start(base, max_workers=1)
     try:
-        for name in ("lifted_multicut", "mutex_watershed", "stitching"):
-            with pytest.raises(ServeRejected) as ei:
-                client.submit(tenant="t", request_id=f"u-{name}", workflow=name)
-            assert ei.value.code == NOT_PORTED and ei.value.http_status == 501
-            assert "ROADMAP item 12" in ei.value.detail
+        client.submit(tenant="t", request_id="mws", workflow="mutex_watershed",
+                      config=dict(tmp_folder=os.path.join(base, "req_mws"), target="local",
+                                  global_config={"block_shape": [8, 8, 8]}, params=dict(params, output_key="served")))
+        assert client.wait("mws", timeout_s=120)["state"] == "done"
+        served = file_reader(data)["served"][...]
+        np.testing.assert_array_equal(served, file_reader(data)["direct"][...])
+        assert (served > 0).all() and len(np.unique(served)) == 4
         # adoption is ported (the fleet): without the peer's adoption claim
         # it is refused, as in the reference (409 adoption_refused)
         from cluster_tools_tpu_torch.runtime.fleet import AdoptionRefused

@@ -294,8 +294,27 @@ def test_sharded_solves_are_refused(tmp_path):
 
 
 def test_lifted_workflow_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pwf.LiftedMulticutSegmentationWorkflow(**_tasks(tmp_path), target="local")
+    """The lifted workflow is ported: on ``make_case`` with its ground truth
+    as the attribution it builds, runs the lifted tasks and recovers the
+    ground truth (``tests/test_torch_lifted.py`` holds it against the
+    reference)."""
+    gt, sv, bmap = make_case()
+    common = _tasks(tmp_path)
+    with open(os.path.join(common["config_dir"], "global.config"), "w") as f:
+        json.dump({"block_shape": [8, 8, 8]}, f)
+    path = os.path.join(str(tmp_path), "data.zarr")
+    f = p_reader(path)
+    for key, data in (("bmap", bmap), ("sv", sv), ("gt", gt)):
+        f.require_dataset(key, shape=data.shape, chunks=(8, 8, 8), dtype=str(data.dtype))[...] = data
+    wf = pwf.LiftedMulticutSegmentationWorkflow(**common, target="local", input_path=path, input_key="bmap",
+                                                ws_path=path, ws_key="sv", output_path=path, output_key="seg",
+                                                labels_path=path, labels_key="gt", skip_ws=True, beta=0.5,
+                                                block_shape=[8, 8, 8])
+    assert p_build([wf])
+    assert_labels_equivalent(np.asarray(p_reader(path)["seg"][:]), gt)
+    done = {n.split(".")[0] for n in os.listdir(common["tmp_folder"]) if n.endswith(".success.json")}
+    assert {"sparse_lifted_neighborhood", "costs_from_node_labels", "solve_lifted_subproblems",
+            "reduce_lifted_problem", "solve_lifted_global", "write"} <= done
 
 
 def test_workflow_get_config():
