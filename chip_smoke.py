@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cluster_tools_tpu_torch``) on one GPU.
 
-Usage: ``python3 chip_smoke.py [--seed 0] [--only faults|serve|fleet|analysis|lifted]``
+Usage: ``python3 chip_smoke.py [--seed 0] [--only faults|serve|fleet|analysis|lifted|shards]``
 
 Phases, each one line of output, each raising on failure:
 
@@ -99,7 +99,15 @@ Phases, each one line of output, each raising on failure:
     the fixed cost a block; then a ragged tail (``sharded_batch=12``: one
     ragged batch, 8 padding lanes) and one ragged sweep run twice through
     the device page pool (the second sends fewer bytes to the card), each
-    equal to the per-block file.  The kernel rows gain ``sweep_launches``;
+    equal to the per-block file.  The kernel rows gain ``sweep_launches``.
+    Then the shards arm (``shards_arm``, ROADMAP item 10c; alone with
+    ``--only shards``, which runs cc at 512^3 and adds k = 4 and a 1-shard
+    control): the 512^3 watershed (``sharded_batch`` 8k) and the 256^3 cc
+    of phase 10 (4k) with the executor on k = 2 shards of the one card
+    (``CTT_MESH_SHARDS``; on two cards or more also k = the card count,
+    with each card's calls): each file equal to the auto run's, the B1-B4
+    launch totals equal to its; wall, device calls per shard, peak GB.
+    The kernel rows gain ``shards_launches``;
 11a. faults (``phase_faults``; alone with ``--only faults``): faults,
     traces and integrity on the card (ROADMAP item 11a).  The 512^3
     single-pass watershed of phase 10 (block 128^3, ``auto``) in turns
@@ -242,8 +250,13 @@ Phases, each one line of output, each raising on failure:
     full-width U-Net (base 16, depth 2, GroupNorm, bfloat16; seeded weights
     saved with the port's ``save_checkpoint`` and read back from the npz) on
     the main path's 512^3 volume (block 128^3, halo 8: 64 blocks of 144^3),
-    then ``IlastikPredictionWorkflow`` (block 128^3, halo 12) with a seeded
-    linear classifier on the default feature bank and with a seeded forest
+    then ``train_pixel_classifier`` on the card (ROADMAP item 8b: the first
+    128^3 of the map, 1% of it labelled by the main path's threshold; ``W``
+    and ``b`` within 1e-3 of the same call on the CPU, relative to its
+    largest entry, the classes of the labelled voxels equal; the training
+    wall), then ``IlastikPredictionWorkflow`` (block 128^3, halo 12) with
+    that trained linear classifier on the default feature bank and with a
+    seeded forest
     (16 trees of depth 8) on all six ilastik feature ids.  Per workflow a
     warm-up and one timed run with the "blockwise" columns; the U-Net's
     FLOP count and bound and one block's synced forward; gates: the
@@ -783,8 +796,8 @@ def phase_blockwise(K, vol: torch.Tensor, ref: np.ndarray, rows: list, block=(12
         bw_run(K, tmp_root, "cc256-disk", ConnectedComponentsWorkflow, block, input_path=disk, input_key="mask",
                output_path=disk, output_key="cc")
         t_disk = time.perf_counter() - t0
-        bw_run(K, tmp_root, "cc256-memory", ConnectedComponentsWorkflow, block, input_path=mem,
-               input_key="mask256", output_path=mem, output_key="cc256")
+        auto["cc256"] = bw_run(K, tmp_root, "cc256-memory", ConnectedComponentsWorkflow, block, input_path=mem,
+                               input_key="mask256", output_path=mem, output_key="cc256")
         on_disk = open_container(disk)["cc"]
         meta = json.load(open(os.path.join(disk, "cc", ".zarray")))
         if meta["compressor"] != {"id": "zlib", "level": 1} or not np.array_equal(on_disk[...], f["cc256"][...]):
@@ -903,9 +916,111 @@ def phase_sweeps(K, mem: str, auto: dict, main_s_per_voxel: float, rows: list, b
                                  f"the cold run {pool_runs[0]['h2d_bytes']}")
         device_pool.reset()
         torch.cuda.empty_cache()
+        # the watershed at 512^3, cc on the blockwise phase's 256^3 crop (its
+        # eight blocks, four lanes a shard at k = 2): cc's wall is host-bound
+        # stores, and the 512^3 cc stays in ``--only shards``
+        shards_arm(K, tmp_root, f, auto, {"ws": (*cases["ws"][:2], "ws", 8),
+                                          "cc256": (ConnectedComponentsWorkflow,
+                                                    dict(input_key="mask256", connectivity=1), "cc256", 4)},
+                   io, rows, block)
     for row in rows:
         row["sweep_launches"] = {t: auto[t]["launches"].get(row["name"], 0) for t in cases}
     log("sweeps", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# the executor's shard counts of the "sweeps" phase's shards arm (on one
+# card, several shards share it); ``--only shards`` runs SHARDS_ALONE and
+# the 512^3 cc (the k = 4 arm and the 512^3 cc left the full smoke to keep
+# it under 1200 s)
+SHARDS = (2,)
+SHARDS_ALONE = (2, 4)
+
+
+def sweep_line(sweeps: list) -> str:
+    """The executor's stage seconds and waits, summed over a run's sweeps."""
+    tot = Counter()
+    for x in sweeps:
+        tot.update({k: x.get(k, 0) for k in ("load_s", "h2d_s", "kernel_s", "d2h_s", "store_s", "dispatch_wait_s",
+                                            "n_backpressure_waits")})
+    return (f"load {tot['load_s']:.2f} / h2d {tot['h2d_s']:.2f} / kernel {tot['kernel_s']:.2f} / d2h "
+            f"{tot['d2h_s']:.2f} / store {tot['store_s']:.2f} s summed, dispatch waits {tot['dispatch_wait_s']:.2f} s, "
+            f"{tot['n_backpressure_waits']} backpressure waits")
+
+
+def shards_arm(K, tmp_root: str, f, auto: dict, cases: dict, io: dict, rows: list, block,
+               shard_counts=SHARDS, control: bool = False) -> None:
+    """The blockwise executor over a mesh of shards (ROADMAP item 10c):
+    workflows of the "blockwise" phase (``sweep_mode`` auto, block 128^3)
+    with ``BlockwiseExecutor`` on k shards, k in ``shard_counts`` (and the
+    card count when there are two cards or more), set through
+    ``CTT_MESH_SHARDS``, the count a task's executor takes.  ``cases`` maps
+    a tag to ``(workflow class, params, the key of its 1-shard output,
+    lanes a shard)``, ``auto[tag]`` is that 1-shard run's record.
+    ``sharded_batch`` is k times the lanes a shard (8: the lanes of a
+    1-shard call, so the launches are comparable): the output files must
+    equal the 1-shard auto runs bit for bit, and the B1-B4 launch totals
+    must equal theirs.  Prints each arm's wall, device calls per
+    shard (per card with several), rung and peak device GB.  With
+    ``control``, each workflow also runs on 1 shard at the largest batch of
+    the arm (the same batches, unsplit): what the batch size costs apart
+    from the split.  Adds ``shards_launches`` to the kernel rows."""
+    n_cards = torch.cuda.device_count()
+    ks = list(shard_counts) + ([n_cards] if n_cards >= 2 and n_cards not in shard_counts else [])
+    if n_cards < 2:
+        log("sweeps", f"shards: one card visible ({torch.cuda.get_device_name(0)}): every shard shares cuda:0; "
+                      "the per-card arm does not run")
+    saved = os.environ.get("CTT_MESH_SHARDS")
+    shard_launches = {}
+    want_files = {tag: f[ref][...] for tag, (_, _, ref, _) in cases.items()}
+    t_arm = time.perf_counter()
+    try:
+        for k in ks:
+            os.environ["CTT_MESH_SHARDS"] = str(k)
+            for tag, (cls, params, _, lanes) in cases.items():
+                key = f"{tag}_k{k}"
+                rec = bw_run(K, tmp_root, f"{tag}-shards{k}", cls, block, {"sharded_batch": lanes * k},
+                             output_key=key, **params, **io)
+                sw = [x for x in rec["sweeps"] if x.get("n_devices")]
+                if not sw or {x["n_devices"] for x in sw} != {k} or {x["sweep_mode"] for x in sw} != {"sharded"}:
+                    raise AssertionError(f"sweeps shards {tag} k={k}: the sweeps ran "
+                                         f"{[(x.get('sweep_mode'), x.get('n_devices')) for x in rec['sweeps']]}")
+                if not np.array_equal(want_files[tag], f[key][...]):
+                    raise AssertionError(f"sweeps shards {tag} k={k}: the file differs from the 1-shard auto run")
+                got = {n: rec["launches"].get(n, 0) for n in MAIN_PATH_KERNELS}
+                want = {n: auto[tag]["launches"].get(n, 0) for n in MAIN_PATH_KERNELS}
+                if got != want:
+                    raise AssertionError(f"sweeps shards {tag} k={k}: launches {got}, the 1-shard run's {want}")
+                calls = np.sum([x["shard_calls"] for x in sw], axis=0).tolist()
+                per_card = ""
+                if n_cards >= 2:
+                    per_card = "; calls per card " + str([sum(c for s_, c in enumerate(calls) if s_ % n_cards == c_)
+                                                          for c_ in range(n_cards)])
+                shard_launches[f"{tag} k={k}"] = got
+                log("sweeps", f"shards {tag} k={k} (sharded_batch {lanes * k}): wall {rec['wall_s']:.3f} s, device "
+                              f"calls per shard {calls}{per_card}, rungs "
+                              f"{sorted({r for x in sw for r in x.get('batch_rungs', [])})}, peak "
+                              f"{rec['peak_gb']:.2f} GB, {sweep_line(sw)}; equal to the 1-shard file bit for bit; "
+                              f"launches {got} = the 1-shard run's (its wall {auto[tag]['wall_s']:.3f} s, "
+                              f"{sweep_line(auto[tag]['sweeps'])})")
+        if control:
+            os.environ["CTT_MESH_SHARDS"] = "1"
+            for tag, (cls, params, _, lanes) in cases.items():
+                rec = bw_run(K, tmp_root, f"{tag}-control", cls, block, {"sharded_batch": lanes * max(ks)},
+                             output_key=f"{tag}_control", **params, **io)
+                if not np.array_equal(want_files[tag], f[f"{tag}_control"][...]):
+                    raise AssertionError(f"sweeps shards {tag} control: the file differs from the auto run")
+                log("sweeps", f"shards {tag} control, 1 shard, sharded_batch {lanes * max(ks)}: wall "
+                              f"{rec['wall_s']:.3f} s, peak {rec['peak_gb']:.2f} GB, {sweep_line(rec['sweeps'])}, "
+                              f"launches { {n: rec['launches'].get(n, 0) for n in MAIN_PATH_KERNELS} }")
+    finally:
+        if saved is None:
+            os.environ.pop("CTT_MESH_SHARDS", None)
+        else:
+            os.environ["CTT_MESH_SHARDS"] = saved
+    del want_files
+    for row in rows:
+        row["shards_launches"] = {t: v.get(row["name"], 0) for t, v in shard_launches.items()}
+    log("sweeps", f"shards arm {time.perf_counter() - t_arm:.1f} s")
 
 
 # the "faults" phase: the watchdog's deadline and the injected load hang
@@ -2676,14 +2791,13 @@ def phase_inference(K, vol: torch.Tensor, rows: list, seed: int, block=(128, 128
                          + f" (atol 2e-2); float32 block vs CPU max err {err32:.3g} (atol 2e-4, TF32 off)")
         del pred
 
-        # ---- ilastik: linear classifier and forest ----
+        # ---- ilastik: training, then the linear classifier and the forest ----
         rng = np.random.default_rng(seed)
         ihalo = (12, 12, 12)
         iouter = tuple(b + 2 * h for b, h in zip(block, ihalo))
         linear = os.path.join(tmp_root, "linear.npz")
-        n_feat = il.n_features()
-        np.savez(linear, W=rng.normal(0, 1, (n_feat, 2)).astype(np.float32),
-                 b=rng.normal(0, 0.1, 2).astype(np.float32), sigmas=np.array(il.DEFAULT_SIGMAS))
+        W, b = train_on_the_card(il, raw, seed)
+        np.savez(linear, W=W, b=b, sigmas=np.array(il.DEFAULT_SIGMAS))
         selections = (("GaussianSmoothing", 0.7), ("LaplacianOfGaussian", 1.6), ("GaussianGradientMagnitude", 1.6),
                       ("DifferenceOfGaussians", 3.5), ("HessianOfGaussianEigenvalues", 1.6),
                       ("StructureTensorEigenvalues", 1.6))
@@ -2750,6 +2864,56 @@ def phase_inference(K, vol: torch.Tensor, rows: list, seed: int, block=(128, 128
         raise AssertionError(f"inference: the prediction workflows launched hand kernels: {dict(launches)}")
     del MemoryContainer._registry[mem]
     log("inference", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# the pixel classifier's training crop (its first TRAIN_EDGE^3), the share
+# of its voxels labelled, and a trained W or b against its CPU run,
+# relative to the largest entry of the CPU's: float32 glue rounds apart by
+# ~1e-6 (PERF.md), a TF32 product (~5e-4 a product) fails it
+TRAIN_EDGE = 128
+TRAIN_SCRIBBLES = 0.01
+TRAIN_RTOL = 1e-5
+
+
+def train_on_the_card(il, raw: np.ndarray, seed: int):
+    """``train_pixel_classifier`` (ROADMAP item 8b) on the card: the first
+    ``TRAIN_EDGE``^3 of the map, ``TRAIN_SCRIBBLES`` of its voxels labelled
+    by the main path's threshold (foreground 1, background 2), the default
+    feature bank, 300 Adam steps.  ``W`` and ``b`` are held against the
+    same call with ``device="cpu"`` within ``TRAIN_RTOL`` of the largest
+    entry of the CPU's (the feature bank and the reductions round apart in
+    float32 ulps), the classes they give the labelled voxels equal.
+    Returns the card's ``(W, b)``."""
+    crop = np.ascontiguousarray(raw[:TRAIN_EDGE, :TRAIN_EDGE, :TRAIN_EDGE])
+    trng = np.random.default_rng(seed + 19)
+    labels = np.zeros(crop.shape, np.uint8)
+    scribble = trng.random(crop.shape) < TRAIN_SCRIBBLES
+    labels[scribble] = np.where(crop[scribble] < np.float32(0.45), 1, 2).astype(np.uint8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    W, b = il.train_pixel_classifier(crop, labels, device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Wc, bc = il.train_pixel_classifier(crop, labels, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    errs = {k: float(np.abs(g - w).max() / np.abs(w).max()) for k, g, w in (("W", W, Wc), ("b", b, bc))}
+    if not max(errs.values()) <= TRAIN_RTOL:
+        raise AssertionError(f"training: the card's W, b differ from the CPU's by {errs} (relative)")
+    feats = il.feature_bank(torch.from_numpy(crop).cuda(), il.DEFAULT_SIGMAS)[torch.from_numpy(scribble).cuda()]
+    cls_card = (feats @ torch.from_numpy(W).cuda() + torch.from_numpy(b).cuda()).argmax(1)
+    cls_cpu = (feats @ torch.from_numpy(Wc).cuda() + torch.from_numpy(bc).cuda()).argmax(1)
+    n_apart = int((cls_card != cls_cpu).sum())
+    acc = float((cls_card.cpu().numpy() == labels[scribble] - 1).mean())
+    del feats
+    if n_apart:
+        raise AssertionError(f"training: the card's classifier and the CPU's disagree on {n_apart} of the "
+                             f"{int(scribble.sum())} labelled voxels (W, b relative max err {errs})")
+    log("inference", f"training: {crop.shape} crop, {int(scribble.sum())} labelled voxels, {W.shape[0]} features; "
+                     f"card {card_s:.3f} s, CPU {cpu_s:.3f} s; W, b vs CPU relative max err {errs['W']:.3g}, "
+                     f"{errs['b']:.3g} (tolerance {TRAIN_RTOL:g}); the classes on the labelled voxels equal, "
+                     f"{acc:.4f} of them right")
+    return W, b
 
 
 SERVE_BLOCK = (128, 128, 128)
@@ -4648,6 +4812,43 @@ def faults_alone(K, args) -> None:
     log("faults", "launches by arm: " + json.dumps({r["name"]: r["faults_launches"] for r in rows}))
 
 
+def shards_alone(K, args) -> None:
+    """``--only shards``: the main path's volume, the "blockwise" phase's
+    cc and single-pass watershed of it (the 1-shard auto yardsticks, a
+    warm-up and a timed run each), then the "sweeps" phase's shards arm at
+    ``SHARDS_ALONE`` shards with its 1-shard control at the largest
+    batch."""
+    from cluster_tools_tpu_torch.io.containers import open_container
+    from cluster_tools_tpu_torch.tasks.connected_components import ConnectedComponentsWorkflow
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedWorkflow
+    from cluster_tools_tpu_torch.utils.synthetic import synthetic_boundaries
+
+    os.environ["CT_FILL_MODE"], os.environ["CT_TIER_MODE"] = "capacity", "cond"
+    vol = synthetic_boundaries(MAIN_SHAPE, torch.Generator(device="cuda").manual_seed(args.seed))
+    b_np = vol.reshape(vol.shape[-3:]).cpu().numpy()
+    del vol
+    mem = "memory://blockwise"
+    block = (128, 128, 128)
+    f = open_container(mem)
+    f.require_dataset("boundaries", shape=b_np.shape, chunks=block, dtype="float32")[...] = b_np
+    f.require_dataset("mask", shape=b_np.shape, chunks=block, dtype="uint8")[...] = \
+        (b_np < np.float32(0.45)).astype(np.uint8)
+    voxels, n_blocks = int(b_np.size), int(np.prod([-(-s // b) for s, b in zip(b_np.shape, block)]))
+    del b_np
+    io = dict(input_path=mem, output_path=mem)
+    cases = {"ws": (WatershedWorkflow, dict(input_key="boundaries", two_pass=False, halo=[32, 32, 32],
+                                            threshold=0.45, dt_max_distance=32.0, min_seed_distance=2.0), 32),
+             "cc": (ConnectedComponentsWorkflow, dict(input_key="mask", connectivity=1), 0)}
+    rows = [{"name": k} for k in KERNELS]
+    with tempfile.TemporaryDirectory(prefix="shards-") as tmp_root:
+        auto = {tag: bw_timed(K, tmp_root, tag, cls, block, voxels, n_blocks, phase="sweeps", output_key=tag,
+                              **params, **io)
+                for tag, (cls, params, _) in cases.items()}
+        shards_arm(K, tmp_root, f, auto, {tag: (cls, params, tag, 8) for tag, (cls, params, _) in cases.items()},
+                   io, rows, block, shard_counts=SHARDS_ALONE, control=True)
+    log("sweeps", "shards launches: " + json.dumps({r["name"]: r["shards_launches"] for r in rows}))
+
+
 def serve_alone(K, args) -> None:
     """``--only serve``: the main path's volume, the "blockwise" phase's cc
     (against ``scipy.ndimage.label``) and single-pass watershed of it, one
@@ -4688,10 +4889,10 @@ def serve_alone(K, args) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["faults", "serve", "fleet", "analysis", "lifted"], default=None,
+    ap.add_argument("--only", choices=["faults", "serve", "fleet", "analysis", "lifted", "shards"], default=None,
                     help="build the kernels and run one phase alone on its own 512^3 blockwise yardstick "
-                         "(faults, fleet, analysis: the watershed; serve: cc and the watershed; lifted: the main "
-                         "path's cc labels, then its arm (a) at 512^3); prints no kernels or result line")
+                         "(faults, fleet, analysis: the watershed; serve, shards: cc and the watershed; lifted: the "
+                         "main path's cc labels, then its arm (a) at 512^3); prints no kernels or result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4715,7 +4916,7 @@ def main() -> int:
 
     if args.only is not None:
         {"faults": faults_alone, "serve": serve_alone, "fleet": fleet_alone,
-         "analysis": analysis_alone, "lifted": lifted_alone}[args.only](K, args)
+         "analysis": analysis_alone, "lifted": lifted_alone, "shards": shards_alone}[args.only](K, args)
         log("done", f"{time.perf_counter() - t_start:.1f}s")
         print(nvidia_smi())
         return 0

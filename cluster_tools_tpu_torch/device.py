@@ -34,6 +34,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return dev
 
 
+def card_key(device) -> str:
+    """The name of ``device``'s card, ``"cuda:i"`` (a bare ``"cuda"`` names
+    the current card), or ``"cpu"``: the key of per-card state."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
+
+
 def resolve_impl(impl: str, device: Union[torch.device, torch.Tensor]) -> str:
     """``auto``/``cuda``/``torch`` -> ``cuda`` or ``torch`` for ``device``."""
     if isinstance(device, torch.Tensor):

@@ -23,15 +23,26 @@ batch's stacked lanes:
   at the shards' cuts travel over ``spmd.ppermute``, as the reference's
   sharded program does.
 
+- :func:`shard_lanes` and :func:`concat_lanes` — the split of a batch
+  over the executor's ``n_devices`` shards, as the reference's
+  ``batched_shard_map`` and ``ragged_shard_map`` split it over their mesh:
+  ``n_devices`` equal sub-batches in lane order, one a shard, each run on
+  its shard's device as one :func:`batched_sweep` or :func:`ragged_sweep`
+  call, and the outputs gathered back in lane order.  A ragged batch's page
+  pools go to every card its shards sit on (the reference replicates
+  them); its page tables and valid extents split with the lanes.  A
+  batch's width is a multiple of the shard count
+  (:func:`resolve_sharded_batch` rounds it up), so every shard holds an
+  equal sub-batch.
+
 The policy functions (:func:`resolve_sharded_batch`,
 :func:`use_sharded_sweep`, :func:`slab_sweep_device_feed_ok`) are the
-reference's, word for word.  The executor's sweeps over more than one
-shard are ROADMAP Queue A item 10c.
+reference's, word for word.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -117,6 +128,29 @@ def batched_sweep(kernel: Callable, args: Sequence[torch.Tensor]) -> Tuple[objec
         return batched(*args), "batched"
     width = int(args[0].shape[0])
     return _stack_leaves([kernel(*(a[i] for a in args)) for i in range(width)]), "lanes"
+
+
+def shard_lanes(width: int, n_shards: int) -> List[slice]:
+    """The lanes of each shard's sub-batch: ``n_shards`` equal runs of a
+    ``width``-lane batch, in lane order."""
+    width, n_shards = int(width), int(n_shards)
+    if n_shards < 1 or width % n_shards:
+        raise ValueError(f"a batch of {width} lanes does not split over {n_shards} shards")
+    per = width // n_shards
+    return [slice(s * per, (s + 1) * per) for s in range(n_shards)]
+
+
+def concat_lanes(outs):
+    """Per-shard output trees (numpy, ``[lanes, ...]`` leaves) -> one tree
+    of the shards' lanes in order."""
+    first = outs[0]
+    if len(outs) == 1:
+        return first
+    if isinstance(first, (tuple, list)):
+        return type(first)(concat_lanes([o[i] for o in outs]) for i in range(len(first)))
+    if isinstance(first, dict):
+        return {k: concat_lanes([o[k] for o in outs]) for k in first}
+    return np.concatenate([np.asarray(o) for o in outs], axis=0)
 
 
 def reassemble_lanes(pool: torch.Tensor, table: torch.Tensor, valid: torch.Tensor, spec) -> torch.Tensor:

@@ -23,13 +23,20 @@ pages addressed by *content*:
   :class:`DevicePoolExhausted`; the executor then stages that batch from
   the host, attributed ``degraded:host_staged`` in ``failures.json``.
 
-Arenas are updated in place, so a staged batch must be consumed (its
-lanes gathered from the pool) before the arena stages again (the
-arguments of one batch that share a page class share an arena, sized for
-all of them, and staging one never evicts a page another maps): hold
-:attr:`DevicePagePool.lock` from :meth:`DevicePagePool.stage` until the
-lanes are gathered, as the executor does.  On one CUDA stream the gather
-is ordered before any later ``index_copy_``.
+Each card holds its own arena set under its own byte budget (the
+reference replicates one arena set over its mesh): the shards of one
+card share that card's arenas, and a batch split over several cards is
+staged once on each.  Arenas are updated in place, so a staged batch must
+be consumed (its lanes gathered from the pool, by every shard of the card
+that maps it) before the arena stages again (the arguments of one batch
+that share a page class share an arena, sized for all of them, and
+staging one never evicts a page another maps; the pinned set spans every
+lane of the batch, so no shard's miss evicts a page another shard of the
+batch maps): hold :meth:`DevicePagePool.lock_for` of the card from
+:meth:`DevicePagePool.stage` until the lanes are gathered, as the executor
+does.  On one CUDA stream the gather is ordered before any later
+``index_copy_``.  The degrade ladder's eviction empties the arenas of the
+card that failed only.
 
 Counters follow the reference's snapshot/delta pattern (``h2d_bytes``,
 ``d2h_bytes``, ``device_pool_hits``/``misses``/``evictions``,
@@ -59,6 +66,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import card_key
 from .block_pool import RaggedArgSpec, RaggedBatch, _quantize_pages
 
 #: default resident-pool byte budget per process when neither the task
@@ -249,27 +257,41 @@ class _DeviceArena:
 
 
 class DevicePagePool:
-    """Process-wide manager of the resident arenas, one per ``(device,
-    page_shape, dtype)`` class, under one byte budget."""
+    """Process-wide manager of the resident arenas: one arena set per card,
+    an arena per ``(page_shape, dtype)`` class, each card's set under its
+    own byte budget and its own staging lock."""
 
     def __init__(self, budget: Optional[int] = None):
         self._lock = threading.Lock()
-        #: held from :meth:`stage` until the staged lanes are gathered
-        self.lock = threading.RLock()
+        self._card_locks: Dict[str, threading.RLock] = {}
         self._arenas: "OrderedDict[tuple, _DeviceArena]" = OrderedDict()
         self._budget = device_pool_budget(budget)
 
-    def evict_all(self) -> None:
-        """Drop every arena (the degrade ladder's evict rung, and tests)."""
+    def lock_for(self, device) -> threading.RLock:
+        """The lock of ``device``'s arenas: held from :meth:`stage` until
+        the staged lanes are gathered."""
+        key = card_key(device)
         with self._lock:
-            self._arenas.clear()
+            return self._card_locks.setdefault(key, threading.RLock())
 
-    def resident_bytes(self) -> int:
+    def _card_arenas(self, device) -> List[tuple]:
+        key = None if device is None else card_key(device)
+        return [k for k in self._arenas if key is None or k[0] == key]
+
+    def evict_all(self, device=None) -> None:
+        """Drop every arena of ``device`` (``None``: of every card): the
+        degrade ladder's evict rung, and tests."""
         with self._lock:
-            return sum(a.nbytes for a in self._arenas.values())
+            for k in self._card_arenas(device):
+                del self._arenas[k]
+
+    def resident_bytes(self, device=None) -> int:
+        """Resident bytes of ``device``'s arenas (``None``: every card's)."""
+        with self._lock:
+            return sum(self._arenas[k].nbytes for k in self._card_arenas(device))
 
     def _arena_for(self, spec: RaggedArgSpec, need_pages: int, device: torch.device) -> _DeviceArena:
-        akey = (str(device), spec.page_shape, spec.dtype)
+        akey = (card_key(device), spec.page_shape, spec.dtype)
         page_nbytes = int(np.prod(spec.page_shape, dtype=np.int64)) * np.dtype(spec.dtype).itemsize
         cap_budget = self._budget // max(1, page_nbytes)
         if need_pages > cap_budget:
@@ -287,10 +309,12 @@ class DevicePagePool:
             capacity = min(_quantize_pages(need_pages), cap_budget)
             arena = _DeviceArena(spec.page_shape, spec.dtype, capacity, device)
             self._arenas[akey] = arena
-            # budget across arenas: evict the oldest whole arenas until the
-            # resident total fits (never the one just built)
-            while sum(a.nbytes for a in self._arenas.values()) > self._budget and len(self._arenas) > 1:
-                self._arenas.popitem(last=False)
+            self._arenas.move_to_end(akey)
+            # the card's budget across its arenas: evict its oldest whole
+            # arenas until its resident total fits (never the one just built)
+            card = [k for k in self._card_arenas(device) if k != akey]
+            while card and sum(self._arenas[k].nbytes for k in card) + arena.nbytes > self._budget:
+                del self._arenas[card.pop(0)]
                 bump("device_pool_evictions")
             return arena
 
@@ -318,8 +342,8 @@ class DevicePagePool:
     def stage(self, rb: RaggedBatch, device, block_id: Optional[int] = None) -> StagedBatch:
         """Stage ``rb`` against the resident arenas on ``device``.  On a
         resource error (``torch.OutOfMemoryError``, or the fault injector's
-        ``h2d`` OOM for ``block_id``): evict every arena, retry once, then
-        raise :class:`DevicePoolExhausted`."""
+        ``h2d`` OOM for ``block_id``): evict every arena of ``device``,
+        retry once, then raise :class:`DevicePoolExhausted`."""
         from ..runtime import faults as faults_mod
         from ..runtime.executor import classify_resource_error
 
@@ -336,7 +360,7 @@ class DevicePagePool:
             except Exception as e:
                 if classify_resource_error(e) is None:
                     raise
-                self.evict_all()
+                self.evict_all(device)
                 if device.type == "cuda":
                     torch.cuda.empty_cache()
                 if attempt:

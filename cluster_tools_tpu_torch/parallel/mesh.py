@@ -5,7 +5,8 @@ axes (``dp`` over independent volumes, ``sp`` over spatial slabs, as in the
 reference), factors its shards into a grid, and gives each shard a device.
 A device may hold several shards: one card carries a whole mesh the way
 the reference's tests carry one on eight virtual CPU devices of a host.
-Shards are dealt round-robin over the cards of the machine.  A mesh that
+Shards are dealt round-robin over the cards of the machine; so are the
+blockwise executor's (:func:`backend_devices`).  A mesh that
 spans processes (:func:`~.multihost.pod_mesh`) also records the process of
 each shard; the shards of one process run there, the rest elsewhere.
 
@@ -16,8 +17,8 @@ of cards, unless ``CTT_MESH_SHARDS`` asks for that many shards dealt over
 the visible devices (on the CPU: that many shards, else one).  It is not a
 new knob: it is where the CPU tests and a one-card run set the count the
 reference takes from its device list.  :func:`make_mesh` and
-:func:`sibling_mesh` without a shard count, and the fused segmentation
-task, read it.
+:func:`sibling_mesh` without a shard count, the fused segmentation task
+and the blockwise executor (:func:`backend_devices`) read it.
 """
 
 from __future__ import annotations
@@ -116,6 +117,27 @@ def _card_devices(n: int) -> List[torch.device]:
     resolve_device("cuda")  # raises without a card
     count = torch.cuda.device_count()
     return [torch.device("cuda", i % count) for i in range(n)]
+
+
+#: the device type of each of the executor's targets
+TARGET_DEVICES = {"local": "cpu", "gpu": "cuda"}
+
+
+def backend_devices(target: str = "local", n_devices: Optional[int] = None) -> List[torch.device]:
+    """One device per shard of a ``target`` (the reference's
+    ``backend_devices``): ``n_devices`` shards (``None``:
+    :func:`visible_shards`), all on the CPU for ``"local"``, dealt
+    round-robin over the cards for ``"gpu"`` (which raises without one).
+    Unlike the reference, a count above the cards is no error: several
+    shards then share a card, as they share one in :func:`make_mesh`."""
+    if target not in TARGET_DEVICES:
+        raise ValueError(f"unknown target {target!r}, expected one of {sorted(TARGET_DEVICES)}")
+    kind = TARGET_DEVICES[target]
+    resolve_device(kind)  # raises for "gpu" without a card
+    n = visible_shards(kind) if n_devices is None else int(n_devices)
+    if n < 1:
+        raise ValueError(f"n_devices must be >= 1, got {n}")
+    return _card_devices(n) if kind == "cuda" else [torch.device("cpu")] * n
 
 
 def make_mesh(n_shards: Optional[int] = None, axis_names: Sequence[str] = ("dp", "sp"),

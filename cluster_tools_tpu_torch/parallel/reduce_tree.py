@@ -665,7 +665,7 @@ class CollectiveReducePlane:
                 pool = get_device_pool(self.device_pool_bytes)
                 # the arenas update in place: hold the pool until the lanes
                 # have been read out of it
-                with pool.lock:
+                with pool.lock_for(self.mesh.devices[0]):
                     sb = pool.stage(rb, self.mesh.devices[0], block_id=level)
                     tabs = torch.from_numpy(np.concatenate(sb.tables, axis=1).astype(np.int64))
                     labels, rounds = self._program(Wn, stop)(*sb.pools, tabs)

@@ -4,22 +4,33 @@ reference (hung-block watchdog, speculation, degrade-and-split, post-store
 verification, drain).
 
 Port of ``cluster_tools_tpu/runtime/executor.py::BlockwiseExecutor.map_blocks``
-on one device.  Two sweep shapes, bit-identical to each other:
+over ``n_devices`` shards, dealt round-robin over the cards (the
+reference's mesh of devices; several shards may share a card).  Two sweep
+shapes, bit-identical to each other:
 
 - **per block** (``sweep_mode="per_block"``): ``load_fn(block)`` on an IO
-  thread pool, ``prefetch`` batches ahead; the inputs to the task's device
-  and ``kernel(*inputs)`` there, one block a call; the outputs back to
-  numpy, ``check_finite`` and ``validate_fn``; ``store_fn(block,
-  outputs)`` on the IO pool, then ``on_block_done``.
-- **sharded** (``"sharded"``, and ``"auto"`` once the sweep fills one
-  batch of ``sharded_batch`` blocks, as in the reference): the blocks of a
-  Morton batch go to the device as one stacked copy and run as one call of
-  :func:`~..parallel.batch_shard.batched_sweep` (the kernel's lane-batched
-  form, ``kernel.batched``, when it has one; else each lane in turn), with
-  one sync and one copy back.  A partial or mixed-shape batch packs
-  through the ragged paged pool (:mod:`..parallel.block_pool`,
-  ``ragged``), staged through the device-resident page pool
-  (:mod:`..parallel.device_pool`, ``device_pool``) when that is on.
+  thread pool, ``prefetch`` batches of ``n_devices * device_batch`` blocks
+  ahead; each block's inputs to its shard's device (the blocks of a batch
+  dealt over the shards in lane order) and ``kernel(*inputs)`` there, one
+  block a call; the outputs back to numpy, ``check_finite`` and
+  ``validate_fn``; ``store_fn(block, outputs)`` on the IO pool, then
+  ``on_block_done``.
+- **sharded** (``"sharded"``, and ``"auto"`` once the mesh has two shards
+  or the sweep fills one batch of ``sharded_batch`` blocks, as in the
+  reference): a Morton batch splits into ``n_devices`` equal sub-batches
+  in lane order, as the reference's ``batched_shard_map`` splits it; each
+  shard's sub-batch goes to its device as one stacked copy and runs as one
+  call of :func:`~..parallel.batch_shard.batched_sweep` (the kernel's
+  lane-batched form, ``kernel.batched``, when it has one; else each lane
+  in turn), with one sync and one copy back; the outputs are gathered in
+  lane order.  The cards run their shards from one thread each (also
+  when every shard sits on one card), so a host sync in
+  one card's torch glue does not stall another; the shards of one card run
+  in turn.  A partial or mixed-shape batch packs through the ragged paged
+  pool (:mod:`..parallel.block_pool`, ``ragged``): its page pools go to
+  every card, staged through that card's device-resident page pool
+  (:mod:`..parallel.device_pool`, ``device_pool``) when that is on, and
+  its page tables and valid extents split with the lanes.
 
 Failures, as in the reference (the fault injector's ``load``, ``compute``,
 ``dispatch``, ``store`` and ``kernel`` sites sit where the reference's do,
@@ -28,8 +39,10 @@ packages).  Loads and stores retry with capped exponential backoff; a
 resource error (OOM, ENOSPC) is not retried at the same size.  A block
 whose load, kernel, validation or store still fails is quarantined and
 re-run once, alone, after the sweep.  A sharded batch whose call fails
-(site ``dispatch``) quarantines its blocks, which the quarantine pass runs
-one by one through the same kernel (``degraded:unsharded``).  A resource-
+(site ``dispatch``, once a batch; or an error on any shard) quarantines
+all its blocks, which the quarantine pass runs one by one through the
+same kernel (``degraded:unsharded``); a device OOM first evicts the
+resident arenas of the card that failed.  A resource-
 starved block first waits up to ``degrade_wait_s`` for headroom
 (``degraded:backpressure``); with ``splittable`` it is then re-run as
 halo-correct sub-blocks down to ``min_block_shape`` (``degraded:split``).
@@ -48,13 +61,18 @@ once the running work is stored.  Every failure lands in
 ``failures.json``; a RuntimeError names every block still failed at the
 end.  A kernel error is never answered by running another implementation.
 
-Device work and threads: every call of the kernel, the primary's and a
-speculative duplicate's, holds one dispatch lock and ends with a device
-sync, so their stream work is ordered and a duplicate's outputs are on the
-host before the digest compare.  An injected hang fires before the lock,
+Device work and threads: every call of the kernel on a card, the
+primary's and a speculative duplicate's, of this executor or another,
+holds that card's dispatch lock (:func:`dispatch_lock`, one a card for the
+process) and ends with a device sync, so their stream work is ordered and
+a duplicate's outputs are on the host before the digest compare.  A block
+that runs alone (quarantine, speculation, sub-blocks, a lineage
+recompute) runs on the first shard's device.  An injected hang fires before the lock,
 so a duplicate never queues behind it.  The spans are the reference's
 (``executor.sweep``/``load``/``h2d``/``dispatch``/``d2h``/``store``/
-``batch_wait``/``speculate``), with one difference in what they time: the
+``batch_wait``/``speculate``), with two differences: a sharded batch has
+one ``executor.dispatch`` (and ``h2d``, ``d2h``) span a shard that ran,
+each with its ``shard``; and in what they time: the
 port's ``executor.dispatch`` span ends after that sync, so it carries the
 device time, and ``executor.d2h`` is the copy back alone (the reference's
 dispatch ends at the asynchronous launch and its ``d2h`` waits for the
@@ -94,12 +112,14 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import card_key, resolve_device
 from ..io import chunk_cache as chunk_cache_mod
 from ..io.containers import ChunkCorruptionError
 from ..parallel import block_pool as block_pool_mod
 from ..parallel import device_pool as device_pool_mod
-from ..parallel.batch_shard import batched_sweep, ragged_sweep, resolve_sharded_batch, use_sharded_sweep
+from ..parallel.batch_shard import (batched_sweep, concat_lanes, ragged_sweep, resolve_sharded_batch, shard_lanes,
+                                    use_sharded_sweep)
+from ..parallel.mesh import TARGET_DEVICES, backend_devices
 from ..utils import function_utils as fu
 from ..utils.volume_utils import Block
 from . import admission as admission_mod
@@ -110,7 +130,6 @@ from .supervision import (DrainInterrupt, FirstWins, Watchdog, array_digest, dis
                           drain_requested, host_mem_available_bytes, host_mem_available_fraction,
                           install_drain_handler)
 
-TARGET_DEVICES = {"local": "cpu", "gpu": "cuda"}
 # the admission gate's floors: host memory available, and disk free under
 # the failure manifest, as fractions of their totals
 MEM_HEADROOM_FRACTION = 0.05
@@ -122,6 +141,31 @@ def target_device(target: str) -> torch.device:
     if target not in TARGET_DEVICES:
         raise ValueError(f"unknown target {target!r}, expected one of {sorted(TARGET_DEVICES)}")
     return resolve_device(TARGET_DEVICES[target])
+
+
+_DISPATCH_LOCKS: Dict[str, threading.RLock] = {}
+_DISPATCH_LOCKS_GUARD = threading.Lock()
+
+
+def dispatch_lock(device) -> threading.RLock:
+    """The dispatch lock of ``device``'s card, one for the whole process:
+    every kernel call on that card (a shard's sub-batch, a block, a
+    duplicate, a sub-block, of any executor) holds it, so the card's
+    stream work is ordered."""
+    key = card_key(device)
+    with _DISPATCH_LOCKS_GUARD:
+        return _DISPATCH_LOCKS.setdefault(key, threading.RLock())
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _on_card(device: torch.device):
+    """``device`` as the current card while a shard's work runs (tensors a
+    kernel makes on ``"cuda"`` land on its shard's card)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 def morton_order(blocks: Sequence[Block]) -> List[Block]:
@@ -318,20 +362,30 @@ def region_verifier(dataset, bb_of: Optional[Callable[[Block], Any]] = None) -> 
 
 
 class BlockwiseExecutor:
-    """Run a per-block kernel over blocks on the device of ``target``.
+    """Run a per-block kernel over blocks on the shards of ``target``.
 
-    ``load_fn(block)`` returns the kernel's input arrays (numpy, already
-    padded to one shape) or futures of them; ``kernel(*tensors)`` gets them
-    as tensors on the device and returns a tensor or a tuple of tensors and
-    flags; ``store_fn(block, outputs)`` persists one block's outputs as
-    numpy.
+    ``n_devices`` shards (``None``: :func:`~..parallel.mesh.visible_shards`,
+    the number of cards or ``CTT_MESH_SHARDS``), dealt round-robin over the
+    cards (:func:`~..parallel.mesh.backend_devices`); ``devices`` holds one
+    device per shard and ``batch_size`` is ``n_devices * device_batch``, as
+    in the reference.  ``load_fn(block)`` returns the kernel's input arrays
+    (numpy, already padded to one shape) or futures of them;
+    ``kernel(*tensors)`` gets them as tensors on a shard's device and
+    returns a tensor or a tuple of tensors and flags; ``store_fn(block,
+    outputs)`` persists one block's outputs as numpy.
     """
 
-    def __init__(self, target: str = "gpu", device_batch: int = 1, io_threads: int = 8,
-                 max_retries: int = 2, backoff_base: float = 0.05, backoff_max: float = 5.0):
+    def __init__(self, target: str = "gpu", n_devices: Optional[int] = None, device_batch: int = 1,
+                 io_threads: int = 8, max_retries: int = 2, backoff_base: float = 0.05,
+                 backoff_max: float = 5.0):
         self.target = target
-        self.device = target_device(target)
+        self.devices: List[torch.device] = backend_devices(target, n_devices)
+        self.n_devices = len(self.devices)
+        # the shard that runs the calls of one block alone (quarantine,
+        # speculation, sub-blocks, lineage recompute)
+        self.device = self.devices[0]
         self.device_batch = max(1, int(device_batch))
+        self.batch_size = self.n_devices * self.device_batch
         self.io_threads = max(1, int(io_threads))
         self.max_retries = int(max_retries)
         self.backoff_base = float(backoff_base)
@@ -344,10 +398,6 @@ class BlockwiseExecutor:
         return cls(target=target, device_batch=int(cfg.get("device_batch", 1)),
                    io_threads=int(cfg.get("io_threads") or max(1, max_jobs)),
                    max_retries=int(cfg.get("io_retries", 2)), backoff_base=float(cfg.get("io_backoff_s", 0.05)))
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     def _backoff(self, attempt: int) -> float:
         return fu.backoff_delay(attempt, self.backoff_base, self.backoff_max)
@@ -417,9 +467,10 @@ class BlockwiseExecutor:
         so the order never changes results.
 
         ``sweep_mode``: ``"per_block"``, ``"sharded"`` or ``"auto"`` (sharded
-        once the sweep fills one batch, the reference's rule on one
-        device).  ``sharded_batch``: blocks per sharded call (None:
-        ``max(2 * device_batch, 8)``).  ``ragged`` (sharded path only):
+        with two shards or more, or once the sweep fills one batch: the
+        reference's rule).  ``sharded_batch``: blocks per sharded call,
+        rounded up to a multiple of ``n_devices`` (None: ``max(2 *
+        batch_size, 8)`` rounded so).  ``ragged`` (sharded path only):
         ``"auto"`` packs partial and mixed-shape batches through the paged
         block pool, ``"on"`` packs every batch, ``"off"`` pads a partial
         batch by repeating its last block (the padded outputs are dropped)
@@ -456,8 +507,9 @@ class BlockwiseExecutor:
         ``device_pool_resident_bytes``), the hardening counters
         (``n_unsharded``; with a deadline ``n_hung`` and ``n_speculated``;
         ``n_degraded``, ``n_split``, ``n_sub_blocks`` and ``split_depth``),
-        and on the sharded path the rung each batch ran (``batch_rungs``:
-        ``"batched"`` or ``"lanes"``).
+        the shard count (``n_devices``) and the device calls each shard
+        made (``shard_calls``), and on the sharded path the rung each batch
+        ran (``batch_rungs``: ``"batched"`` or ``"lanes"``).
 
         Raises RuntimeError naming every block still failed after the
         quarantine pass, and :class:`~.supervision.DrainInterrupt` after a
@@ -470,8 +522,8 @@ class BlockwiseExecutor:
             blocks = morton_order(blocks)
         elif schedule not in ("given", None):
             raise ValueError(f"unknown schedule {schedule!r} (expected 'morton' or 'given')")
-        sharded_width = resolve_sharded_batch(1, self.device_batch, sharded_batch)
-        use_sharded = use_sharded_sweep(sweep_mode, 1, len(blocks), sharded_width)
+        sharded_width = resolve_sharded_batch(self.n_devices, self.batch_size, sharded_batch)
+        use_sharded = use_sharded_sweep(sweep_mode, self.n_devices, len(blocks), sharded_width)
         if ragged not in ("auto", "on", "off"):
             raise ValueError(f"unknown ragged mode {ragged!r} (expected 'auto', 'on' or 'off')")
         if device_pool not in ("auto", "on", "off"):
@@ -497,6 +549,9 @@ class BlockwiseExecutor:
         dev_snap = device_pool_mod.snapshot()
         counts = {"n_dispatches": 0, "batches_dispatched": 0, "blocks_dispatched": 0,
                   "dispatch_wait_s": 0.0, "ragged_batches": 0, "lanes_padded": 0, "pages_in_use": 0}
+        # device calls by shard: a sharded batch makes one on each shard
+        # that holds a real lane, a block alone one on its shard
+        shard_calls = [0] * self.n_devices
         batch_rungs: List[str] = []
         failures: Dict[int, Dict[str, Any]] = {}
         quarantined_ids: set = set()
@@ -505,9 +560,6 @@ class BlockwiseExecutor:
         sharded_failed: set = set()
         finished_ids: set = set()
         lock = threading.Lock()
-        # every kernel call (a batch, a block, a duplicate, a sub-block)
-        # holds it: the device is one serial resource
-        dispatch_lock = threading.Lock()
         speculated: set = set()
         commits = FirstWins()
         sweep_span = trace_mod.begin("executor.sweep", task=task_name, n_blocks=len(blocks),
@@ -679,27 +731,32 @@ class BlockwiseExecutor:
             finally:
                 watchdog.clear(token)
 
-        def exec_single(val, block=None):
-            """One block through the kernel, alone: inputs to the device, the
-            call and a sync under the dispatch lock, outputs back as numpy.
-            With ``block`` this is the per-block sweep's own call (the
-            reference's ``batch`` grain, with its ``executor.h2d`` and
-            ``executor.d2h`` spans; the compute watch of ``block`` starts
-            once the lock is held); without, a quarantine, speculation or
-            split call (``per_block`` grain)."""
+        # each shard's card's dispatch lock, resolved once a sweep
+        shard_locks = [dispatch_lock(d) for d in self.devices]
+
+        def exec_single(val, block=None, shard: int = 0):
+            """One block through the kernel, alone, on ``shard``'s device:
+            inputs to the device, the call and a sync under the card's
+            dispatch lock, outputs back as numpy.  With ``block`` this is
+            the per-block sweep's own call (the reference's ``batch`` grain,
+            with its ``executor.h2d`` and ``executor.d2h`` spans; the compute
+            watch of ``block`` starts once the lock is held); without, a
+            quarantine, speculation or split call (``per_block`` grain)."""
+            device = self.devices[shard]
             t0 = time.perf_counter()
             nbytes = sum(int(np.asarray(x).nbytes) for x in val)
             with (trace_mod.span("executor.h2d", task=task_name, nbytes=nbytes, grain="dense")
                   if block is not None else contextlib.nullcontext()):
-                inputs = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(self.device) for x in val)
+                inputs = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in val)
             device_pool_mod.record_h2d(nbytes)
-            with dispatch_lock, (watched(block, "compute") if block is not None else contextlib.nullcontext()):
-                self._sync()
+            with shard_locks[shard], _on_card(device), (watched(block, "compute") if block is not None
+                                                        else contextlib.nullcontext()):
+                _sync(device)
                 t1 = time.perf_counter()
                 with trace_mod.span("executor.dispatch", n_blocks=1, task=task_name,
-                                    grain="batch" if block is not None else "per_block"):
+                                    grain="batch" if block is not None else "per_block", shard=shard):
                     out = kernel(*inputs)
-                    self._sync()
+                    _sync(device)
                 t2 = time.perf_counter()
             with (trace_mod.span("executor.d2h", task=task_name, n_blocks=1)
                   if block is not None else contextlib.nullcontext()):
@@ -707,6 +764,8 @@ class BlockwiseExecutor:
             t3 = time.perf_counter()
             device_pool_mod.record_d2h(_tree_nbytes(out))
             note_dispatch(1)
+            with lock:
+                shard_calls[shard] += 1
             add("h2d_s", t1 - t0)
             add("kernel_s", t2 - t1)
             add("d2h_s", t3 - t2)
@@ -951,84 +1010,142 @@ class BlockwiseExecutor:
         # -- the sharded path --------------------------------------------------
         host_staged = {"recorded": False}
 
-        def stage_ragged(rb, block_id):
-            """Device pools, tables and valid extents of one ragged batch:
-            through the resident page pool when it is on (pages already on
-            the device are re-addressed, not re-sent), else from the host.
+        def to_dev(arrays, device):
+            return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+
+        def stage_ragged(rb, device, block_id):
+            """One ragged batch's page pools on ``device``'s card, with its
+            page tables and valid extents (host arrays, every lane): through
+            the card's resident page pool when it is on (pages already on
+            the card are re-addressed, not re-sent), else from the host.
             Pool exhaustion stages this batch from the host
             (``degraded:host_staged``, recorded once a sweep)."""
-            to_dev = lambda arrays: [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays]
             if dev_pool is not None:
                 try:
-                    sb = dev_pool.stage(rb, self.device, block_id=block_id)
+                    sb = dev_pool.stage(rb, device, block_id=block_id)
                 except device_pool_mod.DevicePoolExhausted as e:
                     device_pool_mod.bump("host_staged_fallbacks")
                     trace_mod.instant("degraded:host_staged", task=task_name, block=int(block_id))
-                    if not host_staged["recorded"] and failures_path:
+                    with lock:
+                        first = not host_staged["recorded"]
                         host_staged["recorded"] = True
+                    if first and failures_path:
                         fu.record_failures(failures_path, f"{task_name}.device_pool", [{
                             "block_id": None, "sites": {"h2d": 1}, "error": fu.cap_traceback(str(e)),
                             "quarantined": False, "resolved": True, "resolution": "degraded:host_staged",
                         }])
                 else:
-                    device_pool_mod.record_h2d(sum(int(a.nbytes) for a in sb.tables + sb.valids))
-                    return sb.pools, to_dev(sb.tables), to_dev(sb.valids), sb.specs
-            with trace_mod.span("executor.h2d", task=task_name, nbytes=int(rb.nbytes), grain="ragged"):
-                staged = to_dev(rb.pools), to_dev(rb.tables), to_dev(rb.valids), rb.specs
-            device_pool_mod.record_h2d(rb.nbytes)
-            return staged
+                    return sb.pools, sb.tables, sb.valids, sb.specs
+            nbytes = sum(int(p.nbytes) for p in rb.pools)
+            with trace_mod.span("executor.h2d", task=task_name, nbytes=nbytes, grain="ragged"):
+                pools = to_dev(rb.pools, device)
+            device_pool_mod.record_h2d(nbytes)
+            return pools, rb.tables, rb.valids, rb.specs
+
+        # the card of the sharded call that failed last
+        failed_card: List[Optional[torch.device]] = [None]
+
+        def run_card(batch, rb, payload, group):
+            """The shards of one card that hold a real lane of ``batch``, in
+            turn: each shard's sub-batch to the card, the sweep and a sync
+            under the card's dispatch lock (its blocks' compute watched), its
+            outputs back.  With a ragged batch the card's page pools are
+            staged once for every lane, and the card's arenas stay locked
+            until its last shard has gathered its lanes.  Returns ``[(shard,
+            outputs, rung)]``."""
+            device = self.devices[group[0][0]]
+            results = []
+            with _on_card(device), (dev_pool.lock_for(device) if dev_pool is not None and rb is not None
+                                    else contextlib.nullcontext()):
+                # a ragged batch's staging counts to its card's first
+                # shard's h2d
+                t0 = time.perf_counter()
+                if rb is not None:
+                    pools, tables, valids, specs = stage_ragged(rb, device, batch[0].block_id)
+                for shard, lanes in group:
+                    real = batch[lanes]
+                    if rb is not None:
+                        # the shard's lanes of the page tables and valid
+                        # extents; the pools are the batch's, on its card
+                        tabs, vals = [t[lanes] for t in tables], [v[lanes] for v in valids]
+                        inputs = (pools, to_dev(tabs, device), to_dev(vals, device), specs)
+                        device_pool_mod.record_h2d(sum(int(a.nbytes) for a in tabs + vals))
+                    else:
+                        arrays = [a[lanes] for a in payload]
+                        nbytes = sum(int(a.nbytes) for a in arrays)
+                        with trace_mod.span("executor.h2d", task=task_name, grain="dense", nbytes=nbytes,
+                                            shard=shard):
+                            inputs = tuple(to_dev(arrays, device))
+                        device_pool_mod.record_h2d(nbytes)
+                    with shard_locks[shard], contextlib.ExitStack() as stack:
+                        span_args = dict(task=task_name, n_blocks=len(real), shard=shard,
+                                         grain="ragged" if rb is not None else "sharded")
+                        if rb is not None:
+                            span_args["lanes_padded"] = rb.lanes_padded
+                        for blk in real:
+                            stack.enter_context(watched(blk, "compute"))
+                        _sync(device)
+                        t1 = time.perf_counter()
+                        with trace_mod.span("executor.dispatch", **span_args):
+                            if rb is not None:
+                                out, rung = ragged_sweep(kernel, *inputs)
+                            else:
+                                out, rung = batched_sweep(kernel, inputs)
+                            # the lanes are gathered before the pool stages again
+                            _sync(device)
+                        t2 = time.perf_counter()
+                    with trace_mod.span("executor.d2h", task=task_name, n_blocks=len(real), shard=shard):
+                        out = _to_numpy(out)
+                    t3 = time.perf_counter()
+                    device_pool_mod.record_d2h(_tree_nbytes(out))
+                    add("h2d_s", t1 - t0)
+                    add("kernel_s", t2 - t1)
+                    add("d2h_s", t3 - t2)
+                    with lock:
+                        shard_calls[shard] += 1
+                    results.append((shard, out, rung))
+                    t0 = time.perf_counter()
+            return results
 
         def run_batch(batch, kind, payload):
-            """One sharded call: the batch to the device, the dispatch fault
-            site, the sweep and one sync under the dispatch lock (each
-            block's compute watched), the outputs back.  Returns
-            ``(outputs, rung, rb)``."""
+            """One sharded call: the batch-grain fault site, then the batch
+            split into ``n_devices`` equal sub-batches in lane order, each
+            shard's run on its device (the cards in parallel, one thread
+            each; the shards of one card in turn), and the outputs gathered
+            back in lane order.  Shards whose lanes are all padding do not
+            run.  Returns ``(outputs, rung, rb)``."""
             rb = payload if kind == "ragged" else None
-            t0 = time.perf_counter()
-            with dev_pool.lock if dev_pool is not None and rb is not None else contextlib.nullcontext():
-                if rb is not None:
-                    inputs = stage_ragged(rb, batch[0].block_id)
-                else:
-                    with trace_mod.span("executor.h2d", task=task_name, grain="dense",
-                                        nbytes=int(sum(a.nbytes for a in payload))):
-                        inputs = tuple(torch.from_numpy(a).to(self.device) for a in payload)
-                    device_pool_mod.record_h2d(sum(int(a.nbytes) for a in payload))
-                # the batch-grain fault site: a device OOM or a wedged device
-                # takes the whole sharded call down
-                with contextlib.ExitStack() as stack:
-                    for blk in batch:
-                        stack.enter_context(watched(blk, "compute"))
-                    injector.maybe_fail("dispatch", batch[0].block_id,
-                                        voxels=sum(int(np.prod(b.outer_shape)) for b in batch))
-                    injector.maybe_hang("dispatch", batch[0].block_id)
-                with dispatch_lock, contextlib.ExitStack() as stack:
-                    span_args = dict(task=task_name, n_blocks=len(batch), grain="ragged" if rb is not None else "sharded")
-                    if rb is not None:
-                        span_args["lanes_padded"] = rb.lanes_padded
-                    for blk in batch:
-                        stack.enter_context(watched(blk, "compute"))
-                    self._sync()
-                    t1 = time.perf_counter()
-                    with trace_mod.span("executor.dispatch", **span_args):
-                        if rb is not None:
-                            out, rung = ragged_sweep(kernel, *inputs)
-                        else:
-                            out, rung = batched_sweep(kernel, inputs)
-                        # the lanes are gathered before the pool stages again
-                        self._sync()
-                    t2 = time.perf_counter()
-            with trace_mod.span("executor.d2h", task=task_name, n_blocks=len(batch)):
-                out = _to_numpy(out)
-            t3 = time.perf_counter()
-            device_pool_mod.record_d2h(_tree_nbytes(out))
+            # the batch-grain fault site: a device OOM or a wedged device
+            # takes the whole sharded call down, every shard of it
+            with contextlib.ExitStack() as stack:
+                for blk in batch:
+                    stack.enter_context(watched(blk, "compute"))
+                injector.maybe_fail("dispatch", batch[0].block_id,
+                                    voxels=sum(int(np.prod(b.outer_shape)) for b in batch))
+                injector.maybe_hang("dispatch", batch[0].block_id)
+            groups: Dict[str, list] = {}
+            for shard, lanes in enumerate(shard_lanes(bs, self.n_devices)):
+                if lanes.start < len(batch):
+                    groups.setdefault(card_key(self.devices[shard]), []).append((shard, lanes))
+            futures = [card_pool.submit(scoped(run_card), batch, rb, payload, g) for g in groups.values()]
+            # every card finishes before the batch is judged; the OOM ladder
+            # frees the first card that failed
+            errors = [f.exception() for f in futures]
+            for group, e in zip(groups.values(), errors):
+                if e is not None:
+                    failed_card[0] = self.devices[group[0][0]]
+                    raise e
+            per_card = [f.result() for f in futures]
+            results = sorted((r for card in per_card for r in card), key=lambda r: r[0])
+            out = concat_lanes([r[1] for r in results])
             if rb is not None:
                 rb.release()
-            add("h2d_s", t1 - t0)
-            add("kernel_s", t2 - t1)
-            add("d2h_s", t3 - t2)
-            return out, rung, rb
+            return out, results[0][2], rb
 
-        bs = sharded_width if use_sharded else self.device_batch
+        bs = sharded_width if use_sharded else self.batch_size
+        # one thread a card runs that card's shards of a sharded batch
+        card_pool = (ThreadPoolExecutor(max_workers=len({card_key(d) for d in self.devices}),
+                                        thread_name_prefix="card") if use_sharded else None)
 
         def load_batch(batch):
             """Load one batch: ``(blocks, kind, payload, vals)``, ``kind``
@@ -1105,12 +1222,20 @@ class BlockwiseExecutor:
             try:
                 out, rung, rb = run_batch(batch, kind, payload)
             except Exception as e:
-                # a failed sharded call quarantines the whole batch; the
-                # quarantine pass runs its blocks alone (degraded:unsharded)
+                # a failed sharded call (on any shard) quarantines the whole
+                # batch; the quarantine pass runs its blocks alone
+                # (degraded:unsharded)
                 tb = fu.cap_traceback(traceback.format_exc())
                 resource = classify_resource_error(e)
-                if self.device.type == "cuda" and resource == "oom":
-                    torch.cuda.empty_cache()
+                failed_on, failed_card[0] = failed_card[0], None
+                if resource == "oom" and failed_on is not None:
+                    # the OOM ladder frees the card that failed: its
+                    # resident arenas, then its cached blocks
+                    if dev_pool is not None:
+                        dev_pool.evict_all(failed_on)
+                    if failed_on.type == "cuda":
+                        with torch.cuda.device(failed_on):
+                            torch.cuda.empty_cache()
                 for blk in batch:
                     note_failure(blk, "dispatch", 1, tb, quarantine=True, resource=resource)
                 with lock:
@@ -1248,11 +1373,15 @@ class BlockwiseExecutor:
                     if use_sharded:
                         writes.extend(dispatch_sharded(batch, kind, payload, vals, writes))
                     else:
+                        # the blocks of a batch are dealt over the shards as
+                        # a sharded batch's lanes are, one call a block
+                        lane = {int(b.block_id): j for j, b in enumerate(batches[i])}
                         for block, val in zip(batch, vals):
                             nbytes = _tree_nbytes(val)
                             admit(nbytes, writes)
+                            shard = (lane[int(block.block_id)] // self.device_batch) % self.n_devices
                             try:
-                                out = exec_single(val, block)
+                                out = exec_single(val, block, shard)
                             except Exception as e:
                                 note_failure(block, "compute", 1, fu.cap_traceback(traceback.format_exc()),
                                              quarantine=True, resource=classify_resource_error(e))
@@ -1321,7 +1450,10 @@ class BlockwiseExecutor:
                             failures[bid]["split_depth"] = tracker["depth"]
                         finish_block(blk)
         finally:
-            # the watchdog and the duplicates never outlive the sweep
+            # the watchdog, the duplicates and the card threads never outlive
+            # the sweep
+            if card_pool is not None:
+                card_pool.shutdown(wait=True)
             if watchdog is not None:
                 watchdog.stop()
             if spec_pool is not None:
@@ -1353,6 +1485,7 @@ class BlockwiseExecutor:
         summary = {
             "n_blocks": len(blocks), "n_quarantined": len(quarantined_ids), "n_failed": 0,
             "sweep_mode": "sharded" if use_sharded else "per_block", **stats, **counts,
+            "n_devices": self.n_devices, "shard_calls": shard_calls,
             "n_unsharded": len(sharded_failed),
             **{k: int(dev[k]) for k in ("h2d_bytes", "d2h_bytes", "device_pool_hits", "device_pool_misses",
                                         "device_pool_evictions", "host_staged_fallbacks")},

@@ -5,8 +5,8 @@ routes, journal records and state files, adapted in four places: a payload
 that names no ``target`` runs on ``"gpu"`` (the card; it fails with the
 device error where there is none, never on the CPU); workflow names resolve
 through :data:`..cli.WORKFLOWS`, which resolves every name of the
-reference's, and a submission that raises ``NotImplementedError`` (what
-the port still lacks: ROADMAP item 8b) answers HTTP 501 ``not_ported``;
+reference's, and a submission that raises ``NotImplementedError`` answers
+HTTP 501 ``not_ported`` (no ported workflow raises it today);
 ``program_cache_size`` and the ``programs`` block are kept for configs
 written for the reference but hold nothing (see
 :meth:`PipelineServer.program_cache_stats`); and a request's record
@@ -1372,7 +1372,7 @@ class _RequestHandler(BaseHTTPRequestHandler):
                 "error": e.code, "tenant": e.tenant, "detail": e.detail,
             })
         except NotImplementedError as e:
-            # what the port has not ported (ROADMAP item 8b): refused, naming its item
+            # what the port does not do: refused, naming it
             self._reply(501, {"error": NOT_PORTED, "detail": str(e)})
         except (ValueError, KeyError) as e:
             self._reply(400, {"error": "bad_request", "detail": str(e)})

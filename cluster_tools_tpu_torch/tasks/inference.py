@@ -14,8 +14,10 @@ to infer the architecture from a torch checkpoint), ``halo``,
 
 Checkpoints: ``.npz`` is the JAX package's flat ``'/'``-joined flax
 parameters (:mod:`..models.flax_import`), ``.pt``/``.pth`` a torch
-``state_dict`` (:mod:`..models.torch_import`).  flax ``.msgpack`` files
-are ROADMAP item 8b and refused.  Without a checkpoint the task runs on
+``state_dict`` (:mod:`..models.torch_import`), and any other file a flax
+``.msgpack`` checkpoint (``flax.serialization.to_bytes``), decoded by the
+port's own reader (:mod:`..utils.flax_msgpack`: neither flax nor msgpack
+is needed) into the same flax paths.  Without a checkpoint the task runs on
 the model's seeded random init ("smoke mode",
 :meth:`..models.unet.UNet3D.reset_parameters`, seed 0): those weights are
 not the JAX package's ``PRNGKey(0)`` init, and neither is meant to be
@@ -35,23 +37,24 @@ from ..models.torch_import import import_torch_unet, load_torch_checkpoint
 from ..runtime import handoff
 from ..runtime.executor import BlockwiseExecutor, is_sub_block, region_verifier, sweep_config
 from ..runtime.task import BaseTask, WorkflowBase, get_task_cls
+from ..utils import flax_msgpack
 from ..utils.volume_utils import Blocking, blocks_in_volume, pad_block_to
 
 
 def load_checkpoint(path: str, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """Load ``path`` into ``model``: ``.npz`` (flat ``'/'``-joined flax
-    parameters) or ``.pt``/``.pth`` (a torch ``state_dict``).  Returns the
-    loaded ``state_dict``.  Any other file is a flax msgpack checkpoint to
-    the reference, which is not ported."""
+    parameters), ``.pt``/``.pth`` (a torch ``state_dict``), or, as in the
+    reference, any other file as a flax msgpack checkpoint.  Returns the
+    loaded ``state_dict``."""
     if path.endswith((".pt", ".pth")):
         return load_torch_checkpoint(path, model)
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: flax .msgpack checkpoints are not ported (ROADMAP Queue A item 8b); "
-            "save the parameters as .npz with the JAX package's save_checkpoint"
-        )
-    with np.load(path) as f:
-        sd = flax_to_state_dict({k: f[k] for k in f.files}, model)
+    if path.endswith(".npz"):
+        with np.load(path) as f:
+            flat = {k: f[k] for k in f.files}
+    else:
+        with open(path, "rb") as fh:
+            flat = flax_msgpack.flatten(flax_msgpack.restore(fh.read()))
+    sd = flax_to_state_dict(flat, model)
     model.load_state_dict(sd)
     return sd
 

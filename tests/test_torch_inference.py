@@ -12,7 +12,7 @@ package's, on the CPU.
 - Checkpoints: the flax npz round trip through the port is exact; a torch
   ``.pt`` of the reference's torch twin loads into both packages;
   ``model: {"name": "auto"}`` infers the reference's config; mismatches
-  raise naming a tensor; ``.msgpack`` is refused (ROADMAP item 8b).
+  raise naming a tensor; a flax ``.msgpack`` loads as its npz does.
 - ``InferenceWorkflow``: the JAX and port workflows (``target="local"``)
   on the same 40x32x24 uint8 volume and npz (base 4, depth 2, GroupNorm),
   block 16^3 with clipped and padded edge blocks, halo 8: sigmoid with
@@ -307,9 +307,26 @@ def test_mismatched_checkpoints_raise_naming_a_tensor(tmp_path):
         load_checkpoint(npz, UNet3D(base_features=4, depth=1, norm=None))
 
 
-def test_msgpack_is_refused_naming_item_8b(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        load_checkpoint(str(tmp_path / "model.msgpack"), UNet3D())
+def test_msgpack_checkpoint_loads_as_the_npz_route(tmp_path):
+    """``flax.serialization.to_bytes`` of the reference's U-Net variables
+    (base 4, depth 2, GroupNorm): the port's ``load_checkpoint`` reads the
+    ``.msgpack`` without flax and gives the parameters and the float32
+    forward of the npz route bit for bit."""
+    import flax.serialization
+
+    _, variables = flax_variables(11, (1, 16, 16, 16, 1), base_features=4, depth=2)
+    mp = str(tmp_path / "model.msgpack")
+    with open(mp, "wb") as fh:
+        fh.write(flax.serialization.to_bytes(variables))
+    npz = str(tmp_path / "model.npz")
+    j_save_checkpoint(npz, variables)
+    via_mp, via_npz = (UNet3D(base_features=4, depth=2, dtype=torch.float32) for _ in range(2))
+    sd_mp, sd_npz = load_checkpoint(mp, via_mp), load_checkpoint(npz, via_npz)
+    assert list(sd_mp) == list(sd_npz)
+    for k in sd_npz:
+        assert torch.equal(sd_mp[k], sd_npz[k]), k
+    x = np.random.default_rng(12).random((1, 1, 16, 16, 16)).astype(np.float32)
+    np.testing.assert_array_equal(port_logits(via_mp.eval(), x), port_logits(via_npz.eval(), x))
 
 
 def test_infer_unet_config_names_offending_tensor():
