@@ -9,6 +9,11 @@ Phases, each one line of output, each raising on failure:
 2. build: compile every kernel of ``cluster_tools_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once) and, beside them, the host C++ rung
    (``csrc/ct_native.cpp``, one ``g++``);
+2a. lint (``phase_lint``): the port's ctlint
+   (``python3 -m cluster_tools_tpu_torch.lint --json``, a subprocess) over
+   its default walk of the tree this machine received: the package,
+   ``scripts/torch_*.py`` and this script; its files, suppressions, counts
+   and seconds, and any finding fails the smoke;
 3. kernels: each kernel against its plain PyTorch twin on CUDA tensors,
    exact equality (B1 tiled CCL and B1d, its run-doubling variant, against
    the CCL twins on a smooth mask, on adversarial tiles (all foreground,
@@ -367,12 +372,40 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
+def write_json(path: str, doc) -> None:
+    """A config file for the port's tasks, written atomically (temp file +
+    ``os.replace``) as the port writes its own."""
+    from cluster_tools_tpu_torch.utils.function_utils import atomic_write_json
+
+    atomic_write_json(path, doc)
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def phase_lint(card: str) -> dict:
+    """The port's ctlint over its default walk, run as a user would run it
+    (``python3 -m cluster_tools_tpu_torch.lint --json`` from the tree's
+    root); fails on any finding.  Returns the findings document."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "cluster_tools_tpu_torch.lint", "--json"], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    if out.returncode not in (0, 1):
+        raise RuntimeError(f"lint: exit {out.returncode}: {out.stderr[-2000:]}")
+    doc = json.loads(out.stdout)
+    log("lint", f"ctlint: {doc['n_files']} files, {doc['n_suppressed']} suppressed, findings by rule "
+                f"{doc['counts']}, {secs:.2f} s [{card}]")
+    if out.returncode != 0 or doc["findings"]:
+        raise AssertionError("lint: " + "; ".join(f"{f['file']}:{f['line']}: {f['rule']} {f['message']}"
+                                                  for f in doc["findings"][:10]))
+    return doc
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -650,8 +683,8 @@ def bw_run(K, tmp_root: str, tag: str, workflow_cls, block_shape, global_config=
 
     d = tempfile.mkdtemp(prefix=f"{tag}-", dir=tmp_root)
     os.makedirs(os.path.join(d, "cfg"))
-    with open(os.path.join(d, "cfg", "global.config"), "w") as f:
-        json.dump(dict({"block_shape": list(block_shape)}, **(global_config or {})), f)
+    write_json(os.path.join(d, "cfg", "global.config"),
+               dict({"block_shape": list(block_shape)}, **(global_config or {})))
     tmp = os.path.join(d, "tmp")
     wf = workflow_cls(tmp_folder=tmp, config_dir=os.path.join(d, "cfg"), max_jobs=8,
                       block_shape=list(block_shape), **params)
@@ -1055,8 +1088,7 @@ def fault_run(K, root: str, tag: str, workflow_cls, block, env=None, spec=None, 
 
     d = tempfile.mkdtemp(prefix=f"{tag}-", dir=root)
     os.makedirs(os.path.join(d, "cfg"))
-    with open(os.path.join(d, "cfg", "global.config"), "w") as fh:
-        json.dump(dict({"block_shape": list(block)}, **(global_config or {})), fh)
+    write_json(os.path.join(d, "cfg", "global.config"), dict({"block_shape": list(block)}, **(global_config or {})))
     tmp = os.path.join(d, "tmp")
     env = dict(env or {})
     saved = {k: os.environ.get(k) for k in env}
@@ -1524,8 +1556,7 @@ def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: li
     with tempfile.TemporaryDirectory(prefix="multicut-") as root:
         cfg_dir = os.path.join(root, "cfg")
         os.makedirs(cfg_dir)
-        with open(os.path.join(cfg_dir, "global.config"), "w") as fh:
-            json.dump({"block_shape": list(block)}, fh)
+        write_json(os.path.join(cfg_dir, "global.config"), {"block_shape": list(block)})
         tmp = os.path.join(root, "tmp")
         io = dict(input_path=mem, input_key="boundaries", ws_path=mem, ws_key="ws", skip_ws=True,
                   output_path=mem, block_shape=list(block))
@@ -1911,11 +1942,9 @@ def phase_reduce_tree(K, vol: torch.Tensor, ref: np.ndarray, mem: str, mc: dict,
     os.environ["CTT_MESH_SHARDS"] = str(REDUCE_SHARDS)
     cfg_dir = os.path.join(mc["root"], "cfg-tree")
     os.makedirs(cfg_dir)
-    with open(os.path.join(cfg_dir, "global.config"), "w") as fh:
-        json.dump({"block_shape": list(block)}, fh)
-    with open(os.path.join(cfg_dir, "agglomerative_clustering.config"), "w") as fh:
-        json.dump({"solver_shards": REDUCE_SHARDS, "reduce_plane": "collective",
-                   "device_pool_bytes": REDUCE_POOL_BYTES}, fh)
+    write_json(os.path.join(cfg_dir, "global.config"), {"block_shape": list(block)})
+    write_json(os.path.join(cfg_dir, "agglomerative_clustering.config"),
+               {"solver_shards": REDUCE_SHARDS, "reduce_plane": "collective", "device_pool_bytes": REDUCE_POOL_BYTES})
     if degraded_records(tmp):
         raise AssertionError(f"reduce-tree: degraded records before the phase: {degraded_records(tmp)}")
 
@@ -2185,8 +2214,8 @@ def fusion_arm(K, root: str, tag: str, workflow_cls, memory_handoffs: bool, out_
 
     d = os.path.join(root, tag)
     os.makedirs(os.path.join(d, "cfg"))
-    with open(os.path.join(d, "cfg", "global.config"), "w") as fh:
-        json.dump({"block_shape": list(block), "memory_handoffs": memory_handoffs}, fh)
+    write_json(os.path.join(d, "cfg", "global.config"),
+               {"block_shape": list(block), "memory_handoffs": memory_handoffs})
     tmp = os.path.join(d, "tmp")
     handoff.reset()
     chunk_cache.configure()
@@ -2556,8 +2585,7 @@ def device_rung(K, vol: torch.Tensor, root: str, n: int = 256, extent: int = 32,
     def run(tag, env):
         d = os.path.join(root, f"device-{tag}")
         os.makedirs(os.path.join(d, "cfg"))
-        with open(os.path.join(d, "cfg", "global.config"), "w") as fh:
-            json.dump({"memory_handoffs": True, "device_handoffs": True}, fh)
+        write_json(os.path.join(d, "cfg", "global.config"), {"memory_handoffs": True, "device_handoffs": True})
         kw = dict(tmp_folder=os.path.join(d, "tmp"), config_dir=os.path.join(d, "cfg"),
                   handoff_path=os.path.join(d, "vol.npz"), final_path=os.path.join(d, "out.npz"))
         saved = {k: os.environ.get(k) for k in env}
@@ -2615,8 +2643,9 @@ def device_rung(K, vol: torch.Tensor, root: str, n: int = 256, extent: int = 32,
         handoff.reset()
         snap, hsnap = device_pool.snapshot(), handoff.snapshot()
         pa, pb = os.path.join(root, "a.npz"), os.path.join(root, "b.npz")
-        handoff.publish_device_arrays(pa, {"vol": crop}, producer="fusion.0")
-        handoff.publish_device_arrays(pb, {"vol": crop + 1}, producer="fusion.0")
+        fails = os.path.join(root, "failures.json")
+        handoff.publish_device_arrays(pa, {"vol": crop}, producer="fusion.0", failures_path=fails)
+        handoff.publish_device_arrays(pb, {"vol": crop + 1}, producer="fusion.0", failures_path=fails)
         dem, hdem = device_pool.delta(snap), handoff.delta(hsnap)
         back = torch.from_numpy(np.array(handoff.resolve_device_arrays(pa)["vol"])).cuda()
         live = handoff.resolve_device_arrays(pb)["vol"]
@@ -3121,7 +3150,9 @@ def phase_serve(K, vol: torch.Tensor, ref: dict, rows: list, block=SERVE_BLOCK, 
             # 2. the scrubber: rot at rest, found and healed from lineage
             out = z["ws_a1"]
             bb = tuple(slice(0, c) for c in block)
-            bad = out._read_back(bb).copy()
+            # rot at rest: the stored bytes as they are, past the verifying
+            # reader, since planting what the scrubber must find is the point
+            bad = out._read_back(bb).copy()  # ctlint: disable=CT011
             bad[tuple(c // 3 for c in block)] ^= 1
             out._write_raw(bb, bad)
             t0 = time.perf_counter()
@@ -3302,8 +3333,7 @@ def fleet_ingest(root: str, data: str, block, card: str) -> str:
     tmp = os.path.join(root, "fleet-ingest")
     cfg_dir = os.path.join(tmp, "cfg")
     os.makedirs(cfg_dir)
-    with open(os.path.join(cfg_dir, "global.config"), "w") as fh:
-        json.dump(dict(block_shape=list(block), **FLEET_SLURM), fh)
+    write_json(os.path.join(cfg_dir, "global.config"), dict(block_shape=list(block), **FLEET_SLURM))
     saved_path = os.environ["PATH"]
     os.environ["PATH"] = bindir + os.pathsep + saved_path
     faults.configure({"faults": [{"site": "submit", "kind": "job_loss", "fail_attempts": 1}]})
@@ -3380,8 +3410,7 @@ def phase_fleet(K, root: str, data: str, ref_ws: np.ndarray, rows: list, block=S
     card = nvidia_smi()
     fleet_dir = os.path.join(root, "fleet")
     cfg_path = os.path.join(root, "fleet.json")
-    with open(cfg_path, "w") as fh:
-        json.dump(FLEET_CONFIG, fh)
+    write_json(cfg_path, FLEET_CONFIG)
     log_path = os.path.join(root, "fleet.log")
     sampler = HostMemorySampler()
     t_spawn = time.time()
@@ -3546,8 +3575,7 @@ def an_run(K, root: str, tag: str, workflow_cls, target: str, block, tmp: str = 
         tmp = tempfile.mkdtemp(prefix=f"{tag}-{target}-", dir=root)
     cfg = os.path.join(tmp, "cfg")
     os.makedirs(cfg, exist_ok=True)
-    with open(os.path.join(cfg, "global.config"), "w") as f:
-        json.dump({"block_shape": list(block)}, f)
+    write_json(os.path.join(cfg, "global.config"), {"block_shape": list(block)})
     cuda = torch.cuda.is_available()
     K.reset_counts()
     if cuda:
@@ -3938,8 +3966,7 @@ def phase_analysis(K, vol: torch.Tensor, ref_ws: np.ndarray, rows: list, target:
         ms_tmp = tempfile.mkdtemp(prefix="multisets-", dir=root)
         ms_cfg = os.path.join(ms_tmp, "cfg")
         os.makedirs(ms_cfg)
-        with open(os.path.join(ms_cfg, "global.config"), "w") as fh:
-            json.dump({"block_shape": [32, 32, 32]}, fh)
+        write_json(os.path.join(ms_cfg, "global.config"), {"block_shape": [32, 32, 32]})
         common = dict(tmp_folder=os.path.join(ms_tmp, "tmp"), config_dir=ms_cfg, max_jobs=8, block_shape=[32] * 3,
                       scale_factor=[2, 2, 2])
         ms_cls = {"gpu": (lms.CreateMultisetGPU, lms.DownscaleMultisetGPU),
@@ -4920,6 +4947,7 @@ def main() -> int:
         log("done", f"{time.perf_counter() - t_start:.1f}s")
         print(nvidia_smi())
         return 0
+    phase_lint(smi)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows, vol, ref, ws_crop, main_s_per_voxel = main_phases(K, args, gen)
     phase_sharded(K, args, rows, main_s_per_voxel * (MAIN_SHAPE[1] + 2 * MAIN_CFG["halo"]) * MAIN_SHAPE[2]

@@ -54,6 +54,22 @@ def union_find(pairs, n_labels: int, device=None) -> torch.Tensor:
     return union_find_tensor(as_tensor(pairs, dev, torch.int32), n_labels)
 
 
+def apply_assignment(labels, assignment, n_labels: int) -> torch.Tensor:
+    """Relabel a block through an assignment table (reference: ``write``
+    task), on the labels' own device: labels outside ``[0, n_labels)`` are
+    clipped into it, and the result keeps the labels' dtype."""
+    labels = torch.as_tensor(labels)
+    table = torch.as_tensor(assignment, device=labels.device)
+    if labels.dtype == torch.uint64:
+        # no clamp for uint64: clip its int64 view, where a label of 2**63
+        # or more reads negative and belongs at the top
+        wide = labels.view(torch.int64)
+        flat = torch.where(wide < 0, n_labels - 1, wide.clamp(0, n_labels - 1))
+    else:
+        flat = labels.long().clamp(0, n_labels - 1)
+    return table[flat].to(labels.dtype)
+
+
 def union_find_host(pairs: np.ndarray, n_labels: int) -> np.ndarray:
     """Host path of :func:`union_find`: each label mapped to the minimum
     label of its component (int64), by the host C++ union-find

@@ -672,7 +672,7 @@ class CollectiveReducePlane:
                     box["labels"] = labels.cpu().numpy()
                     box["rounds"] = rounds.cpu().numpy()
             # handed across the thread boundary and re-raised by the caller
-            except BaseException as e:  # noqa: BLE001
+            except BaseException as e:  # ctlint: disable=CT006
                 box["error"] = e
 
         t = threading.Thread(target=run, name=f"collective-hop-l{level}", daemon=True)

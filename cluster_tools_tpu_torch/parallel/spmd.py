@@ -464,7 +464,10 @@ def shard_map(body, mesh, in_specs, out_specs, *, name: str = "shard_map", keep_
             try:
                 with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
                     results[shard] = body(*shard_args[shard])
-            except BaseException as exc:  # recorded for the caller; other shards abort
+            # recorded for the caller, which raises the first shard's error
+            # (a DrainInterrupt too) once every shard has stopped; other
+            # shards abort at their next rendezvous
+            except BaseException as exc:  # ctlint: disable=CT006
                 rt.fail(shard, exc)
             finally:
                 _TLS.ctx = None

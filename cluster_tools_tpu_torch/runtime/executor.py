@@ -143,6 +143,35 @@ def target_device(target: str) -> torch.device:
     return resolve_device(TARGET_DEVICES[target])
 
 
+# process-wide dispatch counters, as the reference's: a task's share is
+# the delta of two snapshots (it lands in the task's io_metrics.json)
+_METRICS_LOCK = threading.Lock()
+_DISPATCH_COUNTERS: Dict[str, float] = {
+    "batches_dispatched": 0, "blocks_dispatched": 0, "dispatch_wait_s": 0.0, "sweep_s": 0.0,
+    "ragged_batches": 0, "lanes_padded": 0, "pages_in_use": 0,
+}
+
+
+def dispatch_snapshot() -> Dict[str, float]:
+    """Current process-wide dispatch counters (monotonic; diff two
+    snapshots with :func:`dispatch_delta` to attribute a task's share)."""
+    with _METRICS_LOCK:
+        return dict(_DISPATCH_COUNTERS)
+
+
+def dispatch_delta(snapshot: Dict[str, float]) -> Dict[str, float]:
+    """Counter movement since ``snapshot`` (same keys)."""
+    cur = dispatch_snapshot()
+    return {k: cur[k] - snapshot.get(k, 0) for k in cur}
+
+
+def _record_dispatch_metrics(counts: Dict[str, float], sweep_s: float) -> None:
+    """Add one sweep's counts (its summary's keys) and its wall."""
+    with _METRICS_LOCK:
+        for k in _DISPATCH_COUNTERS:
+            _DISPATCH_COUNTERS[k] += sweep_s if k == "sweep_s" else counts.get(k, 0)
+
+
 _DISPATCH_LOCKS: Dict[str, threading.RLock] = {}
 _DISPATCH_LOCKS_GUARD = threading.Lock()
 
@@ -743,7 +772,8 @@ class BlockwiseExecutor:
             watch of ``block`` starts once the lock is held); without, a
             quarantine, speculation or split call (``per_block`` grain)."""
             device = self.devices[shard]
-            t0 = time.perf_counter()
+            # stage clocks on the tracer's clock, measured and never recorded
+            clock = trace_mod.begin("executor.h2d")
             nbytes = sum(int(np.asarray(x).nbytes) for x in val)
             with (trace_mod.span("executor.h2d", task=task_name, nbytes=nbytes, grain="dense")
                   if block is not None else contextlib.nullcontext()):
@@ -752,36 +782,38 @@ class BlockwiseExecutor:
             with shard_locks[shard], _on_card(device), (watched(block, "compute") if block is not None
                                                         else contextlib.nullcontext()):
                 _sync(device)
-                t1 = time.perf_counter()
+                h2d_s = clock.end(discard=True)
+                clock = trace_mod.begin("executor.dispatch")
                 with trace_mod.span("executor.dispatch", n_blocks=1, task=task_name,
                                     grain="batch" if block is not None else "per_block", shard=shard):
                     out = kernel(*inputs)
                     _sync(device)
-                t2 = time.perf_counter()
+                kernel_s = clock.end(discard=True)
+            clock = trace_mod.begin("executor.d2h")
             with (trace_mod.span("executor.d2h", task=task_name, n_blocks=1)
                   if block is not None else contextlib.nullcontext()):
                 out = _to_numpy(out)
-            t3 = time.perf_counter()
+            d2h_s = clock.end(discard=True)
             device_pool_mod.record_d2h(_tree_nbytes(out))
             note_dispatch(1)
             with lock:
                 shard_calls[shard] += 1
-            add("h2d_s", t1 - t0)
-            add("kernel_s", t2 - t1)
-            add("d2h_s", t3 - t2)
+            add("h2d_s", h2d_s)
+            add("kernel_s", kernel_s)
+            add("d2h_s", d2h_s)
             return out
 
         def issue(block):
             """``load_fn(block)`` (its futures, or its arrays) in the block's
             fault context: ``(value, traceback, resource)``."""
-            t0 = time.perf_counter()
+            clock = trace_mod.begin("executor.load")
             try:
                 with faults_mod.block_context(int(block.block_id)):
                     return load_fn(block), None, None
             except Exception as e:
                 return None, fu.cap_traceback(traceback.format_exc()), classify_resource_error(e)
             finally:
-                add("load_s", time.perf_counter() - t0)
+                add("load_s", clock.end(discard=True))
 
         class _PreIssueFailed(Exception):
             pass
@@ -794,7 +826,7 @@ class BlockwiseExecutor:
             pre, pre_tb, pre_resource = issued if issued is not None else (None, None, None)
             last_tb, attempts = None, 0
             voxels = int(np.prod(block.outer_shape))
-            t0 = time.perf_counter()
+            clock = trace_mod.begin("executor.load")
             try:
                 with watched(block, "load", origin), faults_mod.block_context(int(block.block_id)), \
                         trace_mod.span("executor.load", block=int(block.block_id), origin=origin, task=task_name):
@@ -828,7 +860,7 @@ class BlockwiseExecutor:
                                 note_failure(block, "load", attempts - 1, None, quarantine=False)
                             return val
             finally:
-                add("load_s", time.perf_counter() - t0)
+                add("load_s", clock.end(discard=True))
             note_failure(block, "load", attempts, last_tb, quarantine=True)
             return None
 
@@ -924,12 +956,12 @@ class BlockwiseExecutor:
                     if store_verify_fn is not None:
                         store_verify_fn(blk)
 
-                t0 = time.perf_counter()
+                clock = trace_mod.begin("executor.store")
                 with watched(blk, "store", origin), faults_mod.block_context(bid), \
                         trace_mod.span("executor.store", block=bid, origin=origin, task=task_name):
                     _, attempts, tb, store_resource = self._io_with_retries("store", blk, store_and_verify,
                                                                             on_error=classify)
-                add("store_s", time.perf_counter() - t0)
+                add("store_s", clock.end(discard=True))
                 if dup["verdict"] == FirstWins.AGREE:
                     # this copy confirms the stored winner bit for bit; when
                     # it is the primary, a per-block duplicate won
@@ -1058,8 +1090,8 @@ class BlockwiseExecutor:
             with _on_card(device), (dev_pool.lock_for(device) if dev_pool is not None and rb is not None
                                     else contextlib.nullcontext()):
                 # a ragged batch's staging counts to its card's first
-                # shard's h2d
-                t0 = time.perf_counter()
+                # shard's h2d (stage clocks as in exec_single)
+                clock = trace_mod.begin("executor.h2d")
                 if rb is not None:
                     pools, tables, valids, specs = stage_ragged(rb, device, batch[0].block_id)
                 for shard, lanes in group:
@@ -1085,7 +1117,8 @@ class BlockwiseExecutor:
                         for blk in real:
                             stack.enter_context(watched(blk, "compute"))
                         _sync(device)
-                        t1 = time.perf_counter()
+                        h2d_s = clock.end(discard=True)
+                        clock = trace_mod.begin("executor.dispatch")
                         with trace_mod.span("executor.dispatch", **span_args):
                             if rb is not None:
                                 out, rung = ragged_sweep(kernel, *inputs)
@@ -1093,18 +1126,19 @@ class BlockwiseExecutor:
                                 out, rung = batched_sweep(kernel, inputs)
                             # the lanes are gathered before the pool stages again
                             _sync(device)
-                        t2 = time.perf_counter()
+                        kernel_s = clock.end(discard=True)
+                    clock = trace_mod.begin("executor.d2h")
                     with trace_mod.span("executor.d2h", task=task_name, n_blocks=len(real), shard=shard):
                         out = _to_numpy(out)
-                    t3 = time.perf_counter()
+                    d2h_s = clock.end(discard=True)
                     device_pool_mod.record_d2h(_tree_nbytes(out))
-                    add("h2d_s", t1 - t0)
-                    add("kernel_s", t2 - t1)
-                    add("d2h_s", t3 - t2)
+                    add("h2d_s", h2d_s)
+                    add("kernel_s", kernel_s)
+                    add("d2h_s", d2h_s)
                     with lock:
                         shard_calls[shard] += 1
                     results.append((shard, out, rung))
-                    t0 = time.perf_counter()
+                    clock = trace_mod.begin("executor.h2d")
             return results
 
         def run_batch(batch, kind, payload):
@@ -1458,7 +1492,8 @@ class BlockwiseExecutor:
                 watchdog.stop()
             if spec_pool is not None:
                 spec_pool.shutdown(wait=True)
-            sweep_span.end(n_batches=counts["batches_dispatched"], n_quarantined=len(quarantined_ids))
+            _record_dispatch_metrics(
+                counts, sweep_span.end(n_batches=counts["batches_dispatched"], n_quarantined=len(quarantined_ids)))
 
         unresolved = sorted(b for b, rec in failures.items() if not rec["resolved"])
         if failures_path and failures:

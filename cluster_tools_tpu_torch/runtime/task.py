@@ -44,6 +44,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import tempfile
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -84,7 +85,7 @@ class SuccessTarget:
 
     def write(self, payload: Optional[Dict[str, Any]] = None):
         os.makedirs(os.path.dirname(self.path), exist_ok=True)
-        doc = {"time": time.time()}
+        doc = {"time": trace_mod.walltime()}
         if payload:
             doc.update(payload)
         fu.atomic_write_json(self.path, doc, default=tu._default)
@@ -222,6 +223,7 @@ class BaseTask:
         from ..ops import contraction as contraction_mod
         from ..parallel import device_pool as device_pool_mod
         from ..parallel import reduce_tree as reduce_tree_mod
+        from . import executor as executor_mod
         from . import faults as faults_mod
         from . import handoff as handoff_mod
 
@@ -237,6 +239,7 @@ class BaseTask:
         # fault specs with a "tasks" filter target the running task's uid
         faults_mod.set_current_task(self.uid)
         io_snap = chunk_cache.snapshot()
+        disp_snap = executor_mod.dispatch_snapshot()
         handoff_snap = handoff_mod.snapshot()
         device_snap = device_pool_mod.snapshot()
         solver_snap = contraction_mod.solver_snapshot()
@@ -263,9 +266,9 @@ class BaseTask:
         # the counters' movement during this task, in the manifest and
         # merged additively into the run's io_metrics.json
         io_metrics = {}
-        for metrics in (chunk_cache.delta(io_snap), handoff_mod.delta(handoff_snap),
-                        device_pool_mod.delta(device_snap), contraction_mod.solver_delta(solver_snap),
-                        reduce_tree_mod.solve_delta(tree_snap)):
+        for metrics in (chunk_cache.delta(io_snap), executor_mod.dispatch_delta(disp_snap),
+                        handoff_mod.delta(handoff_snap), device_pool_mod.delta(device_snap),
+                        contraction_mod.solver_delta(solver_snap), reduce_tree_mod.solve_delta(tree_snap)):
             if any(metrics.values()):
                 io_metrics.update(metrics)
         if io_metrics:
@@ -613,6 +616,21 @@ class BaseTask:
                 f"see {self.failures_path}; first tracebacks:\n{detail}"
             )
         return len(todo)
+
+
+class DummyTask(BaseTask):
+    """No-op dependency placeholder (reference: ``DummyTask``); its default
+    ``tmp_folder`` lies under the process's temporary directory."""
+
+    task_name = "dummy"
+
+    def __init__(self, tmp_folder: Optional[str] = None, config_dir: str = "", **kw):
+        if tmp_folder is None:
+            tmp_folder = os.path.join(tempfile.gettempdir(), "ctt_dummy")
+        super().__init__(tmp_folder, config_dir, **kw)
+
+    def run_impl(self):
+        return {}
 
 
 def _host_array(a):

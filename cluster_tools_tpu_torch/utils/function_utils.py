@@ -195,6 +195,13 @@ def log_block_success(tmp_folder: str, task_name: str, block_id: int):
     atomic_write_json(path, {"block_id": block_id, "time": datetime.datetime.now().isoformat()})
 
 
+def log_job_success(tmp_folder: str, task_name: str, job_id: int):
+    """Record that one job of a task finished (atomic marker); the retry
+    of a failed task drops these (:func:`clean_up_for_retry`)."""
+    path = os.path.join(_marker_dir(tmp_folder, task_name), f"job_{job_id}.json")
+    atomic_write_json(path, {"job_id": job_id, "time": datetime.datetime.now().isoformat()})
+
+
 def blocks_done(tmp_folder: str, task_name: str) -> List[int]:
     """Block ids with a valid success marker; torn markers are pruned."""
     d = _marker_dir(tmp_folder, task_name)
@@ -207,6 +214,13 @@ def blocks_done(tmp_folder: str, task_name: str) -> List[int]:
                 continue
             out.append(int(fname[len("block_"):-len(".json")]))
     return sorted(out)
+
+
+def jobs_done(tmp_folder: str, task_name: str) -> List[int]:
+    """Job ids with a success marker."""
+    d = _marker_dir(tmp_folder, task_name)
+    return sorted(int(f[len("job_"):-len(".json")]) for f in os.listdir(d)
+                  if f.startswith("job_") and f.endswith(".json"))
 
 
 def clean_up_for_retry(tmp_folder: str, task_name: str):

@@ -115,6 +115,10 @@ def blocks_in_volume(shape: Sequence[int], block_shape: Sequence[int],
             for pos in np.ndindex(*[h - l for l, h in zip(lo, hi)])]
 
 
+def bb_from_roi(roi_begin: Sequence[int], roi_end: Sequence[int]) -> BoundingBox:
+    return tuple(slice(int(b), int(e)) for b, e in zip(roi_begin, roi_end))
+
+
 def pad_block_to(data: np.ndarray, target_shape: Sequence[int], mode: str = "constant", **kwargs) -> np.ndarray:
     """Pad a border-clipped block up to ``target_shape`` (one kernel shape
     for every block)."""
@@ -124,6 +128,14 @@ def pad_block_to(data: np.ndarray, target_shape: Sequence[int], mode: str = "con
     if all(p[1] == 0 for p in pad):
         return data
     return np.pad(data, pad, mode=mode, **kwargs)
+
+
+def normalize(data: np.ndarray, eps: float = 1e-6) -> np.ndarray:
+    """Min/max normalize to [0, 1] float32 (reference: ``vu.normalize``;
+    ``tasks/inference.py::normalize`` is the percentile one)."""
+    data = data.astype(np.float32)
+    lo, hi = float(data.min()), float(data.max())
+    return (data - lo) / max(hi - lo, eps)
 
 
 def file_reader(path: str, mode: str = "a"):

@@ -321,7 +321,9 @@ def test_speculative_duplicate_on_the_card_agrees_with_its_primary(tmp_path):
     summary = BlockwiseExecutor(target="gpu").map_blocks(
         lambda x: torch.sqrt(x * 3 + 1), blocks, lambda b: (data[b.bb],), store, block_deadline_s=0.5,
         watchdog_period_s=0.05, failures_path=fp, task_name="spec_card", sweep_mode="per_block")
-    np.testing.assert_array_equal(out, torch.sqrt(torch.from_numpy(data) * 3 + 1).numpy())
+    # the kernel's own result on the card: the card's and the CPU's float32
+    # results of this kernel differ in the last place on some voxels
+    np.testing.assert_array_equal(out, torch.sqrt(torch.from_numpy(data).cuda() * 3 + 1).cpu().numpy())
     assert summary["n_speculated"] >= 1
     rec = {r["block_id"]: r for r in json.load(open(fp))["records"]}[2]
     assert rec["resolved"] and rec.get("duplicate") == "agreed"
