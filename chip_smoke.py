@@ -88,7 +88,8 @@ Phases, each one line of output, each raising on failure:
     replayed against its twin and timed), relabel of the two-pass output
     (``1..K``, same partition), and the cc workflow at 256^3 through the
     port's zarr on local disk against its ``memory://`` run.  Per workflow:
-    a warm-up and one timed run (fresh ``tmp_folder`` each), the wall
+    a warm-up (the watersheds only: cc and relabel are bound by the
+    host's stores) and one timed run (fresh ``tmp_folder`` each), the wall
     time, voxels/s and blocks/s, peak device memory, the executor's
     summed load / h2d / kernel (synced) / d2h / store ms, kernel launches
     and remap rungs.  The kernel rows gain ``blockwise_launches`` and
@@ -138,14 +139,14 @@ Phases, each one line of output, each raising on failure:
 12. multicut: BASELINE config 4 (``phase_multicut``): the fused RAG and the
     torch-rung GAEC on the first 256^3 of the main path's watershed labels
     against the numpy oracle; ``MulticutSegmentationWorkflow`` and
-    ``AgglomerativeClusteringWorkflow`` on the 512^3 single-pass watershed
-    output of phase 10 (per-task times on the host C++ rung beside the same
-    workflow on the Python paths, same segmentation; the merged graph
+    ``AgglomerativeClusteringWorkflow`` on the first ``MC_EDGE``^3 of the
+    single-pass watershed output of phase 10 (per-task times on the host
+    C++ rung beside the same workflow on the Python paths, same segmentation; the merged graph
     against the numpy oracle, the segmentation against the assignment
     table); the default workflow (its own watershed, ``gaec_parallel``
     subproblems, Kernighan-Lin on the host C++ rung) at ``MC_DEFAULT_CROP``^3,
     block 128^3, with per-task times and the same gates; and the
-    agglomerating watershed on the first 128^3 against its ``impl="torch"``
+    agglomerating watershed on the first ``AGG_WS_CROP``^3 against its ``impl="torch"``
     run.  The kernel rows gain ``multicut_launches``;
 12a. native (``phase_native``, in phase 12's ``tmp_folder``): the host C++
     rung.  Each of its eight functions against the port's Python path on
@@ -154,12 +155,12 @@ Phases, each one line of output, each raising on failure:
     rtol 1e-5; the flood against its contract; the mutex watershed's
     partition on a ``MWS_EDGE``^3 affinity volume), both timed; then
     union-find, GAEC, Kernighan-Lin on the reduced problem and the feature
-    merge alone on the 512^3 graph;
+    merge alone on the multicut phase's ``MC_EDGE``^3 graph;
 12b. reduce-tree (``phase_reduce_tree``, in phase 12's ``tmp_folder``):
     the sharded global solve (ROADMAP 10b) and the fused workflow (12a).
     (a) ``AgglomerativeClusteringWorkflow`` with ``solver_shards=8`` and
     the collective plane demanded, on 8 sibling shards on the card
-    (``CTT_MESH_SHARDS=8``), the whole 512^3 graph: collective on every
+    (``CTT_MESH_SHARDS=8``), the multicut phase's whole graph: collective on every
     level, no ``degraded:*`` record, a warm re-solve sending no byte to the
     card; the collective plane equal to the in-process packet plane bit for
     bit on the induced subgraph of the first eighth of the graph's nodes
@@ -169,8 +170,9 @@ Phases, each one line of output, each raising on failure:
     two-process worker group (gloo, packet plane, the host C++ rung in the
     workers), equal to (b); per arm the
     wall, levels, rounds, boundary edges, hops, bytes gathered, host syncs
-    and h2d bytes.  (d) ``FusedSegmentationWorkflow`` on the main path's
-    volume and configuration, fused and split, on 1 shard and 8: ws and cc
+    and h2d bytes.  (d) ``FusedSegmentationWorkflow`` on the first
+    ``FUSED_EDGE``^3 of the main path's volume in its configuration, fused
+    and split, on 1 shard and 8: ws and cc
     = ``make_ws_ccl_step`` on the same mesh, cc = scipy's partition,
     ``n_foreground`` = the mesh's float32 sum of the exact per-shard
     counts, every launch of one 8-shard run replayed against its twin.
@@ -178,7 +180,8 @@ Phases, each one line of output, each raising on failure:
     The kernel rows gain ``fused_launches``;
 13. fusion (``phase_fusion``): task-graph fusion from the port's zarr on
     local disk: ``MulticutSegmentationWorkflow`` with its own watershed on
-    the main path's 512^3 volume and ``ConnectedComponentsWorkflow`` on it,
+    the first ``FUSION_EDGE``^3 of the main path's volume and
+    ``ConnectedComponentsWorkflow`` on it,
     each with ``memory_handoffs`` off and on (walls, per-task seconds,
     launches, handoff and chunk-cache counters, peak and reserved device
     memory and the intermediate bytes written to storage; outputs and B1-B4
@@ -192,10 +195,13 @@ Phases, each one line of output, each raising on failure:
     gain ``fusion_launches`` and ``cache_launches``;
 13a. serve (``phase_serve``; alone with ``--only serve``): the resident
     pipeline server on the card (ROADMAP item 11c), from the port's zarr
-    on local disk holding phase 10's boundary map and mask.  An in-process
+    on local disk holding the first ``SERVE_EDGE``^3 of the main path's
+    boundary map and its mask.  Its yardstick (``serve_yardstick``): the
+    cc workflow of the mask (against ``scipy.ndimage.label``) and the
+    single-pass watershed in ``memory://``.  An in-process
     ``PipelineServer`` with tenants alice and bob: alice's single-pass
-    watershed (no target: the card) beside bob's cc, both equal to phase
-    10's labels bit for bit; alice's warm resubmission (chunk-cache hits,
+    watershed (no target: the card) beside bob's cc, both equal to the
+    yardstick's labels bit for bit; alice's warm resubmission (chunk-cache hits,
     no miss, the same labels); a flipped voxel in one stored chunk of the
     watershed's output found and repaired from lineage by one scrubber
     pass (``scrub_state.json`` one finding, one repair); then
@@ -209,18 +215,19 @@ Phases, each one line of output, each raising on failure:
 13b. fleet (``phase_fleet``, in phase 13a's temporary root; alone with
     ``--only fleet``): the cluster targets and the serving fleet on the
     card (ROADMAP items 11b and 11d).  ``CopyVolumeWorkflow(target=
-    "slurm")`` copies phase 13a's 512^3 boundary map into a fresh zarr
+    "slurm")`` copies phase 13a's boundary map into a fresh zarr
     through stub ``sbatch``/``squeue``/``scancel`` (a job is a detached
     local process running the port's ``cluster_runner`` on the node's
     CPU), its first submission swallowed by a ``job_loss`` fault: the copy
     equals its source byte for byte, the task's ``supervisor.resubmits``
     is 1 and ``failures.json`` holds the resolved ``job_loss`` record.
     Then ``python -m cluster_tools_tpu_torch.fleet`` with two members on
-    the one card: alice's 512^3 watershed on the copy through the gateway,
+    the one card: alice's watershed on the copy through the gateway,
     the owning member SIGKILLed at its first block marker, its journal
     claimed, fenced and adopted by the survivor; the request completes
     with no resubmission, its labels equal phase 13a's bit for bit, its
-    launches are B1 8, B2 8, B3 24, B4 8, ``lifecycle.log`` records the
+    launches are the yardstick watershed's (B1 4, B2 4, B3 12, B4 4),
+    ``lifecycle.log`` records the
     crash and the respawn, and SIGTERM ends the fleet with exit 114.
     Prints the members' boot times, kill-to-adoption, the adopted
     request's ``run_s`` and ``queued_s``, each member's peak memory and the
@@ -242,7 +249,7 @@ Phases, each one line of output, each raising on failure:
     mutex-watershed blocks and stitching (ROADMAP item 12c), each arm on
     the card and on the CPU, equal bit for bit: (a)
     ``LiftedMulticutSegmentationWorkflow`` with its own watershed (B1-B4
-    launched) on the first 128^3 of the main path's map, the main path's
+    launched) on the first ``LIFTED_CROP``^3 of the main path's map, the main path's
     cc labels as the attribution, and its global solve again with 2
     shards; (b) ``MwsWorkflow`` with and without its stitching on
     affinities of a ``synthetic_em_volume`` ground truth, scored by
@@ -329,9 +336,10 @@ KERNELS = {
 # the config-4 shape: the fused RAG + parallel GAEC on this crop of the main
 # path's watershed labels
 CONFIG4_CROP = 256
-# the agglomerating watershed and its impl="torch" twin: cut from 256^3 to
-# 128^3 (~87 s at 256^3) to pay for the "reduce-tree" phase
-AGG_WS_CROP = 128
+# the agglomerating watershed and its impl="torch" twin (block half of it):
+# cut from 256^3 to 128^3 (~87 s at 256^3) to pay for the "reduce-tree"
+# phase, then to 96^3 (22.4 s at 128^3 on a slow host) with the crops below
+AGG_WS_CROP = 96
 # the "reduce-tree" phase: sibling shards on the one card, and the device
 # page pool's budget for the collective plane's lanes (a level of the 512^3
 # graph's pages; the tasks' default of 256 MiB would hold none)
@@ -339,8 +347,24 @@ REDUCE_SHARDS = 8
 REDUCE_POOL_BYTES = 8 << 30
 # the default multicut workflow (its own watershed, gaec_parallel subproblems,
 # the Kernighan-Lin global solve on the host C++ rung): cut from 512^3 to
-# 384^3 (30.4 s at 512^3) to pay for the "serve" phase
-MC_DEFAULT_CROP = 384
+# 384^3 (30.4 s at 512^3) to pay for the "serve" phase, then to 256^3 (17.4
+# s at 384^3 on a slow host) with the crops below
+MC_DEFAULT_CROP = 256
+# the phases after "blockwise" that the host bounds (zlib and the digest
+# sidecars, the graph solvers, the servers' processes) run on crops of the
+# main path's volume: the whole smoke at 512^3 took 850.7-1141.1 s on H100
+# hosts against its 1200 s limit, and a slower host ran past the limit.
+# "multicut" runs its workflows on the first MC_EDGE^3 of the blockwise
+# watershed (so "native" and "reduce-tree" solve that graph), and
+# "reduce-tree" its fused workflow on the first FUSED_EDGE^3 of the volume
+# (8 shards of 48 planes, above the halo of 32); "serve" and "fleet" run on
+# the first SERVE_EDGE^3 (27 blocks of 128^3, four sweep calls: a request
+# is still drained and adopted mid-sweep); "fusion" on the first
+# FUSION_EDGE^3 (its cc arm at the same size)
+MC_EDGE = 256
+FUSED_EDGE = 384
+SERVE_EDGE = 384
+FUSION_EDGE = 256
 # the "native" phase: each host C++ function against its Python path on the
 # default workflow's graph, features and reduced problem at this crop (block
 # half of it), the EDT and the flood on a block of this edge, and the mutex
@@ -712,7 +736,9 @@ def bw_run(K, tmp_root: str, tag: str, workflow_cls, block_shape, global_config=
 def bw_timed(K, tmp_root: str, tag: str, workflow_cls, block_shape, voxels: int, n_blocks: int,
              phase: str = "blockwise", global_config=None, warm_up: bool = True, **params) -> dict:
     """A warm-up (unless ``warm_up=False``: the per-block sweeps and the
-    ilastik arms run without one since the "serve" phase needed the time)
+    ilastik arms run without one since the "serve" phase needed the time,
+    the blockwise cc and relabel since a slower host ran the smoke past
+    its limit)
     and one timed run (two until the host C++ rung's phases needed the
     time); prints the workflow's line (under ``phase``) and returns the
     timed run's record."""
@@ -781,7 +807,7 @@ def phase_blockwise(K, vol: torch.Tensor, ref: np.ndarray, rows: list, block=(12
     bw_rows = {}
     with tempfile.TemporaryDirectory(prefix="blockwise-") as tmp_root:
         # config 1: connected components
-        cc = bw_timed(K, tmp_root, "cc", ConnectedComponentsWorkflow, block, voxels, n_blocks,
+        cc = bw_timed(K, tmp_root, "cc", ConnectedComponentsWorkflow, block, voxels, n_blocks, warm_up=False,
                       input_key="mask", output_key="cc", connectivity=1, **io)
         got = torch.from_numpy(f["cc"][...].astype(np.int64)).cuda()
         if not partition_equal(got, torch.from_numpy(ref.astype(np.int64)).cuda()):
@@ -811,8 +837,8 @@ def phase_blockwise(K, vol: torch.Tensor, ref: np.ndarray, rows: list, block=(12
                              f"the kernels' output bit for bit; overflow blocks {rec['overflow_blocks']}")
             bw_rows[tag] = replayed
         # relabel the two-pass output to 1..K
-        bw_timed(K, tmp_root, "relabel", RelabelWorkflow, block, voxels, n_blocks, input_key="ws2",
-                 output_key="ws2_relabel", **io)
+        bw_timed(K, tmp_root, "relabel", RelabelWorkflow, block, voxels, n_blocks, warm_up=False,
+                 input_key="ws2", output_key="ws2_relabel", **io)
         a = torch.from_numpy(f["ws2"][...].astype(np.int64)).cuda()
         r = torch.from_numpy(f["ws2_relabel"][...].astype(np.int64)).cuda()
         k = int(torch.unique(a).numel()) - int(bool((a == 0).any()))
@@ -1478,8 +1504,9 @@ def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: li
        rung): edges and counts equal, and the torch rung's labels on the
        card equal its labels on the CPU and the numpy rung's, or else its
        energy is within 2% of the numpy rung's.
-    2. ``MulticutSegmentationWorkflow`` on the "blockwise" phase's 512^3
-       single-pass watershed (``skip_ws``, ``n_scales=1``,
+    2. ``MulticutSegmentationWorkflow`` on the first ``MC_EDGE``^3 of the
+       "blockwise" phase's single-pass watershed and boundaries
+       (``skip_ws``, ``n_scales=1``,
        ``agglomerator="gaec_parallel"``, block 128^3), first on the Python
        paths (``native.force_python()``), then on the host C++ rung: the
        host tasks' seconds side by side and the same segmentation; per-task
@@ -1550,15 +1577,20 @@ def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: li
                     f"differ from the CPU torch rung at {diff_cpu} and from the numpy rung at {diff_np} nodes; "
                     f"energy {e_cuda:.6g} (numpy rung {e_np:.6g}); {len(np.unique(lab_cuda))} segments")
 
-    # ---- 2. the multicut and agglomerative workflows at 512^3 ----
+    # ---- 2. the multicut and agglomerative workflows on the first MC_EDGE^3 ----
     f = open_container(mem)
-    shape = f["ws"].shape
+    sub = (slice(0, MC_EDGE),) * 3
+    for key in ("boundaries", "ws"):
+        f.require_dataset(f"{key}_mc", shape=(MC_EDGE,) * 3, chunks=tuple(block), dtype=f[key].dtype)[...] = \
+            f[key][sub]
+    ws_mc = f["ws_mc"]
+    shape = ws_mc.shape
     with tempfile.TemporaryDirectory(prefix="multicut-") as root:
         cfg_dir = os.path.join(root, "cfg")
         os.makedirs(cfg_dir)
         write_json(os.path.join(cfg_dir, "global.config"), {"block_shape": list(block)})
         tmp = os.path.join(root, "tmp")
-        io = dict(input_path=mem, input_key="boundaries", ws_path=mem, ws_key="ws", skip_ws=True,
+        io = dict(input_path=mem, input_key="boundaries_mc", ws_path=mem, ws_key="ws_mc", skip_ws=True,
                   output_path=mem, block_shape=list(block))
         # the same workflow on the Python paths (the port before the host C++
         # rung), then on the rung: per-task seconds side by side, same labels
@@ -1597,12 +1629,12 @@ def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: li
                         f"{t['solve_global']['solver']['rounds']}); peak {rec['peak_gb']:.2f} GB")
         t0 = time.perf_counter()
         nodes_g, uv_g, _, sizes_g = load_global_graph(tmp)
-        nodes_o, uv_o, sizes_o = oracle_graph(f["ws"], shape, block)
+        nodes_o, uv_o, sizes_o = oracle_graph(ws_mc, shape, block)
         for what, a, b in (("nodes", nodes_g, nodes_o), ("uv", uv_g, uv_o), ("sizes", sizes_g, sizes_o)):
             if not np.array_equal(a, b):
                 raise AssertionError(f"multicut: the merged graph's {what} differ from the numpy oracle's")
         t_oracle = time.perf_counter() - t0
-        check_assignments("multicut", tmp, f["ws"][...], f["mc_seg"][...])
+        check_assignments("multicut", tmp, ws_mc[...], f["mc_seg"][...])
         log("multicut", f"merged graph = the numpy oracle's (nodes, uv, sizes; {t_oracle:.1f} s); seg > 0 = ws > 0; "
                         f"seg = the assignment table applied to ws")
         mc_energy = t["solve_global"]["energy"]
@@ -1742,7 +1774,7 @@ def phase_native(K, vol: torch.Tensor, mem: str, mc: dict) -> None:
        plateau ties in another order), timed beside ``watershed_ift``; the
        mutex watershed's constraint loop on a seeded ``MWS_EDGE``^3
        affinity volume (``MWS_OFFSETS``), the same partition.
-    2. The rung alone at full size on the "multicut" phase's 512^3 graph:
+    2. The rung alone at full size on the "multicut" phase's ``MC_EDGE``^3 graph:
        union-find, Kernighan-Lin (its GAEC start included) and parallel
        contraction (beside the torch rung on the card) on the reduced global
        problem, the feature merge (union-find and the merge beside their
@@ -1859,7 +1891,7 @@ def phase_native(K, vol: torch.Tensor, mem: str, mc: dict) -> None:
                if not counts[k]]
     if missing:
         raise AssertionError(f"native: no call to {missing} at full size: {counts}")
-    log("native", f"full size, the multicut phase's 512^3 graph ({n} nodes, {len(e)} edges): union_find {t_uf:.3f} s "
+    log("native", f"full size, the multicut phase's {MC_EDGE}^3 graph ({n} nodes, {len(e)} edges): union_find {t_uf:.3f} s "
                   f"(Python {t_uf_py:.3f}) on {len(full['pairs'])} pairs; kernighan_lin "
                   f"{t_kl:.3f} s (GAEC start included) on the reduced problem ({n1} nodes, {len(e1)} edges) -> "
                   f"{int(kl.max()) + 1} segments, energy {pmc.multicut_energy(e1, w1, kl):.6g}; parallel_contract "
@@ -1891,10 +1923,10 @@ def degraded_records(tmp: str) -> list:
             and str(r.get("task", "")).split(".")[0] in ("agglomerative_clustering", "solve_global")]
 
 
-def phase_reduce_tree(K, vol: torch.Tensor, ref: np.ndarray, mem: str, mc: dict, rows: list) -> None:
+def phase_reduce_tree(K, vol: torch.Tensor, mem: str, mc: dict, rows: list) -> None:
     """The sharded global solve and the fused workflow on the card (ROADMAP
-    items 10b and 12a), in the "multicut" phase's ``tmp_folder`` (the 512^3
-    graph, its features and costs and the reduced problem; not cut):
+    items 10b and 12a), in the "multicut" phase's ``tmp_folder`` (its
+    ``MC_EDGE``^3 graph, its features and costs and the reduced problem):
 
     a. ``AgglomerativeClusteringWorkflow`` (threshold 0.5) with
        ``solver_shards=8`` and the collective plane demanded, on a sibling
@@ -1907,8 +1939,9 @@ def phase_reduce_tree(K, vol: torch.Tensor, ref: np.ndarray, mem: str, mc: dict,
        unsharded solve's (the reference's own claim).
     c. The same solve over a worker group (``solver_workers=2``: two CPU
        processes, gloo, the packet plane), equal to (b).
-    d. ``FusedSegmentationWorkflow`` on the main path's 512^3 volume
-       (``memory://``, the main path's configuration), ``fused`` and
+    d. ``FusedSegmentationWorkflow`` on the first ``FUSED_EDGE``^3 of the
+       main path's volume (``memory://``, the main path's configuration),
+       ``fused`` and
        ``split``, on 1 shard (the card count) and on 8: ws and cc equal
        ``make_ws_ccl_step`` on the same mesh bit for bit, cc is scipy's
        partition, ``n_foreground`` is the float32 mesh sum of the exact
@@ -1918,6 +1951,8 @@ def phase_reduce_tree(K, vol: torch.Tensor, ref: np.ndarray, mem: str, mc: dict,
     e. ``sharded_slab_sweep`` of B3 over the 512^3 volume with
        ``n_ranks=4`` on the one card equals ``n_ranks=1``.
     """
+    import scipy.ndimage as ndi
+
     from cluster_tools_tpu_torch.io.containers import open_container
     from cluster_tools_tpu_torch.parallel import device_pool
     from cluster_tools_tpu_torch.parallel import reduce_tree as rt
@@ -2013,7 +2048,7 @@ def phase_reduce_tree(K, vol: torch.Tensor, ref: np.ndarray, mem: str, mc: dict,
                        + "; no degraded record")
 
     # ---- (b) SolveGlobal on both planes, (c) over a worker group ----
-    task_kw = dict(tmp_folder=tmp, config_dir=cfg_dir, max_jobs=8, input_path=mem, input_key="ws",
+    task_kw = dict(tmp_folder=tmp, config_dir=cfg_dir, max_jobs=8, input_path=mem, input_key=mc["io"]["ws_key"],
                    block_shape=list(block), scale=1, agglomerator="gaec_parallel", solver_shards=REDUCE_SHARDS,
                    device_pool_bytes=REDUCE_POOL_BYTES)
     solves = {}
@@ -2054,18 +2089,21 @@ def phase_reduce_tree(K, vol: torch.Tensor, ref: np.ndarray, mem: str, mc: dict,
     log("reduce-tree", f"(b, c) the three arms' labels equal; energy {energy:.6g} against the unsharded "
                        f"{e0:.6g}: gap {100 * gap:.4f}% (<= 0.1%); no degraded record")
 
-    # ---- (d) the fused workflow on the main path's volume ----
+    # ---- (d) the fused workflow on the first FUSED_EDGE^3 of the main path's volume ----
     os.environ["CT_SEED_CCL"] = "sparse"
     f = open_container(mem)
     fused_cfg = {k: v for k, v in MAIN_CFG.items() if k != "seed_mode"}
-    fg = vol[0] < torch.tensor(np.float32(fused_cfg["threshold"]), device="cuda")
+    fvol = vol[:, :FUSED_EDGE, :FUSED_EDGE, :FUSED_EDGE].contiguous()
+    fg = fvol[0] < torch.tensor(np.float32(fused_cfg["threshold"]), device="cuda")
     n_exact = int(fg.sum())
-    ref_t = torch.from_numpy(ref.astype(np.int32)).cuda()
+    ref_t = torch.from_numpy(ndi.label(fg.cpu().numpy())[0].astype(np.int32)).cuda()
+    f.require_dataset("boundaries_fused", shape=fvol.shape[1:], chunks=tuple(block), dtype="float32")[...] = \
+        fvol[0].cpu().numpy()
     fused_launches = {}
     for shards in (1, REDUCE_SHARDS):
         os.environ["CTT_MESH_SHARDS"] = str(shards)
         mesh = make_mesh(shards, axis_names=("dp", "sp"), grid=(1, shards), devices="cuda")
-        ref_ws, ref_cc, _, ref_ovf = make_ws_ccl_step(mesh, **fused_cfg)(vol)
+        ref_ws, ref_cc, _, ref_ovf = make_ws_ccl_step(mesh, **fused_cfg)(fvol)
         if ref_ovf:
             raise AssertionError(f"reduce-tree (d): make_ws_ccl_step overflowed on {shards} shard(s)")
         # the mesh's float32 sum of the exact per-shard counts, in rank order
@@ -2078,7 +2116,7 @@ def phase_reduce_tree(K, vol: torch.Tensor, ref: np.ndarray, mem: str, mc: dict,
             tag = f"{shards}-{execution}"
             d = tempfile.mkdtemp(prefix=f"fused-{tag}-", dir=mc["root"])
             wf = FusedSegmentationWorkflow(tmp_folder=os.path.join(d, "tmp"), config_dir=cfg_dir, max_jobs=8,
-                                           input_path=mem, input_key="boundaries", output_path=mem,
+                                           input_path=mem, input_key="boundaries_fused", output_path=mem,
                                            ws_key=f"fws-{tag}", cc_key=f"fcc-{tag}", block_shape=list(block),
                                            execution=execution, **fused_cfg)
             replaying = shards == REDUCE_SHARDS and execution == "split"
@@ -2123,12 +2161,14 @@ def phase_reduce_tree(K, vol: torch.Tensor, ref: np.ndarray, mem: str, mc: dict,
                     out[kname] = out.get(kname, 0) + 1
                 captured.clear()
                 replayed = f"; every launch of this run equals its twin ({out})"
-            voxels = int(np.prod(vol.shape))
-            log("reduce-tree", f"(d) FusedSegmentationWorkflow {tuple(vol.shape[1:])}, {execution}, mesh "
+            voxels = int(np.prod(fvol.shape))
+            log("reduce-tree", f"(d) FusedSegmentationWorkflow {tuple(fvol.shape[1:])}, {execution}, mesh "
                                f"{doc['mesh']}: wall {wall:.3f} s = {voxels / wall:.4g} voxels/s, peak {peak:.2f} GB; "
                                f"ws, cc = make_ws_ccl_step on the same mesh; cc = scipy partition; n_foreground "
                                f"{doc['n_foreground']} (exact count {n_exact}); launches {launches}{replayed}")
         del ref_ws, ref_cc
+    del fvol, fg, ref_t
+    f._data.pop("boundaries_fused")
     for row in rows:
         row["fused_launches"] = fused_launches.get(row["name"], 0)
 
@@ -2163,13 +2203,10 @@ def phase_reduce_tree(K, vol: torch.Tensor, ref: np.ndarray, mem: str, mc: dict,
             os.environ[k] = v
     tree_counts = dict(native.COUNTS)
     log("reduce-tree", f"phase {time.perf_counter() - t_phase:.1f} s; host C++ calls in this phase {tree_counts} "
-                       f"(worker processes' not counted); in the multicut phase's 512^3 workflow {mc['mc_counts']} and "
+                       f"(worker processes' not counted); in the multicut phase's {MC_EDGE}^3 workflow {mc['mc_counts']} and "
                        f"its default workflow {mc['default_counts']}")
 
 
-# the fusion phase's cc arm: cut from the main path's 512 to 256, since the
-# whole smoke at 512 passes half its time limit (the arm's line says so)
-FUSION_CC_EDGE = 256
 # tmp_folder files that are bookkeeping, not a producer -> consumer hop
 FUSION_BOOKKEEPING = (".success.json", ".log", ".ckpt.npz", "failures.json", "io_metrics.json", ".lock")
 
@@ -2301,13 +2338,14 @@ def phase_fusion(K, vol: torch.Tensor, rows: list, block=(128, 128, 128)) -> Non
 
     1. ``MulticutSegmentationWorkflow`` with its own watershed (halo 32,
        threshold 0.45, min seed distance 2, ``n_scales=1``, ``beta=0.5``,
-       ``gaec_parallel``, block 128^3, ``max_jobs=8``) on the main path's
-       512^3 boundary map, ``memory_handoffs`` off and on, each cold in a
+       ``gaec_parallel``, block 128^3, ``max_jobs=8``) on the first
+       ``FUSION_EDGE``^3 of the main path's boundary map (the volume
+       given), ``memory_handoffs`` off and on, each cold in a
        fresh ``tmp_folder``: ``seg`` equal bit for bit, B1-B4 launched in
        both arms with equal counts, and the on arm's gates
        (:func:`check_fusion_on`).
     2. ``ConnectedComponentsWorkflow`` (``bmap < 0.45``) on the same file,
-       off and on, at ``FUSION_CC_EDGE``^3: equal labels.
+       off and on: equal labels.
     3. The device rung: a producer task publishes a 256^3 crop of the
        volume as a CUDA tensor (``save_handoff_device_arrays``); a consumer
        resolves it and runs ``sharded_slab_sweep(..., keep_on_device=True)``
@@ -2398,29 +2436,22 @@ def phase_fusion(K, vol: torch.Tensor, rows: list, block=(128, 128, 128)) -> Non
                       f"written to disk in {t_write:.2f} s")
 
         # ---- 2. the store-bound case: cc from disk ----
-        e = FUSION_CC_EDGE
         ccp = dict(input_path=src_path, input_key="bmap", threshold=0.45, threshold_mode="less", connectivity=1)
-        if e != shape[0]:
-            crop = open_container(src_path).require_dataset("bmap_crop", shape=(e,) * 3, chunks=block,
-                                                            dtype="float32")
-            crop[...] = src[tuple(slice(0, e) for _ in range(3))]
-            ccp["input_key"] = "bmap_crop"
         cc = {}
         for arm, on in (("off", False), ("on", True)):
             out = os.path.join(root, f"cc-{arm}.zarr")
             cc[arm] = fusion_arm(K, root, f"cc-{arm}", ConnectedComponentsWorkflow, on, out, ("cc",), block,
                                  output_path=out, output_key="cc", **ccp)
             sw = cc[arm]["sweep"]
-            log("fusion", fusion_line(f"ConnectedComponentsWorkflow {(e,) * 3} from disk"
-                                      + ("" if e == shape[0] else f" (cut from {shape[0]}^3 to keep the smoke in time)")
-                                      + f", memory_handoffs {arm}, summed load {sw.get('load_s', 0):.3f} s, "
-                                      f"store {sw.get('store_s', 0):.3f} s", cc[arm]))
+            log("fusion", fusion_line(f"ConnectedComponentsWorkflow {shape} from disk, memory_handoffs {arm}, "
+                                      f"summed load {sw.get('load_s', 0):.3f} s, store {sw.get('store_s', 0):.3f} s",
+                                      cc[arm]))
         a = open_container(os.path.join(root, "cc-off.zarr"))["cc"][...]
         b = open_container(os.path.join(root, "cc-on.zarr"))["cc"][...]
         if not np.array_equal(a, b):
             raise AssertionError("fusion: cc labels differ between memory_handoffs off and on")
         check_fusion_on("cc on", cc["on"])
-        log("fusion", f"cc {(e,) * 3}: labels equal off/on ({int(a.max())} max label); wall off "
+        log("fusion", f"cc {shape}: labels equal off/on ({int(a.max())} max label); wall off "
                       f"{cc['off']['wall_s']:.3f} s, on {cc['on']['wall_s']:.3f} s; summed store off "
                       f"{cc['off']['sweep'].get('store_s', 0):.3f} s, on {cc['on']['sweep'].get('store_s', 0):.3f} s")
         del a, b
@@ -2955,14 +2986,40 @@ SERVE_CACHE_BYTES = 8 << 30
 SERVE_WS = dict(halo=[32, 32, 32], threshold=0.45, dt_max_distance=32.0, min_seed_distance=2.0)
 
 
-def serve_reference(mem: str) -> dict:
-    """The "blockwise" phase's single-pass watershed and cc labels, kept as
-    numpy for the "serve" phase (the ``memory://`` container is dropped
-    by "multicut")."""
-    from cluster_tools_tpu_torch.io.containers import open_container
+def serve_yardstick(K, vol: torch.Tensor) -> dict:
+    """The reference labels of the "serve" and "fleet" phases on their
+    volume (the first ``SERVE_EDGE``^3 of the main path's): the cc workflow
+    of its mask (``< 0.45``), held against ``scipy.ndimage.label``'s
+    partition, and the single-pass watershed (``SERVE_WS``), one run each
+    in ``memory://`` (block ``SERVE_BLOCK``), kept as numpy, with the
+    watershed's launches (each watershed request of this volume launches
+    the same)."""
+    import scipy.ndimage as ndi
 
+    from cluster_tools_tpu_torch.io.containers import MemoryContainer, open_container
+    from cluster_tools_tpu_torch.tasks.connected_components import ConnectedComponentsWorkflow
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedWorkflow
+
+    mem = "memory://serve-yardstick"
     f = open_container(mem)
-    return {"ws": f["ws"][...], "cc": f["cc"][...]}
+    b_np = vol.reshape(vol.shape[-3:]).cpu().numpy()
+    f.require_dataset("boundaries", shape=b_np.shape, chunks=SERVE_BLOCK, dtype="float32")[...] = b_np
+    mask = (b_np < np.float32(0.45)).astype(np.uint8)
+    f.require_dataset("mask", shape=b_np.shape, chunks=SERVE_BLOCK, dtype="uint8")[...] = mask
+    with tempfile.TemporaryDirectory(prefix="serve-yardstick-") as root:
+        cc = bw_run(K, root, "cc", ConnectedComponentsWorkflow, SERVE_BLOCK, input_path=mem, input_key="mask",
+                    output_path=mem, output_key="cc", connectivity=1)
+        ws = bw_run(K, root, "ws", WatershedWorkflow, SERVE_BLOCK, input_path=mem, input_key="boundaries",
+                    output_path=mem, output_key="ws", **SERVE_WS)
+    ref, _ = ndi.label(mask.astype(bool))
+    if not partition_equal(torch.from_numpy(f["cc"][...].astype(np.int64)).cuda(),
+                           torch.from_numpy(ref.astype(np.int64)).cuda()):
+        raise AssertionError("serve yardstick: cc labels are not scipy.ndimage.label's partition")
+    log("serve", f"yardstick {b_np.shape}: cc in {cc['wall_s']:.3f} s (= scipy partition), the single-pass "
+                 f"watershed in {ws['wall_s']:.3f} s, launches {ws['launches']}")
+    out = {"ws": f["ws"][...], "cc": f["cc"][...], "launches": ws["launches"]}
+    del MemoryContainer._registry[mem]
+    return out
 
 
 def serve_payload(tenant: str, rid: str, workflow: str, out_key: str, block=SERVE_BLOCK, **params) -> dict:
@@ -3007,7 +3064,7 @@ def spawn_server(base: str, log_path: str):
 
 
 def serve_input(root: str, vol: torch.Tensor, block=SERVE_BLOCK) -> str:
-    """The main path's 512^3 boundary map and its mask (``< 0.45``) in the
+    """The boundary map ``vol`` and its mask (``< 0.45``) in the
     port's zarr on local disk under ``root`` (zlib level 1, chunks
     ``block``, digest sidecars on); returns its path."""
     from cluster_tools_tpu_torch.io.containers import open_container
@@ -3026,15 +3083,16 @@ def serve_input(root: str, vol: torch.Tensor, block=SERVE_BLOCK) -> str:
 def phase_serve(K, vol: torch.Tensor, ref: dict, rows: list, block=SERVE_BLOCK, then=None) -> None:
     """The resident pipeline server on the card (ROADMAP item 11c), from the
     port's zarr on local disk (zlib level 1, chunks 128^3, digest sidecars
-    on) holding the main path's 512^3 boundary map and its mask
-    (``< 0.45``), in its own base directories under a temporary root.
+    on) holding the boundary map ``vol`` (the first ``SERVE_EDGE``^3 of the
+    main path's) and its mask (``< 0.45``), in its own base directories
+    under a temporary root; ``ref`` is its :func:`serve_yardstick`.
 
     1. An in-process ``PipelineServer`` (tenants alice and bob, two
        workers; the scrubber driven by hand): alice's single-pass watershed
        (block 128^3, ``auto``, no target: the card) and bob's connected
        components of the mask, submitted together; both ``done``, the
-       watershed equal to the "blockwise" phase's bit for bit, the cc equal
-       to its cc (held there against ``scipy.ndimage.label``) bit for bit.
+       watershed equal to the yardstick's bit for bit, the cc equal to its
+       cc (held there against ``scipy.ndimage.label``) bit for bit.
        Then alice resubmits the watershed: chunk-cache hits and no miss in
        its ``io_metrics.json``, the same labels.
     2. The scrubber: a voxel of one stored chunk of the first watershed's
@@ -3091,7 +3149,7 @@ def phase_serve(K, vol: torch.Tensor, ref: dict, rows: list, block=SERVE_BLOCK, 
             finally:
                 del os.environ["CTT_CHUNK_CACHE"]
             if not np.array_equal(got, want):
-                raise AssertionError(f"serve: {what} differs from the blockwise phase's labels")
+                raise AssertionError(f"serve: {what} differs from the yardstick's labels")
 
         chunk_cache.configure(SERVE_CACHE_BYTES)
         server = PipelineServer(base_dir=os.path.join(root, "srv"), tenants={"alice": {}, "bob": {}},
@@ -3262,9 +3320,6 @@ FLEET_SLURM = dict(poll_interval_s=0.25, result_grace_s=2.0, heartbeat_interval_
 FLEET_CONFIG = {"members": 2, "gateway": {"health_interval_s": 0.25, "member_stale_s": 2.0},
                 "server": {"max_workers": 1, "scrub": {"enabled": False}},
                 "supervisor": {"poll_s": 0.25}}
-# the launches of one 512^3 watershed request (block 128^3), as the "serve"
-# phase's requests launch them
-FLEET_WS_LAUNCHES = {"tile_ccl": 8, "tile_ws_propagate": 8, "edt_cascade": 24, "apply_remap": 8}
 
 
 def stub_slurm(bindir: str) -> str:
@@ -3374,9 +3429,10 @@ def fleet_ingest(root: str, data: str, block, card: str) -> str:
     return copy
 
 
-def phase_fleet(K, root: str, data: str, ref_ws: np.ndarray, rows: list, block=SERVE_BLOCK) -> None:
+def phase_fleet(K, root: str, data: str, ref_ws: np.ndarray, ref_launches: dict, rows: list,
+                block=SERVE_BLOCK) -> None:
     """The serving fleet and the cluster targets on the card (ROADMAP items
-    11b and 11d), in the "serve" phase's temporary root, on its 512^3
+    11b and 11d), in the "serve" phase's temporary root, on its
     boundary map in the port's zarr (zlib level 1, chunks 128^3, sidecars):
 
     1. ingest through ``slurm`` (:func:`fleet_ingest`), while the fleet
@@ -3384,13 +3440,14 @@ def phase_fleet(K, root: str, data: str, ref_ws: np.ndarray, rows: list, block=S
        task's ``supervisor.resubmits`` is 1 and ``failures.json`` holds the
        resolved ``job_loss`` record;
     2. ``python -m cluster_tools_tpu_torch.fleet`` with two members on the
-       one card: alice's 512^3 watershed (block 128^3, no target: the
+       one card: alice's watershed (block 128^3, no target: the
        card) on the copy through the gateway; once the owning member has
        written its first block marker it is SIGKILLed; the gateway claims
        its journal, mints a fence and the survivor adopts it.  Gates: the
        request completes with no resubmission by the client, its labels
        equal ``ref_ws`` (the "serve" phase's clean watershed) bit for bit,
-       its record's ``kernel_launches`` are ``FLEET_WS_LAUNCHES``, the
+       its record's ``kernel_launches`` are ``ref_launches`` (the
+       yardstick watershed's: the survivor runs the whole sweep), the
        supervisor's ``lifecycle.log`` records the crash and the respawn,
        and SIGTERM to the supervisor ends the fleet with exit 114.
 
@@ -3471,8 +3528,8 @@ def phase_fleet(K, root: str, data: str, ref_ws: np.ndarray, rows: list, block=S
             raise AssertionError(f"fleet f1: the adopted watershed differs from the serve phase's at "
                                  f"{int((got != ref_ws).sum())} voxels")
         launches = rec.get("kernel_launches", {})
-        if launches != FLEET_WS_LAUNCHES:
-            raise AssertionError(f"fleet f1: the adopted request launched {launches}, not {FLEET_WS_LAUNCHES}")
+        if launches != ref_launches:
+            raise AssertionError(f"fleet f1: the adopted request launched {launches}, not {ref_launches}")
         state = json.load(open(os.path.join(fleet_dir, "fleet_state.json")))
         event = next(e for e in state["adoptions"] if e["kind"] == "adopt" and e["member"] == owner)
         if event["adopter"] != survivor or state["members"][owner]["adopted_by"] != survivor:
@@ -3518,29 +3575,18 @@ def phase_fleet(K, root: str, data: str, ref_ws: np.ndarray, rows: list, block=S
 
 
 def fleet_alone(K, args) -> None:
-    """``--only fleet``: the main path's volume, the "blockwise" phase's
-    single-pass watershed of it (the reference labels, one run), its
-    input in the port's zarr as the "serve" phase writes it, then the
-    "fleet" phase."""
-    from cluster_tools_tpu_torch.io.containers import MemoryContainer, open_container
-    from cluster_tools_tpu_torch.tasks.watershed import WatershedWorkflow
+    """``--only fleet``: the first ``SERVE_EDGE``^3 of the main path's
+    volume, its :func:`serve_yardstick`, its input in the port's zarr as
+    the "serve" phase writes it, then the "fleet" phase."""
     from cluster_tools_tpu_torch.utils.synthetic import synthetic_boundaries
 
     os.environ["CT_FILL_MODE"], os.environ["CT_TIER_MODE"] = "capacity", "cond"
     vol = synthetic_boundaries(MAIN_SHAPE, torch.Generator(device="cuda").manual_seed(args.seed))
-    mem = "memory://blockwise"
-    f = open_container(mem)
-    f.require_dataset("boundaries", shape=vol.shape[-3:], chunks=SERVE_BLOCK, dtype="float32")[...] = \
-        vol.reshape(vol.shape[-3:]).cpu().numpy()
-    with tempfile.TemporaryDirectory(prefix="fleet-yardstick-") as root:
-        ws = bw_run(K, root, "ws", WatershedWorkflow, SERVE_BLOCK, input_path=mem, input_key="boundaries",
-                    output_path=mem, output_key="ws", **SERVE_WS)
-    log("fleet", f"yardstick: the single-pass watershed in {ws['wall_s']:.3f} s, launches {ws['launches']}")
-    ref_ws = f["ws"][...]
-    del MemoryContainer._registry[mem], f
+    vol = vol[..., :SERVE_EDGE, :SERVE_EDGE, :SERVE_EDGE].contiguous()
+    ref = serve_yardstick(K, vol)
     rows = [{"name": k} for k in KERNELS]
     with tempfile.TemporaryDirectory(prefix="fleet-") as root:
-        phase_fleet(K, root, serve_input(root, vol), ref_ws, rows)
+        phase_fleet(K, root, serve_input(root, vol), ref["ws"], ref["launches"], rows)
     log("fleet", "launches: " + json.dumps({r["name"]: r["fleet_launches"] for r in rows}))
 
 
@@ -4067,11 +4113,13 @@ def analysis_alone(K, args) -> None:
 
 # the "lifted" phase: arm (a), the lifted multicut chain with its own
 # watershed, on the first LIFTED_CROP^3 of the main path's map (block
-# LIFTED_BLOCK), the main path's cc labels as the attribution; arms (b) and
+# LIFTED_BLOCK; cut from 128^3, where its card and CPU runs took 28.8 and
+# 30.6 s on a slow host, to keep the smoke within its limit), the main
+# path's cc labels as the attribution; arms (b) and
 # (c), the mutex watershed and stitching, on affinities of a synthetic EM
 # ground truth of LIFTED_EM_SHAPE (block LIFTED_EM_BLOCK)
-LIFTED_CROP = 128
-LIFTED_BLOCK = (64, 64, 64)
+LIFTED_CROP = 96
+LIFTED_BLOCK = (48, 48, 48)
 LIFTED_EM_SHAPE = (32, 128, 128)
 LIFTED_EM_BLOCK = (32, 64, 64)
 LIFTED_EM_OBJECTS = 16
@@ -4877,49 +4925,25 @@ def shards_alone(K, args) -> None:
 
 
 def serve_alone(K, args) -> None:
-    """``--only serve``: the main path's volume, the "blockwise" phase's cc
-    (against ``scipy.ndimage.label``) and single-pass watershed of it, one
-    run each, then the "serve" phase."""
-    import scipy.ndimage as ndi
-
-    from cluster_tools_tpu_torch.io.containers import MemoryContainer, open_container
-    from cluster_tools_tpu_torch.tasks.connected_components import ConnectedComponentsWorkflow
-    from cluster_tools_tpu_torch.tasks.watershed import WatershedWorkflow
+    """``--only serve``: the first ``SERVE_EDGE``^3 of the main path's
+    volume, its :func:`serve_yardstick`, then the "serve" phase."""
     from cluster_tools_tpu_torch.utils.synthetic import synthetic_boundaries
 
     os.environ["CT_FILL_MODE"], os.environ["CT_TIER_MODE"] = "capacity", "cond"
     vol = synthetic_boundaries(MAIN_SHAPE, torch.Generator(device="cuda").manual_seed(args.seed))
-    mem = "memory://blockwise"
-    block = (128, 128, 128)
-    f = open_container(mem)
-    b_np = vol.reshape(vol.shape[-3:]).cpu().numpy()
-    f.require_dataset("boundaries", shape=b_np.shape, chunks=block, dtype="float32")[...] = b_np
-    mask = (b_np < np.float32(0.45)).astype(np.uint8)
-    f.require_dataset("mask", shape=b_np.shape, chunks=block, dtype="uint8")[...] = mask
-    with tempfile.TemporaryDirectory(prefix="serve-yardstick-") as root:
-        cc = bw_run(K, root, "cc", ConnectedComponentsWorkflow, block, input_path=mem, input_key="mask",
-                    output_path=mem, output_key="cc", connectivity=1)
-        ws = bw_run(K, root, "ws", WatershedWorkflow, block, input_path=mem, input_key="boundaries",
-                    output_path=mem, output_key="ws", **SERVE_WS)
-    ref, _ = ndi.label(mask.astype(bool))
-    if not partition_equal(torch.from_numpy(f["cc"][...].astype(np.int64)).cuda(),
-                           torch.from_numpy(ref.astype(np.int64)).cuda()):
-        raise AssertionError("serve yardstick: cc labels are not scipy.ndimage.label's partition")
-    log("serve", f"yardstick: cc in {cc['wall_s']:.3f} s (= scipy partition), the single-pass watershed in "
-                 f"{ws['wall_s']:.3f} s, launches {ws['launches']}")
-    serve_ref = serve_reference(mem)
-    del MemoryContainer._registry[mem], f, b_np, mask, ref
+    vol = vol[..., :SERVE_EDGE, :SERVE_EDGE, :SERVE_EDGE].contiguous()
     rows = [{"name": k} for k in KERNELS]
-    phase_serve(K, vol, serve_ref, rows)
+    phase_serve(K, vol, serve_yardstick(K, vol), rows)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=["faults", "serve", "fleet", "analysis", "lifted", "shards"], default=None,
-                    help="build the kernels and run one phase alone on its own 512^3 blockwise yardstick "
-                         "(faults, fleet, analysis: the watershed; serve, shards: cc and the watershed; lifted: the "
-                         "main path's cc labels, then its arm (a) at 512^3); prints no kernels or result line")
+                    help="build the kernels and run one phase alone on its own blockwise yardstick (faults, "
+                         "analysis: the 512^3 watershed; shards: the 512^3 cc and watershed; serve, fleet: cc and "
+                         "the watershed at SERVE_EDGE^3; lifted: the main path's cc labels, then its arm (a) at "
+                         "512^3); prints no kernels or result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4927,6 +4951,7 @@ def main() -> int:
         return 2
 
     from cluster_tools_tpu_torch import build
+    from cluster_tools_tpu_torch.io.containers import open_container
     from cluster_tools_tpu_torch.ops import kernels as K
 
     t_start = time.perf_counter()
@@ -4953,17 +4978,22 @@ def main() -> int:
     phase_sharded(K, args, rows, main_s_per_voxel * (MAIN_SHAPE[1] + 2 * MAIN_CFG["halo"]) * MAIN_SHAPE[2]
                   * MAIN_SHAPE[3])
     mem, auto = phase_blockwise(K, vol, ref, rows)
-    serve_ref = serve_reference(mem)
+    # the "analysis" phase's crop of the blockwise watershed ("multicut" drops the container)
+    an_ws = open_container(mem)["ws"][(slice(0, ANALYSIS_EDGE),) * 3]
     phase_sweeps(K, mem, auto, main_s_per_voxel, rows)
     phase_faults(K, vol, mem, rows)
     phase_multicut(K, vol, ws_crop, mem, rows,
-                   then=lambda mc: (phase_native(K, vol, mem, mc), phase_reduce_tree(K, vol, ref, mem, mc, rows)))
-    phase_fusion(K, vol, rows)
+                   then=lambda mc: (phase_native(K, vol, mem, mc), phase_reduce_tree(K, vol, mem, mc, rows)))
+    phase_fusion(K, vol[..., :FUSION_EDGE, :FUSION_EDGE, :FUSION_EDGE], rows)
+    svol = vol[..., :SERVE_EDGE, :SERVE_EDGE, :SERVE_EDGE].contiguous()
+    serve_ref = serve_yardstick(K, svol)
     # the fleet's members share the card with this process: its cached blocks go back first
-    phase_serve(K, vol, serve_ref, rows,
-                then=lambda root, data: (torch.cuda.empty_cache(), phase_fleet(K, root, data, serve_ref["ws"], rows)))
-    phase_analysis(K, vol, serve_ref["ws"], rows)
-    del serve_ref
+    phase_serve(K, svol, serve_ref, rows,
+                then=lambda root, data: (torch.cuda.empty_cache(),
+                                         phase_fleet(K, root, data, serve_ref["ws"], serve_ref["launches"], rows)))
+    del serve_ref, svol
+    phase_analysis(K, vol, an_ws, rows)
+    del an_ws
     phase_lifted(K, vol, ref, rows)
     phase_inference(K, vol, rows, args.seed)
 
