@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cluster_tools_tpu_torch``) on one GPU.
 
-Usage: ``python3 chip_smoke.py [--seed 0] [--only faults|serve|fleet|analysis|lifted|shards]``
+Usage: ``python3 chip_smoke.py [--seed 0] [--only faults|serve|fleet|analysis|lifted|shards|multicard]``
 
 Phases, each one line of output, each raising on failure:
 
@@ -281,6 +281,23 @@ Phases, each one line of output, each raising on failure:
     features equal to its CPU descent within 1e-6.  The kernel rows gain
     ``inference_launches`` (0: this path runs no hand kernel).
 
+Only with ``--only multicard`` (``multicard_alone``; two cards or more of
+one host): the mesh, the collectives, the NCCL pod and
+the executor with their shards or processes dealt over the cards, each
+held bit for bit against the same grid on cuda:0 (ROADMAP item 10c's NCCL
+leg).  (a) the split and fused steps on ``SHARDED_SHAPE`` at dp=1 x sp=4
+and dp=2 x sp=4 (every B1-B4 kernel launched on every card; every launch
+of a split run replayed on its card against its twin, B1d on B1's
+inputs); (b) the mesh-exact EDT across card cuts against scipy; (c) NCCL
+pods of 4 x 1 and 2 x 2 (each process on a card of its own, 0 bytes
+staged through host memory) against the in-process mesh; (d) the
+executor's shards arm at k = 1 and 4; (e) the collective reduce plane on
+a sibling mesh over the cards against the same plane on cuda:0 and the
+host plane; (f) ``FusedSegmentationWorkflow`` over the cards.  Prints the
+peer-access matrix, ``nvidia-smi topo -m``, per stage ms, voxels/s,
+collective counters and each card's peak GB, beside the cards' name and
+power limit.  On one card the full smoke logs that this arm does not run.
+
 Prints the kernels' JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero (and prints no result)
 without a CUDA device.
@@ -404,12 +421,17 @@ def write_json(path: str, doc) -> None:
     atomic_write_json(path, doc)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi_lines() -> list:
+    """``nvidia-smi``'s name and power limit, one line a card."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def nvidia_smi() -> str:
+    return nvidia_smi_lines()[0]
 
 
 def phase_lint(card: str) -> dict:
@@ -432,18 +454,54 @@ def phase_lint(card: str) -> dict:
     return doc
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms of ``fn`` over ``reps`` launches after one warm-up (CUDA events)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+def cuda_ms(fn, reps: int, device=None) -> float:
+    """Mean ms of ``fn`` over ``reps`` launches after one warm-up (CUDA
+    events on ``device``'s current stream, default the current card;
+    ``fn`` must launch on that card)."""
+    with torch.cuda.device(device) if device is not None else contextlib.nullcontext():
         fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+
+def card_kernel_launches(card_launches: dict) -> dict:
+    """``{card: {kernel: launches}}`` of the B1-B4 kernels from
+    ``K.CARD_LAUNCHES``."""
+    out: dict = {}
+    for (name, card), n in sorted(card_launches.items()):
+        if name in MAIN_PATH_KERNELS:
+            out.setdefault(card, {})[name] = n
+    return out
+
+
+def sync_cards() -> None:
+    """Wait for every visible card: a wall time ends here (a bare
+    ``torch.cuda.synchronize()`` waits for the current card only)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def reset_peaks() -> None:
+    """Reset every visible card's peak of allocated memory."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+
+
+def card_peaks_gb() -> list:
+    """Each visible card's peak of allocated memory since :func:`reset_peaks`, GB."""
+    return [torch.cuda.max_memory_allocated(i) / 1e9 for i in range(torch.cuda.device_count())]
+
+
+def max_card_peak_gb() -> float:
+    """The largest of :func:`card_peaks_gb` (on one card: its peak)."""
+    return max(card_peaks_gb(), default=0.0)
 
 
 def require_equal(what: str, a: torch.Tensor, b: torch.Tensor) -> float:
@@ -564,7 +622,7 @@ def phase_kernels(K, gen) -> None:
             require_equal(f"B4 apply_remap {kind} tables, tile {rtile}",
                           K.apply_remap(lab_c, old_c, new_c, rtile, 64, impl="cuda"),
                           K.apply_remap_torch(lab_c, old_c, new_c, rtile, 64))
-    torch.cuda.synchronize()
+    sync_cards()
     log("kernels", f"B1 and B1d (smooth mask, 8 adversarial tiles on 16x16x128, "
                    f"{', '.join('x'.join(map(str, t)) for t in CCL_TILES)} tiles, noise at 3 densities on "
                    f"4x5x32, 4x5x40, 1x16x128 and 16x16x1 tiles; B1d "
@@ -713,13 +771,13 @@ def bw_run(K, tmp_root: str, tag: str, workflow_cls, block_shape, global_config=
     wf = workflow_cls(tmp_folder=tmp, config_dir=os.path.join(d, "cfg"), max_jobs=8,
                       block_shape=list(block_shape), **params)
     K.reset_counts()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
+    reset_peaks()
+    sync_cards()
     t0 = time.perf_counter()
     ok = run_dag([wf])
-    torch.cuda.synchronize()
+    sync_cards()
     wall = time.perf_counter() - t0
-    launches, rungs = dict(K.LAUNCHES), dict(K.RUNGS)
+    launches, rungs, card_launches = dict(K.LAUNCHES), dict(K.RUNGS), dict(K.CARD_LAUNCHES)
     manifests = [json.load(open(os.path.join(tmp, f))) for f in sorted(os.listdir(tmp)) if f.endswith(".success.json")]
     if not ok:
         logs = "".join(open(os.path.join(tmp, f)).read()[-3000:] for f in sorted(os.listdir(tmp)) if f.endswith(".log"))
@@ -729,8 +787,9 @@ def bw_run(K, tmp_root: str, tag: str, workflow_cls, block_shape, global_config=
     for m in manifests:
         sweep.update({k: v for k, v in m.get("sweep", {}).items() if k.endswith("_s")})
     overflow = sorted(b for m in manifests for b in m.get("overflow_blocks", []))
-    return dict(wall_s=wall, peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches, rungs=rungs,
-                sweep=dict(sweep), overflow_blocks=overflow, sweeps=[m["sweep"] for m in manifests if "sweep" in m])
+    return dict(wall_s=wall, peak_gb=max_card_peak_gb(), peaks_gb=card_peaks_gb(), launches=launches, rungs=rungs,
+                card_launches=card_launches, sweep=dict(sweep), overflow_blocks=overflow,
+                sweeps=[m["sweep"] for m in manifests if "sweep" in m])
 
 
 def bw_timed(K, tmp_root: str, tag: str, workflow_cls, block_shape, voxels: int, n_blocks: int,
@@ -1052,8 +1111,10 @@ def shards_arm(K, tmp_root: str, f, auto: dict, cases: dict, io: dict, rows: lis
                 calls = np.sum([x["shard_calls"] for x in sw], axis=0).tolist()
                 per_card = ""
                 if n_cards >= 2:
-                    per_card = "; calls per card " + str([sum(c for s_, c in enumerate(calls) if s_ % n_cards == c_)
-                                                          for c_ in range(n_cards)])
+                    per_card = ("; calls per card " + str([sum(c for s_, c in enumerate(calls) if s_ % n_cards == c_)
+                                                           for c_ in range(n_cards)])
+                                + "; B1-B4 launches per card " + str(card_kernel_launches(rec["card_launches"]))
+                                + "; peak GB per card " + "/".join(f"{p:.2f}" for p in rec["peaks_gb"]))
                 shard_launches[f"{tag} k={k}"] = got
                 log("sweeps", f"shards {tag} k={k} (sharded_batch {lanes * k}): wall {rec['wall_s']:.3f} s, device "
                               f"calls per shard {calls}{per_card}, rungs "
@@ -1125,10 +1186,10 @@ def fault_run(K, root: str, tag: str, workflow_cls, block, env=None, spec=None, 
         wf = workflow_cls(tmp_folder=tmp, config_dir=os.path.join(d, "cfg"), max_jobs=8, block_shape=list(block),
                           **params)
         K.reset_counts()
-        torch.cuda.synchronize()
+        sync_cards()
         t0 = time.perf_counter()
         ok = run_dag([wf])
-        torch.cuda.synchronize()
+        sync_cards()
         wall = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
         tstats = trace.stats()
@@ -1423,11 +1484,11 @@ def wf_run(K, tmp_folder: str, cfg_dir: str, workflow_cls, **params) -> dict:
     before = set(os.listdir(tmp_folder)) if os.path.isdir(tmp_folder) else set()
     wf = workflow_cls(tmp_folder=tmp_folder, config_dir=cfg_dir, max_jobs=8, **params)
     K.reset_counts()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
+    reset_peaks()
+    sync_cards()
     t0 = time.perf_counter()
     ok = run_dag([wf])
-    torch.cuda.synchronize()
+    sync_cards()
     wall = time.perf_counter() - t0
     if not ok:
         logs = "".join(open(os.path.join(tmp_folder, f)).read()[-3000:] for f in sorted(os.listdir(tmp_folder))
@@ -1437,7 +1498,7 @@ def wf_run(K, tmp_folder: str, cfg_dir: str, workflow_cls, **params) -> dict:
     for f in sorted(set(os.listdir(tmp_folder)) - before):
         if f.endswith(".success.json"):
             tasks[f.split(".")[0]] = json.load(open(os.path.join(tmp_folder, f)))
-    return dict(wall_s=wall, peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=dict(K.LAUNCHES),
+    return dict(wall_s=wall, peak_gb=max_card_peak_gb(), launches=dict(K.LAUNCHES),
                 tasks=tasks)
 
 
@@ -1541,7 +1602,7 @@ def phase_multicut(K, vol: torch.Tensor, ws_crop: np.ndarray, mem: str, rows: li
 
     # ---- 1. the config-4 shape: fused RAG + parallel GAEC ----
     def fused_once():
-        torch.cuda.synchronize()
+        sync_cards()
         t0 = time.perf_counter()
         nodes, edges, costs, sizes, _ = block_rag_fused(ws_crop, bnd, device="cuda")
         t1 = time.perf_counter()
@@ -1877,7 +1938,7 @@ def phase_native(K, vol: torch.Tensor, mem: str, mc: dict) -> None:
     # the contraction's rungs on the reduced problem: why the card keeps the
     # torch rung where the device is the card
     pc, t_pc = timed(lambda: contraction.gaec_parallel(n1, e1, w1, impl="native"))
-    torch.cuda.synchronize()
+    sync_cards()
     pc_t, t_pc_t = timed(lambda: contraction.gaec_parallel(n1, e1, w1, impl="torch", device="cuda"))
     if not np.array_equal(pc, pc_t):
         raise AssertionError("native: parallel_contract differs from the torch rung on the reduced problem")
@@ -2008,7 +2069,7 @@ def phase_reduce_tree(K, vol: torch.Tensor, mem: str, mc: dict, rows: list) -> N
     solve_kw = dict(fanout=2, mode="min", threshold=0.5, max_workers=8, device="cuda",
                     device_pool_bytes=REDUCE_POOL_BYTES)
     snap_t, snap_d = rt.solve_snapshot(), device_pool.snapshot()
-    torch.cuda.synchronize()
+    sync_cards()
     t0 = time.perf_counter()
     labels_w, info_w = rt.sharded_solve(len(nodes), edges, payload, node_shard, reduce_plane="collective",
                                         **solve_kw)
@@ -2056,7 +2117,7 @@ def phase_reduce_tree(K, vol: torch.Tensor, mem: str, mc: dict, rows: list) -> N
                        ("workers", dict(reduce_plane="packet", solver_workers=2))):
         task = SolveGlobalGPU(**task_kw, **extra)
         snap_t = rt.solve_snapshot()
-        torch.cuda.synchronize()
+        sync_cards()
         t0 = time.perf_counter()
         if not run_dag([task]):
             raise AssertionError(f"reduce-tree ({arm}): SolveGlobal failed; log:\n"
@@ -2121,15 +2182,15 @@ def phase_reduce_tree(K, vol: torch.Tensor, mem: str, mc: dict, rows: list) -> N
                                            execution=execution, **fused_cfg)
             replaying = shards == REDUCE_SHARDS and execution == "split"
             K.reset_counts()
-            torch.cuda.reset_peak_memory_stats()
-            torch.cuda.synchronize()
+            reset_peaks()
+            sync_cards()
             t0 = time.perf_counter()
             with K.capture_inputs() if replaying else contextlib.nullcontext() as captured:
                 ok = run_dag([wf])
-            torch.cuda.synchronize()
+            sync_cards()
             wall = time.perf_counter() - t0
             launches = dict(K.LAUNCHES)
-            peak = torch.cuda.max_memory_allocated() / 1e9
+            peak = max_card_peak_gb()
             if not ok:
                 raise AssertionError(f"reduce-tree (d) {tag}: the fused workflow failed")
             doc = wf.output().read()
@@ -2182,11 +2243,11 @@ def phase_reduce_tree(K, vol: torch.Tensor, mem: str, mc: dict, rows: list) -> N
     outs = {}
     for n_ranks in (1, 4):
         K.reset_counts()
-        torch.cuda.synchronize()
+        sync_cards()
         t0 = time.perf_counter()
         out = sharded_slab_sweep(vol[0], slab_edt, extent, halo, batch=8, fill=0.0, keep_on_device=True,
                                  n_ranks=n_ranks)
-        torch.cuda.synchronize()
+        sync_cards()
         outs[n_ranks] = (out, time.perf_counter() - t0, dict(K.LAUNCHES))
     if not torch.equal(outs[1][0], outs[4][0]):
         raise AssertionError("reduce-tree (e): sharded_slab_sweep with n_ranks=4 differs from n_ranks=1")
@@ -2259,14 +2320,14 @@ def fusion_arm(K, root: str, tag: str, workflow_cls, memory_handoffs: bool, out_
     wf = workflow_cls(tmp_folder=tmp, config_dir=os.path.join(d, "cfg"), max_jobs=8, block_shape=list(block),
                       **params)
     K.reset_counts()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
+    reset_peaks()
+    sync_cards()
     t0 = time.perf_counter()
     ok = run_dag([wf])
-    torch.cuda.synchronize()
+    sync_cards()
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    peak_gb, reserved_gb = torch.cuda.max_memory_allocated() / 1e9, torch.cuda.memory_reserved() / 1e9
+    peak_gb, reserved_gb = max_card_peak_gb(), torch.cuda.memory_reserved() / 1e9
     if not ok:
         logs = "".join(open(os.path.join(tmp, f)).read()[-3000:] for f in sorted(os.listdir(tmp)) if f.endswith(".log"))
         raise AssertionError(f"fusion {tag}: the workflow failed; task logs:\n{logs}")
@@ -2625,10 +2686,10 @@ def device_rung(K, vol: torch.Tensor, root: str, n: int = 256, extent: int = 32,
         try:
             K.reset_counts()
             snap, hsnap = device_pool.snapshot(), handoff.snapshot()
-            torch.cuda.synchronize()
+            sync_cards()
             t0 = time.perf_counter()
             ok = run_dag([Producer(**kw)]) and run_dag([Consumer(**kw)])
-            torch.cuda.synchronize()
+            sync_cards()
             wall = time.perf_counter() - t0
             if not ok:
                 raise AssertionError(f"fusion device rung {tag}: the DAG failed")
@@ -2949,10 +3010,10 @@ def train_on_the_card(il, raw: np.ndarray, seed: int):
     labels = np.zeros(crop.shape, np.uint8)
     scribble = trng.random(crop.shape) < TRAIN_SCRIBBLES
     labels[scribble] = np.where(crop[scribble] < np.float32(0.45), 1, 2).astype(np.uint8)
-    torch.cuda.synchronize()
+    sync_cards()
     t0 = time.perf_counter()
     W, b = il.train_pixel_classifier(crop, labels, device="cuda")
-    torch.cuda.synchronize()
+    sync_cards()
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     Wc, bc = il.train_pixel_classifier(crop, labels, device="cpu")
@@ -3158,8 +3219,8 @@ def phase_serve(K, vol: torch.Tensor, ref: dict, rows: list, block=SERVE_BLOCK, 
         try:
             # 1. two tenants at once on the card, then the warm resubmission
             K.reset_counts()
-            torch.cuda.reset_peak_memory_stats()
-            torch.cuda.synchronize()
+            reset_peaks()
+            sync_cards()
             t0 = time.perf_counter()
             client.submit(**ws("a1", "ws_a1"))
             client.submit(**serve_payload("bob", "b1", "connected_components", "cc_b1", input_path=data,
@@ -3167,7 +3228,7 @@ def phase_serve(K, vol: torch.Tensor, ref: dict, rows: list, block=SERVE_BLOCK, 
             recs = {rid: client.wait(rid, timeout_s=900) for rid in ("a1", "b1")}
             # each request's wall: its submission to its end, on the host clock
             walls = {rid: rec["finished"] - rec["submitted"] for rid, rec in recs.items()}
-            pair_launches, pair_peak = dict(K.LAUNCHES), torch.cuda.max_memory_allocated() / 1e9
+            pair_launches, pair_peak = dict(K.LAUNCHES), max_card_peak_gb()
             for rid, rec in recs.items():
                 if rec["state"] != "done":
                     raise AssertionError(f"serve {rid}: {rec['state']}: {rec.get('error')}")
@@ -3179,7 +3240,7 @@ def phase_serve(K, vol: torch.Tensor, ref: dict, rows: list, block=SERVE_BLOCK, 
             if sum(pair_launches.values()) != sum(sum(r.get("kernel_launches", {}).values()) for r in recs.values()):
                 raise AssertionError(f"serve: the requests' launches {recs} do not add up to {pair_launches}")
             K.reset_counts()
-            torch.cuda.reset_peak_memory_stats()
+            reset_peaks()
             cache_before = chunk_cache.snapshot()
             t0 = time.perf_counter()
             client.submit(**ws("a2", "ws_a2"))
@@ -3188,7 +3249,7 @@ def phase_serve(K, vol: torch.Tensor, ref: dict, rows: list, block=SERVE_BLOCK, 
             if warm["state"] != "done":
                 raise AssertionError(f"serve a2: {warm['state']}: {warm.get('error')}")
             same("ws_a2", ref["ws"], "alice's warm watershed")
-            serve_line("warm a2", warm, warm_wall, voxels, f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", card)
+            serve_line("warm a2", warm, warm_wall, voxels, f"{max_card_peak_gb():.2f} GB", card)
             launches_a2 = warm.get("kernel_launches", {})
             if launches_a2 != dict(K.LAUNCHES) or launches_a2 != recs["a1"].get("kernel_launches", {}):
                 raise AssertionError(f"serve a2: launches {warm.get('kernel_launches')} (counted {dict(K.LAUNCHES)}, "
@@ -3625,14 +3686,14 @@ def an_run(K, root: str, tag: str, workflow_cls, target: str, block, tmp: str = 
     cuda = torch.cuda.is_available()
     K.reset_counts()
     if cuda:
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
+        reset_peaks()
+        sync_cards()
     t0 = time.perf_counter()
     wf = workflow_cls(tmp_folder=os.path.join(tmp, "tmp"), config_dir=cfg, max_jobs=8, target=target,
                       block_shape=list(block), **params)
     ok = run_dag([wf])
     if cuda:
-        torch.cuda.synchronize()
+        sync_cards()
     wall = time.perf_counter() - t0
     if not ok:
         logs = "".join(open(os.path.join(tmp, "tmp", f)).read()[-3000:]
@@ -3642,7 +3703,7 @@ def an_run(K, root: str, tag: str, workflow_cls, target: str, block, tmp: str = 
     for doc in parse_runtimes(os.path.join(tmp, "tmp")).values():
         tasks[doc["task"]] += doc.get("runtime_s", 0.0)
     return dict(tmp=os.path.join(tmp, "tmp"), wall_s=wall, launches=dict(K.LAUNCHES), tasks=tasks,
-                peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan"))
+                peak_gb=max_card_peak_gb() if cuda else float("nan"))
 
 
 def unique_counts(x: np.ndarray, dev) -> tuple:
@@ -3780,15 +3841,15 @@ def phase_analysis(K, vol: torch.Tensor, ref_ws: np.ndarray, rows: list, target:
         cuda = torch.cuda.is_available()
         K.reset_counts()
         if cuda:
-            torch.cuda.reset_peak_memory_stats()
+            reset_peaks()
         t0 = time.perf_counter()
         if not run_dag(tasks):
             raise AssertionError(f"analysis (i): {what} failed")
         if cuda:
-            torch.cuda.synchronize()
+            sync_cards()
         launches.update(K.LAUNCHES)
         return dict(wall_s=time.perf_counter() - t0, launches=dict(K.LAUNCHES),
-                    peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan"))
+                    peak_gb=max_card_peak_gb() if cuda else float("nan"))
 
     def crop_twin(tag, cls, out_key, **params):
         """The arm on the first ``ANALYSIS_CROP``^3 (``params`` name its crop
@@ -4468,12 +4529,12 @@ def main_phases(K, args, gen):
     cfg = dict(MAIN_CFG)
     step = make_ws_ccl_split(device="cuda", **cfg)
     vol = synthetic_boundaries(MAIN_SHAPE, torch.Generator(device="cuda").manual_seed(args.seed))
-    torch.cuda.synchronize()
+    sync_cards()
 
     syncs = {}
 
     def count_syncs(stage, *_):
-        torch.cuda.synchronize()
+        sync_cards()
         syncs[stage] = len(caught) - sum(syncs.values())
 
     t0 = time.perf_counter()
@@ -4489,7 +4550,7 @@ def main_phases(K, args, gen):
     marks = {}
 
     def timed(stage, *_):
-        torch.cuda.synchronize()
+        sync_cards()
         marks[stage] = time.perf_counter()
 
     runs = []
@@ -4497,14 +4558,16 @@ def main_phases(K, args, gen):
         # counts and peak memory cover exactly one run of the main path
         ws = cc = None
         K.reset_counts()
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
+        sync_cards()
+        # what is allocated before the run counts in its peak
+        resident_gb = sum(torch.cuda.memory_allocated(i) for i in range(torch.cuda.device_count())) / 1e9
+        reset_peaks()
         t0 = time.perf_counter()
         ws, cc, n_fg, overflow = step.run_staged(vol, timed)
         total_s = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
         rungs = dict(K.RUNGS)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        peak_gb = max_card_peak_gb()
         prev, stage_ms = t0, {}
         for stage in ("seeds", "flow", "fill", "cc"):
             stage_ms[stage] = (marks[stage] - prev) * 1e3
@@ -4517,8 +4580,9 @@ def main_phases(K, args, gen):
     log("main", f"volume {MAIN_SHAPE} {cfg}; warm-up {warm_s:.2f}s; 3 timed runs "
                 + "/".join(f"{r[0] * 1e3:.1f}" for r in runs) + f" ms; median {total_s * 1e3:.1f} ms = "
                 + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items())
-                + f" ms; {vol.numel() / total_s:.4g} voxels/s; peak {peak_gb:.2f} GB; "
-                f"launches per run {launches}; rungs per run {rungs}; host syncs per stage {syncs}")
+                + f" ms; {vol.numel() / total_s:.4g} voxels/s; peak {peak_gb:.2f} GB (allocated before the run "
+                f"{resident_gb:.2f} GB); launches per run {launches}; rungs per run {rungs}; host syncs per stage "
+                f"{syncs}")
     missing = [k for k in MAIN_PATH_KERNELS if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
@@ -4546,7 +4610,7 @@ def main_phases(K, args, gen):
     K.reset_counts()
     t0 = time.perf_counter()
     out_t = make_ws_ccl_split(device="cuda", impl="torch", **cfg)(vol)
-    torch.cuda.synchronize()
+    sync_cards()
     twin_s = time.perf_counter() - t0
     for what, a, b in zip(("ws", "cc", "n_fg"), (ws, cc, n_fg), out_t[:3]):
         require_equal(f"main path twins {what}", a, b)
@@ -4606,7 +4670,7 @@ def main_phases(K, args, gen):
     cfg_t = dict(cfg, seed_mode="tiled")
     K.reset_counts()
     out_c = make_ws_ccl_split(device="cuda", impl="cuda", **cfg_t)(small)
-    torch.cuda.synchronize()
+    sync_cards()
     launches_t, rungs_t = dict(K.LAUNCHES), dict(K.RUNGS)
     out_t = make_ws_ccl_split(device="cuda", impl="torch", **cfg_t)(small)
     for what, a, b in zip(("ws", "cc", "n_fg"), out_c[:3], out_t[:3]):
@@ -4657,20 +4721,20 @@ def phase_sharded(K, args, rows: list, main_s: float) -> None:
     split = make_ws_ccl_split(mesh, **cfg)
 
     # ---- (1) the fused step and the split step on the kernels ----
-    torch.cuda.synchronize()
+    sync_cards()
     t0 = time.perf_counter()
     fused(vol)
-    torch.cuda.synchronize()
+    sync_cards()
     fused_warm_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     out_f = fused(vol)
-    torch.cuda.synchronize()
+    sync_cards()
     fused_s = time.perf_counter() - t0
     split(vol)
     marks = {}
 
     def timed(stage, *_):
-        torch.cuda.synchronize()
+        sync_cards()
         marks[stage] = time.perf_counter()
 
     runs = []
@@ -4678,8 +4742,8 @@ def phase_sharded(K, args, rows: list, main_s: float) -> None:
         out_s = None
         K.reset_counts()
         spmd.COUNTERS.reset()
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
+        reset_peaks()
+        sync_cards()
         t0 = time.perf_counter()
         out_s = split.run_staged(vol, timed)
         total_s = time.perf_counter() - t0
@@ -4688,7 +4752,7 @@ def phase_sharded(K, args, rows: list, main_s: float) -> None:
             stage_ms[stage] = (marks[stage] - prev) * 1e3
             prev = marks[stage]
         runs.append((total_s, stage_ms, dict(K.LAUNCHES), spmd.COUNTERS.snapshot(),
-                     torch.cuda.max_memory_allocated() / 1e9))
+                     max_card_peak_gb()))
     total_s, stage_ms, launches, collectives, peak_gb = sorted(runs, key=lambda r: r[0])[1]
     missing = [k for k in MAIN_PATH_KERNELS if launches.get(k, 0) == 0]
     if missing:
@@ -4711,7 +4775,7 @@ def phase_sharded(K, args, rows: list, main_s: float) -> None:
     K.reset_counts()
     t0 = time.perf_counter()
     out_t = make_ws_ccl_step(mesh, impl="torch", **cfg)(vol)
-    torch.cuda.synchronize()
+    sync_cards()
     twin_s = time.perf_counter() - t0
     for what, a, b in zip(("ws", "cc", "n_fg"), out_f[:3], out_t[:3]):
         require_equal(f"sharded twins {what}", a, b)
@@ -4724,10 +4788,10 @@ def phase_sharded(K, args, rows: list, main_s: float) -> None:
     cc_single, single_ms, dp_sums = [], [], []
     sp = mesh.axis_size("sp")
     for b in range(SHARDED_SHAPE[0]):
-        torch.cuda.synchronize()
+        sync_cards()
         t0 = time.perf_counter()
         _, cc1, _, ovf1 = single(vol[b:b + 1])
-        torch.cuda.synchronize()
+        sync_cards()
         single_ms.append((time.perf_counter() - t0) * 1e3)
         if ovf1 or not partition_equal(out_s[1][b], cc1[0]):
             raise AssertionError(f"volume {b}: the sharded cc is not the single-device cc partition")
@@ -4773,10 +4837,10 @@ def phase_sharded(K, args, rows: list, main_s: float) -> None:
     step2 = make_ws_ccl_split(mesh2, **cfg2)
     step2(vol[:1])
     K.reset_counts()
-    torch.cuda.synchronize()
+    sync_cards()
     t0 = time.perf_counter()
     ws2, cc2, n2, ovf2 = step2(vol[:1])
-    torch.cuda.synchronize()
+    sync_cards()
     two_s = time.perf_counter() - t0
     launches2 = dict(K.LAUNCHES)
     if ovf2 or not partition_equal(cc2[0], cc_single[0]) or \
@@ -4862,6 +4926,496 @@ def phase_sharded(K, args, rows: list, main_s: float) -> None:
     log("sharded", f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------ multicard ----
+
+# the "multicard" arm (``--only multicard``, two cards or more): the (dp,
+# sp) grids of the "sharded" phase with their shards dealt over the cards
+MULTICARD_GRIDS = ((1, 4), (2, 4))
+# the pods: (processes, shards a process), each process on a card of its own
+MULTICARD_PODS = ((4, 1), (2, 2))
+# the collective reduce plane's node shards over the config-4 graph
+MULTICARD_NODE_SHARDS = 8
+# the agglomerative payload's threshold (the "reduce-tree" phase's (a))
+MULTICARD_AGG_THRESHOLD = 0.5
+
+
+def multicard_label() -> str:
+    """Every card's ``nvidia-smi`` name and power limit, as one tag."""
+    kinds = Counter(ln.strip() for ln in nvidia_smi_lines())
+    return "[" + "; ".join(f"{n} x {k}" for k, n in kinds.items()) + "]"
+
+
+def on_one_card(n: int) -> list:
+    """``n`` shards all on card 0: the one-card placement of a grid."""
+    return [torch.device("cuda", 0)] * n
+
+
+def same_on(what: str, got, want) -> None:
+    """``got`` and ``want`` (a step's ``(ws, cc, n_fg, overflow)``) equal bit
+    for bit, wherever each lies."""
+    for name, a, b in zip(("ws", "cc", "n_fg"), got[:3], want[:3]):
+        require_equal(f"{what} {name}", a, b.to(a.device))
+    if bool(got[3]) != bool(want[3]):
+        raise AssertionError(f"{what}: overflow {got[3]} against {want[3]}")
+
+
+def timed_step(K, step, vol, staged: bool):
+    """One run of a ws+cc step after :func:`sync_cards`, ended by it:
+    ``(outputs, seconds, stage ms, launches, launches by card, collective
+    counters, peak GB by card)``."""
+    from cluster_tools_tpu_torch.parallel import spmd
+
+    marks = {}
+
+    def timed(stage, *_):
+        sync_cards()
+        marks[stage] = time.perf_counter()
+
+    K.reset_counts()
+    spmd.COUNTERS.reset()
+    reset_peaks()
+    sync_cards()
+    t0 = time.perf_counter()
+    out = step.run_staged(vol, timed) if staged else step(vol)
+    sync_cards()
+    total = time.perf_counter() - t0
+    stage_ms, prev = {}, t0
+    for stage in ("seeds", "flow", "fill", "cc") if staged else ():
+        stage_ms[stage] = (marks[stage] - prev) * 1e3
+        prev = marks[stage]
+    return (out, total, stage_ms, dict(K.LAUNCHES), dict(K.CARD_LAUNCHES), spmd.COUNTERS.snapshot(),
+            card_peaks_gb())
+
+
+def require_every_card(what: str, card_launches: dict, cards: list) -> dict:
+    """Every card in ``cards`` launched every B1-B4 kernel; returns the
+    launches by card."""
+    by_card = card_kernel_launches(card_launches)
+    for c in cards:
+        missing = [k for k in MAIN_PATH_KERNELS if by_card.get(str(c), {}).get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"{what}: {c} launched no {missing} (launches by card {by_card})")
+    return by_card
+
+
+def multicard_grids(K, vol: torch.Tensor, cfg: dict, cards: list, tag: str) -> dict:
+    """(a): the split and fused steps on each grid of
+    ``MULTICARD_GRIDS``, shards dealt over the cards, equal bit for bit to
+    the same grid on card 0; every launch of one split run on the cards
+    replayed on the card that made it.  Returns the split runs' launches by
+    card, by grid."""
+    from cluster_tools_tpu_torch.parallel.mesh import make_mesh
+    from cluster_tools_tpu_torch.parallel.pipeline import make_ws_ccl_step
+    from cluster_tools_tpu_torch.parallel.split_pipeline import make_ws_ccl_split
+
+    voxels = vol.numel()
+    launches_by_grid = {}
+    for grid in MULTICARD_GRIDS:
+        n = grid[0] * grid[1]
+        spread = make_mesh(n, grid=grid)
+        one = make_mesh(n, grid=grid, devices=on_one_card(n))
+        per_card = Counter(str(d) for d in spread.devices)
+        if set(per_card) != {str(c) for c in cards} or len(set(per_card.values())) != 1:
+            raise AssertionError(f"grid {grid}: shards not dealt evenly over the cards: {dict(per_card)}")
+        g = f"dp={grid[0]} x sp={grid[1]}"
+        for builder in ("split", "fused"):
+            make = make_ws_ccl_split if builder == "split" else make_ws_ccl_step
+            staged = builder == "split"
+            runs = {}
+            for where, mesh in (("one card", one), ("cards", spread)):
+                step = make(mesh, **cfg)
+                step(vol)  # warm-up
+                reps = 3 if where == "cards" and staged else 1
+                rs = [timed_step(K, step, vol, staged) for _ in range(reps)]
+                runs[where] = sorted(rs, key=lambda r: r[1])[len(rs) // 2]
+                del step
+            out_c, s_c, stages_c, l_c, cl_c, coll_c, peaks_c = runs["cards"]
+            out_1, s_1, stages_1, l_1, _, coll_1, peaks_1 = runs["one card"]
+            same_on(f"(a) {builder} {g}: cards == one card", out_c, out_1)
+            if out_c[3]:
+                raise AssertionError(f"(a) {builder} {g}: overflow")
+            if l_c != l_1:
+                raise AssertionError(f"(a) {builder} {g}: launches on the cards {l_c} != on one card {l_1}")
+            by_card = require_every_card(f"(a) {builder} {g}", cl_c, cards)
+            if staged:
+                launches_by_grid[g] = by_card
+            log("multicard", f"(a) {builder} {SHARDED_SHAPE} {g}, {n // len(cards)} shard(s) a card on {spread}: "
+                             f"{s_c * 1e3:.1f} ms = {voxels / s_c:.4g} voxels/s"
+                             + (f" (" + ", ".join(f"{k} {v:.1f}" for k, v in stages_c.items()) + " ms)" if staged else "")
+                             + f"; the same grid on cuda:0 {s_1 * 1e3:.1f} ms = {voxels / s_1:.4g} voxels/s"
+                             + (f" (" + ", ".join(f"{k} {v:.1f}" for k, v in stages_1.items()) + " ms)" if staged else "")
+                             + f"; peak GB by card " + "/".join(f"{p:.2f}" for p in peaks_c)
+                             + f" (one card: cuda:0 {peaks_1[0]:.2f}); ws, cc, n_fg, overflow equal bit for bit; "
+                             f"launches {l_c} = one card's; by card {by_card} {tag}")
+            log("multicard", f"(a) {builder} {g} collectives on the cards: {collective_summary(coll_c)}; host-staged "
+                             f"0 B (one process) {tag}")
+            del out_c, out_1, runs
+
+        # every launch of one split run on the cards, on the card that made it
+        step = make_ws_ccl_split(spread, **cfg)
+        K.reset_counts()
+        with K.capture_inputs() as captured:
+            step(vol)
+        sync_cards()
+        run_launches = dict(K.CARD_LAUNCHES)
+        replayed, ms, b1d = Counter(), Counter(), Counter()
+        for name, kargs, kkw in captured:
+            card = kargs[0].device
+            what = f"(a) split {g}: {name} launch {replayed[(name, str(card))]} on {card} replayed"
+            with torch.cuda.device(card):
+                kfn, tfn = replay(K, name, kargs, kkw)
+                want = tfn()
+                require_equal(what, kfn(), want)
+                ms[(name, str(card))] += cuda_ms(kfn, 2, device=card)
+                if name == "tile_ccl":
+                    # B1d, on no path, computes B1's function: each card's
+                    # library runs it on B1's inputs too
+                    dfn, _ = replay(K, "tile_ccl_doubling", kargs, kkw)
+                    require_equal(f"{what} as B1d", dfn(), want)
+                    b1d[str(card)] += 1
+            replayed[(name, str(card))] += 1
+        del captured, step
+        if dict(replayed) != {k: v for k, v in run_launches.items() if v}:
+            raise AssertionError(f"(a) split {g}: replayed {dict(replayed)} != the run's launches {run_launches}")
+        if set(b1d) != {str(c) for c in cards}:
+            raise AssertionError(f"(a) split {g}: B1d ran on {dict(b1d)} only")
+        log("multicard", f"(a) split {g}: every launch of one run replayed on the card that made it equals its "
+                         f"twin, and B1d on each B1 launch's input equals B1's twin ({dict(b1d)}); launches and "
+                         f"kernel ms by card: "
+                         + "; ".join(f"{c} " + ", ".join(f"{k} {replayed[(k, c)]}/{ms[(k, c)]:.3f} ms"
+                                                          for k in MAIN_PATH_KERNELS)
+                                     for c in sorted({c for _, c in replayed})) + f" {tag}")
+    return launches_by_grid
+
+
+def multicard_edt(K, vol: torch.Tensor, tag: str) -> None:
+    """(b): the mesh-exact squared EDT of a ``SHARDED_TWIN_EDGE``^3 mask on
+    2 x 2 shards dealt over the cards = the same mesh on card 0 = round(scipy
+    EDT ** 2)."""
+    import scipy.ndimage as ndi
+
+    from cluster_tools_tpu_torch.parallel.distributed_edt import distributed_distance_transform_squared
+    from cluster_tools_tpu_torch.parallel.mesh import make_mesh
+
+    e = SHARDED_TWIN_EDGE
+    mask = (vol[0, :e, :e, :e] < torch.tensor(np.float32(0.45), device=vol.device)).contiguous()
+    got, secs = {}, {}
+    for where, devices in (("cards", None), ("one card", on_one_card(4))):
+        mesh = make_mesh(4, axis_names=("spz", "spy"), grid=(2, 2), devices=devices)
+        distributed_distance_transform_squared(mask, mesh, sp_axis=("spz", "spy"))
+        K.reset_counts()
+        sync_cards()
+        t0 = time.perf_counter()
+        got[where] = distributed_distance_transform_squared(mask, mesh, sp_axis=("spz", "spy"))
+        sync_cards()
+        secs[where] = (time.perf_counter() - t0, dict(K.CARD_LAUNCHES), repr(mesh))
+    require_equal("(b) exact EDT: cards == one card", got["cards"], got["one card"].to(got["cards"].device))
+    want = np.round(ndi.distance_transform_edt(mask.cpu().numpy()) ** 2)
+    if not np.array_equal(got["cards"].cpu().numpy().astype(np.float64), want):
+        raise AssertionError("(b) the mesh-exact squared EDT across cards differs from scipy's")
+    log("multicard", f"(b) mesh-exact squared EDT of a {e}^3 mask on {secs['cards'][2]}: "
+                     f"{secs['cards'][0] * 1e3:.1f} ms = {mask.numel() / secs['cards'][0]:.4g} voxels/s, B3 "
+                     f"launches by card {secs['cards'][1]}; on cuda:0 {secs['one card'][0] * 1e3:.1f} ms; equal bit "
+                     f"for bit, and = round(scipy ** 2) {tag}")
+
+
+def multicard_pods(vol: torch.Tensor, cfg: dict, cards: list, tag: str) -> None:
+    """(c): ``ws_ccl_pod_demo`` over NCCL pods of ``MULTICARD_PODS``, each
+    process on a card of its own, on the first volume (512^3): every
+    worker's backend is ``nccl`` and its collectives staged no byte through
+    host memory, and ws, cc, n_fg equal the in-process 1 x 4 mesh dealt over
+    the cards."""
+    from cluster_tools_tpu_torch.parallel.mesh import make_mesh
+    from cluster_tools_tpu_torch.parallel.multihost import ENV_DEMO, launch_workers
+    from cluster_tools_tpu_torch.parallel.split_pipeline import make_ws_ccl_split
+
+    pod_vol = vol[:1].contiguous()
+    want = make_ws_ccl_split(make_mesh(4, grid=(1, 4)), **cfg)(pod_vol)
+    want = tuple(w.cpu() if isinstance(w, torch.Tensor) else w for w in want)
+    # the workers need the cards' memory: this process's cached blocks go back
+    for c in cards:
+        with torch.cuda.device(c):
+            torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="ct_multicard_pod_")
+    try:
+        np.save(os.path.join(tmp, "v.npy"), pod_vol.cpu().numpy())
+        for n_proc, per in MULTICARD_PODS:
+            if n_proc > len(cards):
+                log("multicard", f"(c) a pod of {n_proc} processes needs {n_proc} cards; {len(cards)} visible: "
+                                 "not run")
+                continue
+            out = os.path.join(tmp, f"o{n_proc}.npz")
+            job = dict(volume=os.path.join(tmp, "v.npy"), cfg=cfg, out=out)
+            t0 = time.perf_counter()
+            results = launch_workers(n_proc, "cluster_tools_tpu_torch.parallel.multihost:ws_ccl_pod_demo",
+                                     devices_per_process=per, timeout=600, extra_env={ENV_DEMO: json.dumps(job)})
+            wall = time.perf_counter() - t0
+            oks = []
+            for pid, (rc, so, se) in enumerate(results):
+                if rc != 0 or "CC_POD_OK" not in so or "WS_CCL_POD_OK" not in so:
+                    raise AssertionError(f"(c) pod {n_proc}x{per} worker {pid} rc {rc}:\n{so[-800:]}\n{se[-3000:]}")
+                backend = [ln for ln in se.splitlines() if "torch.distributed backend" in ln]
+                if not backend or "backend nccl" not in backend[0] or f"device cuda:{pid}" not in backend[0]:
+                    raise AssertionError(f"(c) pod {n_proc}x{per} worker {pid}: not NCCL on cuda:{pid}: {backend}")
+                ok = next(ln for ln in so.splitlines() if ln.startswith("WS_CCL_POD_OK"))
+                if "host_staged_bytes=0 " not in ok or "collectives_supported=True" not in ok:
+                    raise AssertionError(f"(c) pod {n_proc}x{per} worker {pid}: {ok}")
+                oks.append(ok)
+            pod = np.load(out)
+            require_equal(f"(c) pod {n_proc}x{per} ws == the in-process mesh", torch.from_numpy(pod["ws"]), want[0])
+            require_equal(f"(c) pod {n_proc}x{per} cc == the in-process mesh", torch.from_numpy(pod["cc"]), want[1])
+            if float(pod["n_fg"]) != float(want[2]) or bool(pod["overflow"]) != bool(want[3]):
+                raise AssertionError(f"(c) pod {n_proc}x{per}: n_fg {float(pod['n_fg'])} / overflow "
+                                     f"{bool(pod['overflow'])} against {float(want[2])} / {want[3]}")
+            counters = json.loads(next(ln for ln in results[0][1].splitlines()
+                                       if ln.startswith("POD_COUNTERS "))[len("POD_COUNTERS "):])
+            log("multicard", f"(c) launch_workers({n_proc}, devices_per_process={per}) on {tuple(pod_vol.shape)}: "
+                             f"pod wall {wall:.1f} s; " + backend[0].strip() + "; " + " | ".join(oks)
+                             + f"; worker 0's step collectives: {collective_summary(counters)}; ws, cc, n_fg, "
+                             f"overflow == the in-process 1 x 4 mesh over the cards {tag}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def multicard_shards(K, vol: torch.Tensor, cards: list, tag: str):
+    """(d): the "sweeps" phase's shards arm on the 512^3 ws and cc at k = 1
+    (the auto yardsticks, ``CTT_MESH_SHARDS=1``) and k = 4 (and the card
+    count): files and B1-B4 launch totals equal to k = 1.  Returns the
+    memory container and the k = 1 watershed's record."""
+    from cluster_tools_tpu_torch.io.containers import open_container
+    from cluster_tools_tpu_torch.tasks.connected_components import ConnectedComponentsWorkflow
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedWorkflow
+
+    b_np = vol[0].cpu().numpy()
+    mem = "memory://multicard"
+    block = (128, 128, 128)
+    f = open_container(mem)
+    f.require_dataset("boundaries", shape=b_np.shape, chunks=block, dtype="float32")[...] = b_np
+    f.require_dataset("mask", shape=b_np.shape, chunks=block, dtype="uint8")[...] = \
+        (b_np < np.float32(0.45)).astype(np.uint8)
+    voxels, n_blocks = int(b_np.size), int(np.prod([-(-s // b) for s, b in zip(b_np.shape, block)]))
+    del b_np
+    io = dict(input_path=mem, output_path=mem)
+    cases = {"ws": (WatershedWorkflow, dict(input_key="boundaries", two_pass=False, halo=[32, 32, 32],
+                                            threshold=0.45, dt_max_distance=32.0, min_seed_distance=2.0)),
+             "cc": (ConnectedComponentsWorkflow, dict(input_key="mask", connectivity=1))}
+    rows = [{"name": k} for k in KERNELS]
+    saved = os.environ.get("CTT_MESH_SHARDS")
+    os.environ["CTT_MESH_SHARDS"] = "1"
+    with tempfile.TemporaryDirectory(prefix="multicard-shards-") as tmp_root:
+        try:
+            auto = {tag_: bw_timed(K, tmp_root, tag_, cls, block, voxels, n_blocks, phase="multicard",
+                                   warm_up=tag_ == "ws", output_key=tag_, **params, **io)
+                    for tag_, (cls, params) in cases.items()}
+        finally:
+            if saved is None:
+                os.environ.pop("CTT_MESH_SHARDS", None)
+            else:
+                os.environ["CTT_MESH_SHARDS"] = saved
+        for tag_ in cases:
+            sw = [x for x in auto[tag_]["sweeps"] if x.get("n_devices")]
+            if {x["n_devices"] for x in sw} != {1}:
+                raise AssertionError(f"(d) {tag_}: the k = 1 yardstick ran on {[x.get('n_devices') for x in sw]}")
+        shards_arm(K, tmp_root, f, auto, {t: (cls, params, t, 8) for t, (cls, params) in cases.items()}, io, rows,
+                   block, shard_counts=(4,))
+    log("multicard", "(d) shards launches: " + json.dumps({r["name"]: r["shards_launches"] for r in rows})
+                     + f"; k = 1 peak GB by card " + "/".join(f"{p:.2f}" for p in auto["ws"]["peaks_gb"]) + f" {tag}")
+    return f, mem
+
+
+def multicard_reduce(K, vol: torch.Tensor, f, cards: list, tag: str) -> None:
+    """(e): the collective reduce plane on a sibling mesh dealt over the
+    cards (``visible_shards``: one shard a card) over the config-4 graph of
+    the blockwise watershed's first ``MC_EDGE``^3, equal to the same plane
+    on card 0 and to the host plane."""
+    from cluster_tools_tpu_torch.ops.rag import block_rag_fused
+    from cluster_tools_tpu_torch.parallel import reduce_tree as rt
+    from cluster_tools_tpu_torch.parallel import spmd
+    from cluster_tools_tpu_torch.parallel.mesh import sibling_mesh
+
+    n = MC_EDGE
+    ws_crop = f["ws"][(slice(0, n),) * 3]
+    bnd = vol[0, :n, :n, :n].cpu().numpy()
+    nodes, edges, _, sizes, mean = block_rag_fused(ws_crop, bnd, device="cuda:0")
+    s = np.maximum(np.asarray(sizes, np.float64), 1e-12)
+    payload = np.stack([np.asarray(mean, np.float64) * s, s], axis=1)
+    node_shard = rt.contiguous_node_shards(len(nodes), MULTICARD_NODE_SHARDS)
+    sib = sibling_mesh(devices="cuda")
+    if {str(d) for d in sib.devices} != {str(c) for c in cards}:
+        raise AssertionError(f"(e) the sibling mesh does not span the cards: {sib}")
+    solved = {}
+    for arm, plane, device in (("cards", "collective", "cuda"), ("one card", "collective", "cuda:0"),
+                               ("host", "packet", "cuda:0")):
+        kw = dict(fanout=2, mode="min", threshold=MULTICARD_AGG_THRESHOLD, max_workers=8, device=device,
+                  device_pool_bytes=REDUCE_POOL_BYTES, reduce_plane=plane)
+        rt.sharded_solve(len(nodes), edges, payload, node_shard, **kw)  # warm-up
+        spmd.COUNTERS.reset()
+        reset_peaks()
+        snap = rt.solve_snapshot()
+        sync_cards()
+        t0 = time.perf_counter()
+        labels, info = rt.sharded_solve(len(nodes), edges, payload, node_shard, **kw)
+        sync_cards()
+        solved[arm] = (labels, info, time.perf_counter() - t0, rt.solve_delta(snap), spmd.COUNTERS.snapshot(),
+                       card_peaks_gb())
+    for arm, want_plane in (("cards", "collective"), ("one card", "collective"), ("host", "host")):
+        info = solved[arm][1]
+        if info["reduce_plane"] != want_plane or "degraded_plane" in info:
+            raise AssertionError(f"(e) {arm}: plane {info['reduce_plane']} "
+                                 f"({info.get('degraded_plane', 'not degraded')}), expected {want_plane}")
+    for arm in ("one card", "host"):
+        if not np.array_equal(solved["cards"][0], solved[arm][0]):
+            raise AssertionError(f"(e) the collective plane over the cards differs from {arm} at "
+                                 f"{int((solved['cards'][0] != solved[arm][0]).sum())} of {len(nodes)} nodes")
+    log("multicard", f"(e) collective reduce plane, agglomerative payload, threshold {MULTICARD_AGG_THRESHOLD}, "
+                     f"{MULTICARD_NODE_SHARDS} node shards, on {sib}: the {n}^3 graph's {len(nodes)} nodes, "
+                     f"{len(edges)} edges -> {len(np.unique(solved['cards'][0]))} clusters; "
+                     + "; ".join(f"{arm}: " + tree_line(i, d, w) + f", collectives {collective_summary(c)}, peak GB by "
+                                 "card " + "/".join(f"{p:.2f}" for p in pk)
+                                 for arm, (_, i, w, d, c, pk) in solved.items())
+                     + f"; labels equal bit for bit {tag}")
+
+
+def multicard_fused(K, vol: torch.Tensor, f, mem: str, cards: list, tag: str) -> None:
+    """(f): ``FusedSegmentationWorkflow`` on the first ``FUSED_EDGE``^3 on
+    ``visible_shards`` (the card count) shards dealt over the cards,
+    ``fused`` and ``split``, equal bit for bit to ``make_ws_ccl_step`` on the
+    same grid on card 0; its cc and that of the 1-shard run are scipy's
+    partition, and ``n_foreground`` is each mesh's float32 sum of the exact
+    per-shard counts."""
+    import scipy.ndimage as ndi
+
+    from cluster_tools_tpu_torch.parallel.mesh import make_mesh, visible_shards
+    from cluster_tools_tpu_torch.parallel.pipeline import make_ws_ccl_step
+    from cluster_tools_tpu_torch.runtime.task import build as run_dag
+    from cluster_tools_tpu_torch.tasks.fused import FusedSegmentationWorkflow
+
+    block = (128, 128, 128)
+    fused_cfg = {k: v for k, v in MAIN_CFG.items() if k != "seed_mode"}
+    fvol = vol[:1, :FUSED_EDGE, :FUSED_EDGE, :FUSED_EDGE].contiguous()
+    fg = fvol[0] < torch.tensor(np.float32(fused_cfg["threshold"]), device=fvol.device)
+    n_exact = int(fg.sum())
+    ref_t = torch.from_numpy(ndi.label(fg.cpu().numpy())[0].astype(np.int32)).to(fvol.device)
+    f.require_dataset("boundaries_fused", shape=fvol.shape[1:], chunks=block, dtype="float32")[...] = \
+        fvol[0].cpu().numpy()
+    n_cards = visible_shards("cuda")
+    saved = {k: os.environ.get(k) for k in ("CTT_MESH_SHARDS", "CT_SEED_CCL")}
+    os.environ["CT_SEED_CCL"] = "sparse"
+    try:
+        with tempfile.TemporaryDirectory(prefix="multicard-fused-") as root:
+            cfg_dir = os.path.join(root, "cfg")
+            os.makedirs(cfg_dir)
+            write_json(os.path.join(cfg_dir, "global.config"), {"block_shape": list(block)})
+            for shards, executions in ((n_cards, ("fused", "split")), (1, ("fused",))):
+                os.environ["CTT_MESH_SHARDS"] = str(shards)
+                one = make_mesh(shards, axis_names=("dp", "sp"), grid=(1, shards), devices=on_one_card(shards))
+                ref = make_ws_ccl_step(one, **fused_cfg)(fvol)
+                slabs = fg.reshape(shards, -1).sum(1).to(torch.float32)
+                acc = slabs[0]
+                for c in slabs[1:]:
+                    acc = acc + c
+                want_n = int(round(float(acc)))
+                for execution in executions:
+                    t = f"{shards}-{execution}"
+                    wf = FusedSegmentationWorkflow(tmp_folder=os.path.join(root, f"tmp-{t}"), config_dir=cfg_dir,
+                                                   max_jobs=8, input_path=mem, input_key="boundaries_fused",
+                                                   output_path=mem, ws_key=f"fws-{t}", cc_key=f"fcc-{t}",
+                                                   block_shape=list(block), execution=execution, **fused_cfg)
+                    K.reset_counts()
+                    reset_peaks()
+                    sync_cards()
+                    t0 = time.perf_counter()
+                    if not run_dag([wf]):
+                        raise AssertionError(f"(f) {t}: the fused workflow failed")
+                    sync_cards()
+                    wall = time.perf_counter() - t0
+                    by_card, peaks = card_kernel_launches(dict(K.CARD_LAUNCHES)), card_peaks_gb()
+                    doc = wf.output().read()
+                    if shards > 1:
+                        require_every_card(f"(f) {t}", dict(K.CARD_LAUNCHES), cards)
+                    ws_got = torch.from_numpy(f[f"fws-{t}"][...].view(np.int64)).to(fvol.device)
+                    cc_got = torch.from_numpy(f[f"fcc-{t}"][...].view(np.int64)).to(fvol.device)
+                    for what, a, b in (("ws", ws_got, ref[0][0]), ("cc", cc_got, ref[1][0])):
+                        if not torch.equal(a, b.to(a.device).long()):
+                            raise AssertionError(f"(f) {t}: {what} differs from make_ws_ccl_step on the same grid "
+                                                 "on cuda:0")
+                    if not partition_equal(cc_got, ref_t):
+                        raise AssertionError(f"(f) {t}: cc is not scipy.ndimage.label's partition")
+                    if doc["n_foreground"] != want_n:
+                        raise AssertionError(f"(f) {t}: n_foreground {doc['n_foreground']} != {want_n} (exact "
+                                             f"count {n_exact})")
+                    f._data.pop(f"fws-{t}")
+                    f._data.pop(f"fcc-{t}")
+                    del ws_got, cc_got
+                    log("multicard", f"(f) FusedSegmentationWorkflow {tuple(fvol.shape[1:])}, {execution}, mesh "
+                                     f"{doc['mesh']} (shards dealt over the cards): wall {wall:.3f} s = "
+                                     f"{fvol.numel() / wall:.4g} voxels/s, peak GB by card "
+                                     + "/".join(f"{p:.2f}" for p in peaks)
+                                     + f"; ws, cc = make_ws_ccl_step on the same grid on cuda:0 bit for bit; cc = "
+                                     f"scipy partition; n_foreground {doc['n_foreground']} (exact count {n_exact}); "
+                                     f"B1-B4 launches by card {by_card} {tag}")
+                del ref
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    f._data.pop("boundaries_fused")
+
+
+def multicard_alone(K, args) -> None:
+    """``--only multicard`` (two cards or more of one host): the
+    mesh, the collectives, the NCCL pod and the executor with their shards
+    or processes dealt over the cards, each held bit for bit against the
+    same grid on one card (cuda:0).  (a) the split and fused steps on
+    ``SHARDED_SHAPE`` at dp=1 x sp=4 and dp=2 x sp=4, every launch of a
+    split run replayed on its card; (b) the mesh-exact EDT across card
+    cuts; (c) NCCL pods (``MULTICARD_PODS``); (d) the executor's shards arm
+    at k = 1 and 4; (e) the collective reduce plane on a sibling mesh over
+    the cards; (f) the fused workflow.  Prints the peer-access matrix, the
+    topology, and beside every number the cards' name and power limit."""
+    from cluster_tools_tpu_torch.utils.synthetic import synthetic_boundaries
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        raise RuntimeError(f"--only multicard needs two cards or more; {n_cards} visible")
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    tag = multicard_label()
+    t_arm = time.perf_counter()
+    peer = [[i == j or torch.cuda.can_device_access_peer(i, j) for j in range(n_cards)] for i in range(n_cards)]
+    log("multicard", f"{n_cards} cards {tag}; peer access (row: from, column: to) "
+                     + " ".join("".join("1" if p else "0" for p in row) for row in peer)
+                     + ("; every pair has peer access" if all(map(all, peer))
+                        else "; a pair without peer access copies through host memory"))
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True, timeout=60)
+    for ln in (topo.stdout or topo.stderr).splitlines():
+        log("multicard-topo", ln)
+    os.environ["CT_FILL_MODE"], os.environ["CT_TIER_MODE"] = "capacity", "cond"
+    cfg = dict(MAIN_CFG, fill_mode="capacity", tier_mode="cond")
+    vol = torch.cat([synthetic_boundaries((1,) + SHARDED_SHAPE[1:],
+                                          torch.Generator(device="cuda:0").manual_seed(args.seed + b))
+                     for b in range(SHARDED_SHAPE[0])])
+    stage_s = {}
+
+    def stage(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        stage_s[name] = time.perf_counter() - t0
+        log("multicard", f"{name}: {stage_s[name]:.1f} s {tag}")
+        return out
+
+    launches = stage("(a) grids", multicard_grids, K, vol, cfg, cards, tag)
+    stage("(b) exact EDT", multicard_edt, K, vol, tag)
+    stage("(c) pods", multicard_pods, vol, cfg, cards, tag)
+    f, mem = stage("(d) shards", multicard_shards, K, vol, cards, tag)
+    stage("(e) reduce plane", multicard_reduce, K, vol, f, cards, tag)
+    stage("(f) fused", multicard_fused, K, vol, f, mem, cards, tag)
+    log("multicard", "launches by card of one split run: " + json.dumps(launches))
+    log("multicard", f"arm {time.perf_counter() - t_arm:.1f} s: "
+                     + ", ".join(f"{k} {v:.1f}" for k, v in stage_s.items()) + f" s {tag}")
+
+
 def faults_alone(K, args) -> None:
     """``--only faults``: the main path's volume, the "blockwise" phase's
     single-pass watershed of it (the yardstick, one run) and the "faults"
@@ -4939,15 +5493,21 @@ def serve_alone(K, args) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["faults", "serve", "fleet", "analysis", "lifted", "shards"], default=None,
+    ap.add_argument("--only", choices=["faults", "serve", "fleet", "analysis", "lifted", "shards", "multicard"],
+                    default=None,
                     help="build the kernels and run one phase alone on its own blockwise yardstick (faults, "
                          "analysis: the 512^3 watershed; shards: the 512^3 cc and watershed; serve, fleet: cc and "
                          "the watershed at SERVE_EDGE^3; lifted: the main path's cc labels, then its arm (a) at "
-                         "512^3); prints no kernels or result line")
+                         "512^3; multicard: two cards or more, the mesh, the NCCL pod and the executor over the "
+                         "cards against one card); prints no kernels or result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    if args.only == "multicard" and torch.cuda.device_count() < 2:
+        print(f"chip_smoke: --only multicard needs two cards or more; {torch.cuda.device_count()} visible",
+              file=sys.stderr)
         return 2
 
     from cluster_tools_tpu_torch import build
@@ -4967,11 +5527,13 @@ def main() -> int:
         f"wall {time.perf_counter() - t0:.1f}s")
 
     if args.only is not None:
-        {"faults": faults_alone, "serve": serve_alone, "fleet": fleet_alone,
-         "analysis": analysis_alone, "lifted": lifted_alone, "shards": shards_alone}[args.only](K, args)
+        {"faults": faults_alone, "serve": serve_alone, "fleet": fleet_alone, "analysis": analysis_alone,
+         "lifted": lifted_alone, "shards": shards_alone, "multicard": multicard_alone}[args.only](K, args)
         log("done", f"{time.perf_counter() - t_start:.1f}s")
         print(nvidia_smi())
         return 0
+    if torch.cuda.device_count() < 2:
+        log("multicard", f"one card visible: the --only multicard arm (two cards or more) does not run [{smi}]")
     phase_lint(smi)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows, vol, ref, ws_crop, main_s_per_voxel = main_phases(K, args, gen)

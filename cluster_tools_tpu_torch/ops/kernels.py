@@ -19,7 +19,8 @@ in the reference, nothing on the main path selects it.
 
 A wrapper runs the twin only for a CPU tensor (or ``impl="torch"``); for
 a CUDA tensor it launches its kernel or raises — never a silent fallback.
-``LAUNCHES`` counts kernel launches (twin calls do not count); ``RUNGS``
+``LAUNCHES`` counts kernel launches (twin calls do not count) and
+``CARD_LAUNCHES`` the same launches by ``(kernel, card)``; ``RUNGS``
 counts which rung each remap site took (the per-tile table kernel or the
 gather rung the reference takes when a table overflows).  The shards of a
 mesh run on threads of one process, so the counts and the capture list
@@ -51,6 +52,8 @@ WS_OFFS = ((-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
 DEFAULT_TILE = (16, 16, 128)
 
 LAUNCHES: Counter = Counter()
+# launches by (kernel, "cuda:i"): which card each launch ran on
+CARD_LAUNCHES: Counter = Counter()
 RUNGS: Counter = Counter()
 # launches by service request (``runtime/admission.py``'s ambient context),
 # taken out by the server when the request ends
@@ -62,6 +65,7 @@ _LOCK = threading.Lock()
 def reset_counts() -> None:
     with _LOCK:
         LAUNCHES.clear()
+        CARD_LAUNCHES.clear()
         RUNGS.clear()
         REQUEST_LAUNCHES.clear()
 
@@ -111,6 +115,8 @@ def _launch(name: str, device: torch.device, lib, fn_name: str, *args) -> None:
     ctx = admission.current_request()
     with _LOCK:
         LAUNCHES[name] += 1
+        # a CUDA tensor's device always names its card
+        CARD_LAUNCHES[(name, str(device))] += 1
         if ctx is not None:
             REQUEST_LAUNCHES.setdefault(ctx.request_id, Counter())[name] += 1
 

@@ -5,8 +5,10 @@ axes (``dp`` over independent volumes, ``sp`` over spatial slabs, as in the
 reference), factors its shards into a grid, and gives each shard a device.
 A device may hold several shards: one card carries a whole mesh the way
 the reference's tests carry one on eight virtual CPU devices of a host.
-Shards are dealt round-robin over the cards of the machine; so are the
-blockwise executor's (:func:`backend_devices`).  A mesh that
+Shards are dealt round-robin over the cards of the machine (shard ``s`` on
+card ``s % cards``) whenever the caller names no card or the card without
+an index (``"cuda"``); so are the blockwise executor's
+(:func:`backend_devices`).  A mesh that
 spans processes (:func:`~.multihost.pod_mesh`) also records the process of
 each shard; the shards of one process run there, the rest elsewhere.
 
@@ -146,8 +148,9 @@ def make_mesh(n_shards: Optional[int] = None, axis_names: Sequence[str] = ("dp",
     """Build a mesh of ``n_shards`` shards.
 
     ``devices``: one device per shard (a list), or one device for all of
-    them (a string or ``torch.device``); ``None`` deals the shards
-    round-robin over the machine's cards and raises without one.
+    them (a string or ``torch.device``); ``None`` or ``"cuda"`` without an
+    index deals the shards round-robin over the machine's cards and raises
+    without one (``"cuda:0"`` keeps every shard on card 0).
     ``n_shards`` defaults to the length of a device list, else to the number
     of cards, and with one device to :func:`visible_shards`.  ``grid`` pins
     the per-axis sizes; otherwise the shards are factored so the spatial
@@ -158,9 +161,12 @@ def make_mesh(n_shards: Optional[int] = None, axis_names: Sequence[str] = ("dp",
             n_shards = visible_shards("cuda")
         devs = _card_devices(n_shards)
     elif isinstance(devices, (str, torch.device)):
+        dev = resolve_device(devices)
         if n_shards is None:
-            n_shards = visible_shards(devices)
-        devs = [resolve_device(devices)] * n_shards
+            n_shards = visible_shards(dev)
+        # the card with no index is every card: its shards are dealt over
+        # them, as the reference's mesh spans every device
+        devs = _card_devices(n_shards) if dev.type == "cuda" and dev.index is None else [dev] * n_shards
     else:
         devs = [resolve_device(d) for d in devices]
         if n_shards is not None:

@@ -320,22 +320,38 @@ ENV_DEMO = "CT_MP_DEMO"
 
 def ws_ccl_pod_demo() -> None:
     """SPMD body: :func:`cc_pod_demo`, then the split ws+cc step z-sharded
-    over the pod.  ``CT_MP_DEMO`` holds a JSON object: ``volume`` (an
-    ``.npy`` batch), ``cfg`` (keywords of ``make_ws_ccl_split``) and
-    ``out`` (an ``.npz`` that process 0 writes with ``ws``, ``cc``,
-    ``n_fg`` and ``overflow``).  Prints ``WS_CCL_POD_OK``."""
+    over the pod, then :func:`collectives_supported`.  ``CT_MP_DEMO``
+    holds a JSON object: ``volume`` (an ``.npy`` batch), ``cfg`` (keywords
+    of ``make_ws_ccl_split``) and ``out`` (an ``.npz`` that process 0
+    writes with ``ws``, ``cc``, ``n_fg`` and ``overflow``).  Prints
+    ``WS_CCL_POD_OK`` with the step's seconds (ended by a sync of this
+    process's card), the bytes its collectives staged through host memory
+    and the probe's answer, and a ``POD_COUNTERS`` line with the step's
+    :data:`~.spmd.COUNTERS`."""
     import json
 
     import torch.distributed as dist
 
+    from . import spmd
     from .split_pipeline import make_ws_ccl_split
 
     cc_pod_demo()
     job = json.loads(os.environ[ENV_DEMO])
     vol = np.load(job["volume"])
     mesh = pod_mesh(axis_names=("dp", "sp"), grid=(1, dist.get_world_size() * int(os.environ.get(_ENV_SHARDS, 1))))
+    dev = _POD["device"]
+    spmd.COUNTERS.reset()
+    t0 = time.perf_counter()
     ws, cc, n_fg, overflow = make_ws_ccl_split(mesh, **job["cfg"])(vol)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    step_s = time.perf_counter() - t0
+    counters = spmd.COUNTERS.snapshot()
+    staged = sum(c["bytes"] for kinds in counters.values() for kind, c in kinds.items() if kind == "host_staged")
+    probe, why = collectives_supported(deadline_s=60.0)
     if dist.get_rank() == 0:
         np.savez(job["out"], ws=ws.cpu().numpy(), cc=cc.cpu().numpy(), n_fg=float(n_fg), overflow=overflow)
     print(f"WS_CCL_POD_OK pid={dist.get_rank()} processes={dist.get_world_size()} shards={mesh.size} "
-          f"n_fg={float(n_fg):.0f} overflow={overflow}", flush=True)
+          f"device={dev} backend={_POD['backend']} n_fg={float(n_fg):.0f} overflow={overflow} "
+          f"step_s={step_s:.3f} host_staged_bytes={staged} collectives_supported={probe} ({why})", flush=True)
+    print("POD_COUNTERS " + json.dumps(counters), flush=True)

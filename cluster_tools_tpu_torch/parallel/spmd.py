@@ -24,16 +24,29 @@ Two backends carry the collectives:
   own.  A rendezvous has a deadline; when it passes, or when a member's
   body has already returned without reaching it, it raises naming the
   collective and the shards missing.  An exception in one shard aborts
-  every rendezvous, so the other shards raise instead of hanging.  Shards
-  on one card share its current stream, so a tensor handed between threads
-  after a rendezvous is ordered by launch order.
+  every rendezvous, so the other shards raise instead of hanging.  Each
+  shard's thread runs under ``torch.cuda.device(its card)`` on that card's
+  default stream, and nothing here sets another stream.  Shards on one
+  card share that stream, so a tensor handed between threads after a
+  rendezvous is ordered by launch order.  Across cards, the thread that
+  computes the results moves each operand with ``.to(card)``: PyTorch's
+  copy between two cards first makes the source card's current stream
+  wait for the destination card's, and then makes the destination card's
+  current stream wait for the copy.  So work a shard queued on its card
+  before the rendezvous is done before the copy reads it, and work the
+  receiving shard queues afterwards starts after the copy lands.  A copy
+  between cards without peer access goes through host memory; it is
+  ordered the same way.
 - **Across processes** (:class:`ProcessComm`, built by
   :func:`~.multihost.pod_mesh`), each process runs its own shards as
   above; once a group's local members have deposited, the last of them
   carries the cross-process leg over a process group of its own:
   ``all_gather`` for gathers and sums, ``all_reduce(MAX)`` for ``pmax``,
   send/recv pairs for ``ppermute`` and ``all_to_all``.  Over gloo, CUDA
-  tensors are staged through pinned host memory.
+  tensors are staged through pinned host memory.  Over NCCL each process
+  owns one card, and every process group's communicator is made when the
+  group is (:meth:`ProcessComm.attach`), with every rank taking part, so a
+  first send/recv batch that leaves a rank out cannot hang on it.
 
 :data:`COUNTERS` counts collective calls and operand bytes by stage and
 kind, the seconds shards spent waiting in rendezvous, and the bytes staged
@@ -533,7 +546,13 @@ class ProcessComm:
         self.mesh = None
 
     def attach(self, mesh) -> None:
-        """Make the process groups of ``mesh``'s cross-process groups."""
+        """Make the process groups of ``mesh``'s cross-process groups.
+
+        Every process makes them in the same order.  Over NCCL, each new
+        group then runs one ``all_reduce`` of its members: NCCL makes a
+        communicator on the first operation of a group, and that needs
+        every rank of the group, which a later ``ppermute`` whose edge
+        ranks neither send nor receive would not give it."""
         import torch.distributed as dist
 
         self.mesh = mesh
@@ -542,7 +561,12 @@ class ProcessComm:
                 key, _, members = _group(mesh, s, name)
                 procs = sorted({mesh.processes[m] for m in members})
                 if len(procs) > 1 and key not in self.groups:
-                    self.groups[key] = (dist.new_group(procs), procs)
+                    group = dist.new_group(procs)
+                    self.groups[key] = (group, procs)
+                    if self.backend == "nccl" and self.rank in procs:
+                        dev = mesh.devices[mesh.local_shards()[0]]
+                        with torch.cuda.device(dev):
+                            dist.all_reduce(torch.zeros(1, device=dev), group=group)
 
     # -- staging --
     def _wire(self, x: torch.Tensor, stage: str = "") -> torch.Tensor:
