@@ -1,0 +1,7 @@
+"""Device ms of the step's seeds stage: the CUDA events that the step's stage
+callback recorded around it, averaged over the traced steps."""
+
+
+def read(ctx):
+    ms = ctx.get("stage_ms", {}).get("seeds")
+    return sum(ms) / len(ms) if ms else None
