@@ -13,6 +13,13 @@ built the same way by ``g++`` with the JAX package's own flags
 any machine with a C++ compiler, and :func:`build_all` builds it beside the
 kernels.
 
+The thread-state helper (``csrc/ct_thread_state.cpp``, bound by
+:mod:`.runtime.trace`) is the one source compiled against PyTorch's own
+headers and libraries (:func:`thread_state_library`): it carries a
+thread's profiler state to the executor's worker threads.  Only a traced
+run asks for it, and a machine without a compiler or the headers goes
+without it (the tracer says why); it is not part of :func:`build_all`.
+
 Importing this module needs no ``nvcc``; :func:`build_all` does.  The
 shards of a mesh launch kernels from threads of one process, so building
 and loading happen under one lock: the first caller builds, the others wait
@@ -59,6 +66,11 @@ HOST_NAME = "ct_native"
 HOST_SOURCE = "ct_native.cpp"
 CXX = "g++"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
+
+# the thread-state helper: PyTorch's headers, its C++ ABI and its libraries
+THREAD_STATE_NAME = "ct_thread_state"
+THREAD_STATE_SOURCE = "ct_thread_state.cpp"
+THREAD_STATE_FLAGS = ["-O2", "-fPIC", "-std=c++20", "-shared", "-w"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: Dict[str, float] = {}
@@ -129,6 +141,35 @@ def host_library() -> Path:
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             _finish({HOST_NAME: _spawn(HOST_NAME, _host_cmd(), path)}, "host library")
+        return path
+
+
+def _thread_state_cmd() -> list:
+    import torch
+    from torch.utils.cpp_extension import include_paths
+
+    lib_dir = os.path.join(os.path.dirname(torch.__file__), "lib")
+    return [CXX, *THREAD_STATE_FLAGS, f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+            *(f"-I{p}" for p in include_paths()), str(CSRC / THREAD_STATE_SOURCE),
+            f"-L{lib_dir}", "-ltorch_cpu", "-lc10", f"-Wl,-rpath,{lib_dir}"]
+
+
+def thread_state_library() -> Path:
+    """The thread-state helper's path, compiling it with ``g++`` against
+    the running PyTorch at first use (named by a hash of the source, the
+    command and PyTorch's version, so another PyTorch builds its own).
+    Raises with the compiler's output when the build fails."""
+    import torch
+
+    cmd = _thread_state_cmd()
+    h = hashlib.sha1()
+    h.update((CSRC / THREAD_STATE_SOURCE).read_bytes())
+    h.update(" ".join([*cmd, torch.__version__]).encode())
+    path = BUILD_DIR / f"lib{THREAD_STATE_NAME}_{h.hexdigest()[:12]}.so"
+    with _BUILD_LOCK:
+        if not path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            _finish({THREAD_STATE_NAME: _spawn(THREAD_STATE_NAME, cmd, path)}, "thread-state helper")
         return path
 
 

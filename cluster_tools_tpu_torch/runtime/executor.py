@@ -76,7 +76,15 @@ each with its ``shard``; and in what they time: the
 port's ``executor.dispatch`` span ends after that sync, so it carries the
 device time, and ``executor.d2h`` is the copy back alone (the reference's
 dispatch ends at the asynchronous launch and its ``d2h`` waits for the
-device).
+device).  The port adds ``executor.lock_wait`` (a wait for a card's
+dispatch lock or its device page pool's lock; the copy's clock leaves it
+out) and ``executor.store.verify`` (the re-read against the digest); a
+task's ``load_fn``/``store_fn`` may add its own steps inside a phase
+(``executor.load.read``, ``executor.store.write``).  Every phase span
+records its thread's CPU and, while a profiler records, is mirrored into
+it; a task submitted to the sweep's pools runs under its submitter's
+thread state then, so the workers' torch ops land in the profile too
+(:mod:`.trace`).
 
 ``load_fn`` may return futures (anything with ``.result()``, such as
 ``read_async`` through :func:`~..io.prefetch.async_loader`): a batch's
@@ -596,12 +604,16 @@ class BlockwiseExecutor:
 
         # the service request's context is thread-local: every worker of
         # the sweep's pools (loads, stores, speculative re-runs) re-enters
-        # it, so block-grain handoffs keep the request's namespace
+        # it, so block-grain handoffs keep the request's namespace; while
+        # a traced run is profiled, a task also runs under its submitter's
+        # thread state, so its torch ops and phases land in the profile
         req_ctx = admission_mod.current_request()
 
         def scoped(fn):
+            state = trace_mod.capture_thread_state()
+
             def run(*a, **kw):
-                with admission_mod.request_scope(req_ctx):
+                with admission_mod.request_scope(req_ctx), trace_mod.thread_state(state):
                     return fn(*a, **kw)
             return run
 
@@ -775,22 +787,26 @@ class BlockwiseExecutor:
             # stage clocks on the tracer's clock, measured and never recorded
             clock = trace_mod.begin("executor.h2d")
             nbytes = sum(int(np.asarray(x).nbytes) for x in val)
-            with (trace_mod.span("executor.h2d", task=task_name, nbytes=nbytes, grain="dense")
+            with (trace_mod.phase("executor.h2d", task=task_name, nbytes=nbytes, grain="dense")
                   if block is not None else contextlib.nullcontext()):
                 inputs = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in val)
             device_pool_mod.record_h2d(nbytes)
+            # blocked behind another thread's call on the card: a phase of
+            # its own, not the copy's
+            waiting = trace_mod.begin("executor.lock_wait", phase=True, task=task_name, lock="dispatch", shard=shard)
             with shard_locks[shard], _on_card(device), (watched(block, "compute") if block is not None
                                                         else contextlib.nullcontext()):
+                waited = waiting.end()
                 _sync(device)
                 h2d_s = clock.end(discard=True)
                 clock = trace_mod.begin("executor.dispatch")
-                with trace_mod.span("executor.dispatch", n_blocks=1, task=task_name,
-                                    grain="batch" if block is not None else "per_block", shard=shard):
+                with trace_mod.phase("executor.dispatch", n_blocks=1, task=task_name,
+                                     grain="batch" if block is not None else "per_block", shard=shard):
                     out = kernel(*inputs)
                     _sync(device)
                 kernel_s = clock.end(discard=True)
             clock = trace_mod.begin("executor.d2h")
-            with (trace_mod.span("executor.d2h", task=task_name, n_blocks=1)
+            with (trace_mod.phase("executor.d2h", task=task_name, n_blocks=1)
                   if block is not None else contextlib.nullcontext()):
                 out = _to_numpy(out)
             d2h_s = clock.end(discard=True)
@@ -798,7 +814,7 @@ class BlockwiseExecutor:
             note_dispatch(1)
             with lock:
                 shard_calls[shard] += 1
-            add("h2d_s", h2d_s)
+            add("h2d_s", h2d_s - waited)
             add("kernel_s", kernel_s)
             add("d2h_s", d2h_s)
             return out
@@ -829,7 +845,7 @@ class BlockwiseExecutor:
             clock = trace_mod.begin("executor.load")
             try:
                 with watched(block, "load", origin), faults_mod.block_context(int(block.block_id)), \
-                        trace_mod.span("executor.load", block=int(block.block_id), origin=origin, task=task_name):
+                        trace_mod.phase("executor.load", block=int(block.block_id), origin=origin, task=task_name):
                     for k in range(self.max_retries + 1):
                         attempts = k + 1
                         try:
@@ -954,11 +970,12 @@ class BlockwiseExecutor:
                         return
                     store_fn(blk, block_out)
                     if store_verify_fn is not None:
-                        store_verify_fn(blk)
+                        with trace_mod.phase("executor.store.verify", block=bid, task=task_name):
+                            store_verify_fn(blk)
 
                 clock = trace_mod.begin("executor.store")
                 with watched(blk, "store", origin), faults_mod.block_context(bid), \
-                        trace_mod.span("executor.store", block=bid, origin=origin, task=task_name):
+                        trace_mod.phase("executor.store", block=bid, origin=origin, task=task_name):
                     _, attempts, tb, store_resource = self._io_with_retries("store", blk, store_and_verify,
                                                                             on_error=classify)
                 add("store_s", clock.end(discard=True))
@@ -1009,7 +1026,7 @@ class BlockwiseExecutor:
             """A hung block's duplicate: a fresh load, the kernel alone on
             the device, a first-wins commit against the original."""
             try:
-                with trace_mod.span("executor.speculate", block=int(blk.block_id), task=task_name):
+                with trace_mod.phase("executor.speculate", block=int(blk.block_id), task=task_name):
                     val = load_block(blk, origin="speculative")
                     if val is None:
                         return
@@ -1069,7 +1086,7 @@ class BlockwiseExecutor:
                 else:
                     return sb.pools, sb.tables, sb.valids, sb.specs
             nbytes = sum(int(p.nbytes) for p in rb.pools)
-            with trace_mod.span("executor.h2d", task=task_name, nbytes=nbytes, grain="ragged"):
+            with trace_mod.phase("executor.h2d", task=task_name, nbytes=nbytes, grain="ragged"):
                 pools = to_dev(rb.pools, device)
             device_pool_mod.record_h2d(nbytes)
             return pools, rb.tables, rb.valids, rb.specs
@@ -1087,8 +1104,12 @@ class BlockwiseExecutor:
             outputs, rung)]``."""
             device = self.devices[group[0][0]]
             results = []
+            pool_wait = (trace_mod.begin("executor.lock_wait", phase=True, task=task_name, lock="device_pool")
+                         if dev_pool is not None and rb is not None else None)
             with _on_card(device), (dev_pool.lock_for(device) if dev_pool is not None and rb is not None
                                     else contextlib.nullcontext()):
+                if pool_wait is not None:
+                    pool_wait.end()
                 # a ragged batch's staging counts to its card's first
                 # shard's h2d (stage clocks as in exec_single)
                 clock = trace_mod.begin("executor.h2d")
@@ -1105,11 +1126,14 @@ class BlockwiseExecutor:
                     else:
                         arrays = [a[lanes] for a in payload]
                         nbytes = sum(int(a.nbytes) for a in arrays)
-                        with trace_mod.span("executor.h2d", task=task_name, grain="dense", nbytes=nbytes,
-                                            shard=shard):
+                        with trace_mod.phase("executor.h2d", task=task_name, grain="dense", nbytes=nbytes,
+                                             shard=shard):
                             inputs = tuple(to_dev(arrays, device))
                         device_pool_mod.record_h2d(nbytes)
+                    waiting = trace_mod.begin("executor.lock_wait", phase=True, task=task_name, lock="dispatch",
+                                              shard=shard)
                     with shard_locks[shard], contextlib.ExitStack() as stack:
+                        waited = waiting.end()
                         span_args = dict(task=task_name, n_blocks=len(real), shard=shard,
                                          grain="ragged" if rb is not None else "sharded")
                         if rb is not None:
@@ -1119,7 +1143,7 @@ class BlockwiseExecutor:
                         _sync(device)
                         h2d_s = clock.end(discard=True)
                         clock = trace_mod.begin("executor.dispatch")
-                        with trace_mod.span("executor.dispatch", **span_args):
+                        with trace_mod.phase("executor.dispatch", **span_args):
                             if rb is not None:
                                 out, rung = ragged_sweep(kernel, *inputs)
                             else:
@@ -1128,11 +1152,11 @@ class BlockwiseExecutor:
                             _sync(device)
                         kernel_s = clock.end(discard=True)
                     clock = trace_mod.begin("executor.d2h")
-                    with trace_mod.span("executor.d2h", task=task_name, n_blocks=len(real), shard=shard):
+                    with trace_mod.phase("executor.d2h", task=task_name, n_blocks=len(real), shard=shard):
                         out = _to_numpy(out)
                     d2h_s = clock.end(discard=True)
                     device_pool_mod.record_d2h(_tree_nbytes(out))
-                    add("h2d_s", h2d_s)
+                    add("h2d_s", h2d_s - waited)
                     add("kernel_s", kernel_s)
                     add("d2h_s", d2h_s)
                     with lock:
@@ -1394,7 +1418,7 @@ class BlockwiseExecutor:
                         break
                     # the wait span is the dispatch_wait_s clock; sub-100us
                     # waits are counted but not recorded
-                    wait_span = trace_mod.begin("executor.batch_wait", task=task_name, batch=i)
+                    wait_span = trace_mod.begin("executor.batch_wait", phase=True, task=task_name, batch=i)
                     batch, kind, payload, vals = pending.pop(0).result()
                     waited = wait_span.end(discard=True)
                     if waited > 1e-4:

@@ -6,6 +6,36 @@ file names, so either package's ``merge``/``summarize`` reads the other's
 shards.  Differences in what the port *emits* (not in this module): it
 compiles no programs, so it has no compile spans, and its executor's
 dispatch spans end after the device sync (see ``runtime/executor.py``).
+Differences in this module, none of which changes a shard's or a
+summary's format:
+
+- **the ring keeps the window**: a new run's directory seals the previous
+  run's shard, and each shard holds only its own run's events, but the
+  ring (:func:`stats`, ``snapshot_events``) keeps every event since
+  :func:`configure` up to its bound, so a reader of several runs in one
+  process sees them all;
+- **executor phases** (:func:`phase`, ``begin(..., phase=True)``) also
+  record their thread's user and system CPU as the span args
+  ``cpu_user_ms`` / ``cpu_sys_ms``, which :func:`summarize` totals per
+  site: wall minus CPU is what the phase spent waiting (GIL, locks, I/O);
+- **the mirror into torch.profiler**: while a ``torch.profiler`` session
+  records, an executor phase span, and a step inside one
+  (``executor.store.write``), also opens a function-scope profiler record
+  under the phase's name (``executor.store``), so the profiler stamps the
+  executor's phases on the device trace's own clock and its idle gaps can
+  be put down to them.  Plain spans (``executor.sweep``, ``task.*``)
+  cover every gap and are not mirrored.  Function scope, not
+  ``record_function``'s user scope: the profiler copies user annotations
+  onto the device's timeline, where they would read as device time;
+- **worker threads join a running profile**: the profiler's callbacks and
+  state are thread-local to the thread that started it, so the executor
+  submits each task with :func:`capture_thread_state` and runs it under
+  :func:`thread_state` (PyTorch's ``at::ThreadLocalState``, through the
+  small helper ``csrc/ct_thread_state.cpp``); the worker's torch ops and
+  mirrored spans then land in the profile under the worker's own thread
+  id.  Where the helper cannot be built, :func:`thread_state_missing`
+  says why (printed to stderr once, at the first task submitted while a
+  profile records) and only the profiling thread's spans are mirrored.
 
 The runtime attributes every *failure* (``failures.json``, schema v2) and
 counts every *byte and dispatch* (``io_metrics.json``), but neither answers
@@ -54,9 +84,13 @@ source means the timeline, the manifests, and the heartbeats agree.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import json
 import os
+import resource
 import socket
+import sys
 import threading
 import time
 from collections import deque
@@ -119,7 +153,10 @@ class _Tracer:
         # dirs set via set_trace_dir may roll over to a new run's dir
         self.pinned = trace_dir is not None
         self.max_events = max(1, int(buffer))
+        # every run's events since configure(); the last ``n_run`` of them
+        # are the current run's (what a flush writes)
         self._events: deque = deque(maxlen=self.max_events)
+        self.n_run = 0
         # the per-process clock anchor: monotonic timestamps in the shard
         # map to wall time as wall0 + (ts - mono0), which is what lets the
         # merger put offset clocks on one timeline
@@ -137,6 +174,7 @@ class _Tracer:
         if len(events) == self.max_events:
             self.dropped += 1
         events.append((ph, name, ts, dur, threading.get_ident(), args))
+        self.n_run += 1
 
     def counts(self) -> Dict[str, int]:
         """Buffered span/instant counts + all-time dropped/flushes —
@@ -150,12 +188,26 @@ class _Tracer:
             "flushes": int(self.flushes),
         }
 
-    def snapshot_events(self) -> List[Dict[str, Any]]:
+    @staticmethod
+    def _dicts(raw) -> List[Dict[str, Any]]:
         return [
             {"ph": ph, "name": name, "ts": ts, "dur": dur, "tid": tid,
              "args": args}
-            for ph, name, ts, dur, tid, args in list(self._events)
+            for ph, name, ts, dur, tid, args in raw
         ]
+
+    def snapshot_events(self) -> List[Dict[str, Any]]:
+        """Every buffered event since configure(), every run's."""
+        return self._dicts(list(self._events))
+
+    def run_events(self) -> List[Dict[str, Any]]:
+        """The current run's buffered events (its shard)."""
+        raw = list(self._events)
+        return self._dicts(raw[len(raw) - min(self.n_run, len(raw)):])
+
+    def run_dropped(self) -> int:
+        """The current run's events the ring's bound has dropped."""
+        return max(0, int(self.n_run) - self.max_events)
 
 
 _tracer: Optional[_Tracer] = None
@@ -212,15 +264,15 @@ def set_trace_dir(path: str) -> None:
     writer wins, and an operator-pinned ``CTT_TRACE=<dir>`` (or an explicit
     :func:`configure` dir) is never re-pointed.  A task-derived call with a
     DIFFERENT directory means a NEW run in the same long-lived process: the
-    previous run's shard is sealed in its own directory and the ring starts
-    fresh, so two runs' timelines never cross-contaminate."""
+    previous run's shard is sealed in its own directory and the next shard
+    starts fresh, so two runs' timelines never cross-contaminate; the ring
+    keeps the sealed run's events for :func:`stats` and its readers."""
     t = _get()
     if t.dir is None:
         t.dir = path
     elif path != t.dir and not t.pinned:
         flush()
-        t._events.clear()
-        t.dropped = 0
+        t.n_run = 0
         t.dir = path
         _last_merge.clear()
 
@@ -255,23 +307,68 @@ def _context_args(args: Dict[str, Any]) -> Dict[str, Any]:
     return args
 
 
+# -- the mirror into torch.profiler --------------------------------------------
+
+_RecordFunctionFast = None
+
+
+def _profiling() -> bool:
+    """A ``torch.profiler`` session is recording in this process (the flag
+    torch sets at a session's start and clears at its stop); False where
+    torch is not loaded."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and getattr(prof, "_is_profiler_enabled", False)
+
+
+def mirror_name(name: str) -> str:
+    """The profiler name phase span ``name`` is mirrored under: the phase's
+    own name for the phase and for a step inside it
+    (``executor.store.write`` -> ``executor.store``), so the profiler sees
+    a handful of names while ``trace.json`` keeps the full ones."""
+    return ".".join(name.split(".")[:2])
+
+
+def _open_record(name: str):
+    """A function-scope profiler record named ``name``, entered on this
+    thread (a no-op inside torch where this thread records nothing)."""
+    global _RecordFunctionFast
+    if _RecordFunctionFast is None:
+        from torch._C._profiler import _RecordFunctionFast as rf
+
+        _RecordFunctionFast = rf
+    rec = _RecordFunctionFast(name)
+    rec.__enter__()
+    return rec
+
+
+_RUSAGE_THREAD = getattr(resource, "RUSAGE_THREAD", None)
+
+
+def _thread_cpu():
+    return resource.getrusage(_RUSAGE_THREAD) if _RUSAGE_THREAD is not None else None
+
+
 class Span:
     """One timed span: a context manager (``with span(...)``) or a manual
     ``begin()``/``end()`` pair.  ``end`` returns the elapsed seconds —
     always measured, so callers can feed duration counters whether or not
     the event was recorded — and records the event unless ``discard``.
+    A phase span also reads its thread's CPU at both ends, and a mirrored
+    one holds its profiler record from its start to its first ``end``.
 
     Hot-path discipline (the <5% bench-sweep overhead bar): the tracer
     reference is captured at construction (one singleton lookup per span,
     not two) and the timestamp reads are bound locally."""
 
-    __slots__ = ("name", "args", "t0", "elapsed_s", "_recorded", "_tracer")
+    __slots__ = ("name", "args", "t0", "elapsed_s", "_recorded", "_tracer", "_record", "_cpu")
 
     def __init__(self, name: str, args: Dict[str, Any],
-                 tracer: Optional["_Tracer"] = None):
+                 tracer: Optional["_Tracer"] = None, cpu: bool = False):
         self.name = name
         self.args = args
         self._tracer = tracer
+        self._record = None
+        self._cpu = _thread_cpu() if cpu else None
         self.t0 = time.monotonic()
         self.elapsed_s: Optional[float] = None
         self._recorded = False
@@ -280,6 +377,13 @@ class Span:
         t1 = time.monotonic()
         if self.elapsed_s is None:
             self.elapsed_s = t1 - self.t0
+            if self._record is not None:
+                self._record.__exit__(None, None, None)
+                self._record = None
+            if self._cpu is not None:
+                ru = _thread_cpu()
+                self._cpu = ((ru.ru_utime - self._cpu.ru_utime) * 1e3,
+                             (ru.ru_stime - self._cpu.ru_stime) * 1e3)
         if self._recorded or discard:
             return self.elapsed_s
         self._recorded = True
@@ -287,6 +391,9 @@ class Span:
         if t.enabled:
             if extra:
                 self.args.update(extra)
+            if self._cpu is not None:
+                self.args["cpu_user_ms"] = round(self._cpu[0], 3)
+                self.args["cpu_sys_ms"] = round(self._cpu[1], 3)
             t.record(
                 "X", self.name, self.t0, self.elapsed_s,
                 _context_args(self.args),
@@ -299,6 +406,15 @@ class Span:
     def __exit__(self, exc_type, exc, tb) -> bool:
         self.end(error=True) if exc_type is not None else self.end()
         return False
+
+
+def _phase_span(name: str, args: Dict[str, Any], tracer: "_Tracer") -> Span:
+    """A phase span of the enabled tracer: its thread's CPU, and the
+    mirror while a profiler records."""
+    sp = Span(name, args, tracer, cpu=True)
+    if _profiling():
+        sp._record = _open_record(mirror_name(name))
+    return sp
 
 
 class _NullSpan:
@@ -334,12 +450,137 @@ def span(name: str, **args):
     return Span(name, args, t)
 
 
-def begin(name: str, **args) -> Span:
+def phase(name: str, **args):
+    """An executor phase, or a step inside one (``executor.load.read``): a
+    :func:`span` that also records its thread's user and system CPU
+    (``cpu_user_ms``, ``cpu_sys_ms``) and, while a profiler records, is
+    mirrored into it under :func:`mirror_name`; the shared null context
+    when tracing is off.  Spans that cover every gap of a sweep
+    (``executor.sweep``, ``task.*``) are no phases: they would name every
+    idle gap and explain none."""
+    t = _tracer
+    if t is None:
+        t = _get()
+    if not t.enabled:
+        return _NULL
+    return _phase_span(name, args, t)
+
+
+def begin(name: str, phase: bool = False, **args) -> Span:
     """A *timed* span: always measures (two monotonic reads), records only
     when tracing is on.  ``sp.end()`` returns the elapsed seconds;
     ``sp.end(discard=True)`` measures without recording (e.g. an admission
-    gate that never actually waited)."""
-    return Span(name, args)
+    gate that never actually waited).  With ``phase`` and tracing on it is
+    an executor phase as :func:`phase` makes one (its CPU, the mirror)."""
+    if not phase:
+        return Span(name, args)
+    t = _get()
+    return _phase_span(name, args, t) if t.enabled else Span(name, args, t)
+
+
+# -- executor threads join a running profile -------------------------------------
+
+_tls_lib: Optional[ctypes.CDLL] = None
+_tls_missing: Optional[str] = None
+_tls_lock = threading.Lock()
+
+
+def _thread_state_lib() -> Optional[ctypes.CDLL]:
+    """The thread-state helper, built (:func:`..build.thread_state_library`)
+    and loaded at the first call; None, with :data:`_tls_missing` saying
+    why, where it cannot be."""
+    global _tls_lib, _tls_missing
+    if _tls_lib is None and _tls_missing is None:
+        with _tls_lock:
+            if _tls_lib is None and _tls_missing is None:
+                try:
+                    from .. import build
+
+                    lib = ctypes.CDLL(str(build.thread_state_library()))
+                    P = ctypes.c_void_p
+                    for fn, argtypes, restype in (("ct_tls_capture", [], P), ("ct_tls_free", [P], None),
+                                                  ("ct_tls_enter", [P], P), ("ct_tls_exit", [P], None)):
+                        getattr(lib, fn).argtypes = argtypes
+                        getattr(lib, fn).restype = restype
+                    _tls_lib = lib
+                except Exception as e:  # noqa: BLE001 - any failure means no helper, said once
+                    lines = str(e).strip().splitlines() or [type(e).__name__]
+                    _tls_missing = f"the thread-state helper is not available here: {lines[0][:300]}"
+    return _tls_lib
+
+
+def thread_state_missing() -> Optional[str]:
+    """Why the executor's worker threads cannot join a running profile
+    here (the helper ``csrc/ct_thread_state.cpp`` could not be built or
+    loaded), or None when they can.  Builds the helper at the first call."""
+    _thread_state_lib()
+    return _tls_missing
+
+
+class ThreadState:
+    """A thread's captured PyTorch thread-local state (its profiler's
+    callbacks and state among it), freed with the last task holding it."""
+
+    __slots__ = ("_lib", "_ptr")
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._lib = lib
+        self._ptr = lib.ct_tls_capture()
+
+    def __del__(self):
+        self._lib.ct_tls_free(self._ptr)
+
+
+@contextlib.contextmanager
+def _installed(state: ThreadState):
+    """``state`` installed on this thread for the body only: the thread's
+    own state is restored at the exit, so nothing outlives the task."""
+    guard = state._lib.ct_tls_enter(state._ptr)
+    try:
+        yield
+    finally:
+        state._lib.ct_tls_exit(guard)
+
+
+def capture_thread_state() -> Optional[ThreadState]:
+    """This thread's state for a task it submits to a worker thread, while
+    tracing is on and a ``torch.profiler`` session records; None otherwise,
+    and where the helper is missing.  With tracing on, the first call loads
+    (or builds) the helper whether a profiler records or not, so no build
+    falls inside a profile."""
+    t = _tracer
+    if t is None:
+        t = _get()
+    if not t.enabled:
+        return None
+    lib = _thread_state_lib()
+    if not _profiling():
+        return None
+    if lib is None:
+        _say_missing()
+        return None
+    return ThreadState(lib)
+
+
+_tls_said = False
+
+
+def _say_missing() -> None:
+    """Print :func:`thread_state_missing`'s reason to stderr, once a
+    process: a profile is recording without the workers' phases, so what
+    it puts the idle card down to is the profiling thread's alone."""
+    global _tls_said
+    if not _tls_said:
+        _tls_said = True
+        print(f"ctt trace: the executor's worker threads record nothing into this profile: {_tls_missing}",
+              file=sys.stderr, flush=True)
+
+
+def thread_state(state: Optional[ThreadState]):
+    """A context that runs its body under ``state`` (from
+    :func:`capture_thread_state`) and restores the thread's own state
+    after; the shared null context for None."""
+    return _NULL if state is None else _installed(state)
 
 
 def task_context(name: str, **args):
@@ -374,9 +615,9 @@ def shard_path(trace_dir: str) -> str:
 def flush(trace_dir: Optional[str] = None) -> Optional[str]:
     """Write this process's buffered events as its shard (atomic rewrite —
     a kill mid-flush leaves the previous shard, never a torn one).  Safe
-    to call repeatedly: each flush rewrites the full buffer, so the last
-    flush before a crash is what survives.  No-op (returns None) when
-    tracing is off or no directory is known."""
+    to call repeatedly: each flush rewrites the current run's full buffer,
+    so the last flush before a crash is what survives.  No-op (returns
+    None) when tracing is off or no directory is known."""
     t = _get()
     if not t.enabled:
         return None
@@ -391,8 +632,8 @@ def flush(trace_dir: Optional[str] = None) -> Optional[str]:
         "hostname": socket.gethostname(),
         "wall0": t.wall0,
         "mono0": t.mono0,
-        "dropped": int(t.dropped),
-        "events": t.snapshot_events(),
+        "dropped": t.run_dropped(),
+        "events": t.run_events(),
     }
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "w") as f:
@@ -560,16 +801,25 @@ def _critical_path(task_spans: List[Dict[str, Any]]) -> Optional[Dict]:
 
 def summarize(chrome: Dict[str, Any]) -> Dict[str, Any]:
     """Run-level aggregates over a merged timeline: per-site latency
-    percentiles, instant counts, the task-DAG critical path, and per-
-    process utilization (busy seconds by category vs wall extent — >1.0
-    concurrency means the category genuinely overlapped)."""
+    percentiles (and, for the executor's phase spans, their thread CPU
+    totals ``cpu_user_ms`` / ``cpu_sys_ms``), instant counts, the task-DAG
+    critical path, and per-process utilization (busy seconds by category
+    vs wall extent — >1.0 concurrency means the category genuinely
+    overlapped)."""
     spans = [e for e in chrome.get("traceEvents", [])
              if e.get("ph") == "X"]
     instants = [e for e in chrome.get("traceEvents", [])
                 if e.get("ph") == "i"]
     sites: Dict[str, List[float]] = {}
+    # the thread CPU of the executor's phase spans, totalled per site
+    cpu: Dict[str, List[float]] = {}
     for e in spans:
         sites.setdefault(e["name"], []).append(float(e.get("dur", 0.0)) / 1e6)
+        args = e.get("args") or {}
+        if "cpu_user_ms" in args:
+            tot = cpu.setdefault(e["name"], [0.0, 0.0])
+            tot[0] += float(args["cpu_user_ms"])
+            tot[1] += float(args.get("cpu_sys_ms", 0.0))
     site_stats = {}
     for name, vals in sorted(sites.items()):
         vals.sort()
@@ -581,6 +831,9 @@ def summarize(chrome: Dict[str, Any]) -> Dict[str, Any]:
             "p99_ms": round(_percentile(vals, 99) * 1e3, 3),
             "max_ms": round(vals[-1] * 1e3, 3),
         }
+        if name in cpu:
+            site_stats[name]["cpu_user_ms"] = round(cpu[name][0], 3)
+            site_stats[name]["cpu_sys_ms"] = round(cpu[name][1], 3)
     instant_counts: Dict[str, int] = {}
     for e in instants:
         instant_counts[e["name"]] = instant_counts.get(e["name"], 0) + 1

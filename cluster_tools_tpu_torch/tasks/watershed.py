@@ -36,6 +36,7 @@ import numpy as np
 from ..ops.tile_ws import dt_watershed_lanes, dt_watershed_seeded_tiled, dt_watershed_tiled
 from ..ops.watershed import distance_transform_watershed, dt_watershed_seeded, filter_small_segments
 from ..runtime import handoff
+from ..runtime import trace as trace_mod
 from ..runtime.executor import BlockwiseExecutor, region_verifier, sweep_config, validate_labels
 from ..runtime.task import BaseTask, WorkflowBase, get_task_cls
 from ..utils.volume_utils import Blocking, blocks_in_volume, file_reader, pad_block_to
@@ -151,10 +152,13 @@ class _WsTaskBase(BaseTask):
 
     def _store_labels(self, out, block, raw, n_outer):
         """Crop the inner region from the padded-outer labels and globalize."""
-        inner = raw[block.inner_in_outer_bb]
-        glob = np.where(inner > 0, np.uint64(block.block_id) * np.uint64(n_outer + 1) + inner.astype(np.uint64),
-                        np.uint64(0))
-        out[block.bb] = glob
+        with trace_mod.phase("executor.store.encode", block=int(block.block_id)):
+            inner = raw[block.inner_in_outer_bb]
+            glob = np.where(inner > 0, np.uint64(block.block_id) * np.uint64(n_outer + 1) + inner.astype(np.uint64),
+                            np.uint64(0))
+        # the container write, its digest sidecar (CRC32) included
+        with trace_mod.phase("executor.store.write", block=int(block.block_id)):
+            out[block.bb] = glob
         return glob
 
     def _note_overflow(self, block, ovf, overflow_blocks) -> None:
@@ -199,11 +203,16 @@ class WatershedBase(_WsTaskBase):
         bnd_stash = {}
 
         def load(block):
-            # pad with 1.0 (pure boundary) so basins don't leak off-volume
-            data = pad_block_to(inp[block.outer_bb].astype(np.float32), outer, constant_values=1.0)
+            with trace_mod.phase("executor.load.read", block=int(block.block_id)):
+                data = inp[block.outer_bb].astype(np.float32)
+                m = mask_ds[block.outer_bb] > 0 if mask_ds is not None else None
+            # the halo'd region into the padded block: pad with 1.0 (pure
+            # boundary) so basins don't leak off-volume
+            with trace_mod.phase("executor.load.pad", block=int(block.block_id)):
+                data = pad_block_to(data, outer, constant_values=1.0)
+                m = pad_block_to(m, outer) if m is not None else np.ones(outer, bool)
             if agg_thr is not None:
                 bnd_stash[block.block_id] = data
-            m = pad_block_to(mask_ds[block.outer_bb] > 0, outer) if mask_ds is not None else np.ones(outer, bool)
             return data, m
 
         use_tiled = impl != "legacy" and not two_d and kp["connectivity"] == 1 and len(outer) == 3

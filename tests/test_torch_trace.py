@@ -14,7 +14,12 @@ the spans, instants and fault sites of the reduce tree.
   name.  Two names are held out because their count is a matter of timing,
   in both packages: ``executor.batch_wait`` (recorded only when the
   dispatch loop waited over 100 us) and ``chunk_cache.wait`` (only when a
-  read found another reader's load of its chunk in flight).  The port
+  read found another reader's load of its chunk in flight).  The port's
+  own steps inside a phase (``executor.load.read`` / ``.pad``,
+  ``executor.store.encode`` / ``.write`` / ``.verify``) and its
+  ``executor.lock_wait`` have no counterpart in the reference: they are
+  held out of the comparison and counted on the port alone, one a block
+  (or a call to the card) each.  The port
   compiles no programs, and the reference emits no compile span either, so
   that is no difference.  The port's ``executor.dispatch`` span carries the
   device time and its ``executor.d2h`` the copy alone (see
@@ -266,6 +271,11 @@ def test_progress_script_reads_the_ports_tmp_folder(tmp_path, capsys):
 # -- the watershed sweep's span names against the reference -----------------------------------------
 
 TIMING_DEPENDENT = ("executor.batch_wait", "chunk_cache.wait")
+# the port's steps inside a phase and its lock waits, with the phase whose
+# count each equals
+PORT_ONLY = {"executor.load.read": "executor.load", "executor.load.pad": "executor.load",
+             "executor.store.encode": "executor.store", "executor.store.write": "executor.store",
+             "executor.store.verify": "executor.store", "executor.lock_wait": "executor.dispatch"}
 
 
 def _traced_ws(root, side):
@@ -319,8 +329,10 @@ def test_watershed_sweep_span_names_and_counts_equal_the_reference(tmp_path, mon
     want = json.loads(out.stdout.strip().splitlines()[-1])
     got, labels = _traced_ws(str(tmp_path), "port")
     np.testing.assert_array_equal(labels, np.load(tmp_path / "jax_labels.npy"))
+    own = {name: got.pop(name, 0) for name in PORT_ONLY}
     assert got == want
     assert got["executor.load"] == 8 == got["executor.dispatch"] and got["task.run"] >= 2
+    assert own == {name: got[of] for name, of in PORT_ONLY.items()}
 
 
 # -- the reduce tree's fault sites and trace events ----------------------------------------------------
