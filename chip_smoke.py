@@ -27,7 +27,8 @@ Phases, each one line of output, each raising on failure:
    all axes at radius 32 and n-1, and at n in {1, 7, 31, 33, 127, 576,
    1100} x radius in {0, 1, 32, n-1}, with anisotropic weights; B4 remap
    with -1 slots and a chained pair, and every kind of
-   ``adversarial_remap_np`` table on three tile shapes);
+   ``adversarial_remap_np`` table on three tile shapes; the row scan's sum
+   and max on rows of 0, 1 and a tile +- 1 elements and on long rows);
 4. main path: ``make_ws_ccl_split`` at the benchmark's headline config
    (``(1, 512, 512, 512)`` synthetic volume, halo 32, threshold 0.45, EDT
    cap 32, min seed distance 2, sparse seed CCL): one warm-up (host syncs
@@ -349,6 +350,9 @@ KERNELS = {
     "tile_ws_propagate": ("B2", "cluster_tools_tpu_torch/csrc/tile_ws.cu", "cluster_tools_tpu/ops/pallas_kernels.py:277"),
     "edt_cascade": ("B3", "cluster_tools_tpu_torch/csrc/edt_cascade.cu", "cluster_tools_tpu/ops/pallas_kernels.py:332"),
     "apply_remap": ("B4", "cluster_tools_tpu_torch/csrc/apply_remap.cu", "cluster_tools_tpu/ops/pallas_kernels.py:384"),
+    # the stages' row scans: no Pallas kernel, XLA's lax.cumsum / lax.cummax
+    "row_scan.sum": ("S1", "cluster_tools_tpu_torch/csrc/row_scan.cu", "none (lax.cumsum)"),
+    "row_scan.max": ("S2", "cluster_tools_tpu_torch/csrc/row_scan.cu", "none (lax.cummax)"),
 }
 # the config-4 shape: the fused RAG + parallel GAEC on this crop of the main
 # path's watershed labels
@@ -622,6 +626,15 @@ def phase_kernels(K, gen) -> None:
             require_equal(f"B4 apply_remap {kind} tables, tile {rtile}",
                           K.apply_remap(lab_c, old_c, new_c, rtile, 64, impl="cuda"),
                           K.apply_remap_torch(lab_c, old_c, new_c, rtile, 64))
+    # the row scan: rows of 0, 1 and a tile +- 1 elements, long ragged rows
+    # (odd lengths take the scalar form), bool rows, and all-(-1) max rows
+    lengths = (0, 1, K.ROW_SCAN_TILE - 1, K.ROW_SCAN_TILE, K.ROW_SCAN_TILE + 1, 1_000_003, 1 << 22)
+    for n in lengths:
+        x = torch.randint(-(2**31), 2**31 - 1, (3, n), generator=gen, device=dev, dtype=torch.int32)
+        flags = torch.rand((3, n), generator=gen, device=dev) < 0.3
+        for what, op, xs in (("int32 sum", "sum", x), ("bool sum", "sum", flags), ("int32 max", "max", x),
+                             ("-1 max", "max", torch.full_like(x, -1))):
+            require_equal(f"row scan {what} of [3, {n}]", K.row_scan(xs, op, impl="cuda"), K.row_scan_torch(xs, op))
     sync_cards()
     log("kernels", f"B1 and B1d (smooth mask, 8 adversarial tiles on 16x16x128, "
                    f"{', '.join('x'.join(map(str, t)) for t in CCL_TILES)} tiles, noise at 3 densities on "
@@ -631,7 +644,8 @@ def phase_kernels(K, gen) -> None:
                    f"{', '.join('x'.join(map(str, t)) for t in FLOW_TILES)} tiles), "
                    f"B3 ({n_b3} axis/n/radius/weight cases), "
                    f"B4 (-1 slots, chained pair; {len(REMAP_KINDS) + 1} adversarial table kinds on "
-                   f"16x16x128, 4x8x32, 4x8x30 tiles) equal their twins exactly")
+                   f"16x16x128, 4x8x32, 4x8x30 tiles), the row scan (sum of int32 and bool, max, "
+                   f"rows of {', '.join(map(str, lengths))}) equal their twins exactly")
 
 
 def bound_ms(name: str, args, kwargs) -> tuple:
@@ -650,6 +664,8 @@ def bound_ms(name: str, args, kwargs) -> tuple:
         # per step: min of the two neighbours, one float32 add, one min
         # (min(a + c, b + c) == min(a, b) + c exactly: rounding is monotone)
         t_ops = 3.0 * kwargs["radius"] * n / FP32_OPS_PER_S * 1e3
+    elif name.startswith("row_scan."):
+        nbytes = n * (x.element_size() + 4)
     else:  # apply_remap: one hashed lookup per voxel of a tile with a live slot
         old, new = args[1], args[2]
         nbytes = n * 8 + old.numel() * 8
@@ -675,6 +691,9 @@ def replay(K, name, args, kwargs):
         kw = (kwargs["axis"], kwargs["radius"], kwargs["w"], kwargs["big"])
         kfn = lambda: K.edt_cascade(args[0], *kw, impl="cuda")
         tfn = lambda: K.edt_cascade_torch(args[0], *kw)
+    elif name.startswith("row_scan."):
+        kfn = lambda: K.row_scan(args[0], kwargs["op"], impl="cuda")
+        tfn = lambda: K.row_scan_torch(args[0], kwargs["op"])
     else:
         kfn = lambda: K.apply_remap(*args, kwargs["tile"], kwargs["cap"], impl="cuda")
         tfn = lambda: K.apply_remap_torch(*args, kwargs["tile"], kwargs["cap"])
@@ -5522,7 +5541,7 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = build.build_all()
     log("build", "kernels " + ", ".join(
-        f"{k} ({ident}) {secs[k]:.1f}s" for k, (ident, _, _) in KERNELS.items()
+        f"{k} ({ident}) {secs[k.partition('.')[0]]:.1f}s" for k, (ident, _, _) in KERNELS.items()
     ) + f"; host library {build.HOST_NAME} (g++) {secs[build.HOST_NAME]:.1f}s, {build.host_library_path().name}; "
         f"wall {time.perf_counter() - t0:.1f}s")
 

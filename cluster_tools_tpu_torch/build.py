@@ -48,6 +48,7 @@ SOURCES = {
     "tile_ws_propagate": "tile_ws.cu",
     "edt_cascade": "edt_cascade.cu",
     "apply_remap": "apply_remap.cu",
+    "row_scan": "row_scan.cu",
 }
 
 NVCC_FLAGS = [
@@ -207,13 +208,14 @@ def _build_all() -> Dict[str, float]:
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     sigs = {
         "tile_ccl": ("ct_tile_ccl", [P, P, I, I, I, I, I, I, P]),
         "tile_ccl_doubling": ("ct_tile_ccl_doubling", [P, P, P, I, I, I, I, I, I, P]),
         "tile_ws_propagate": ("ct_tile_ws_propagate", [P, P, P, I, I, I, I, I, I, P]),
         "edt_cascade": ("ct_edt_cascade", [P, P, I, I, I, I, I, F, F, P]),
         "apply_remap": ("ct_apply_remap", [P, P, P, P, I, I, I, I, I, I, I, P]),
+        "row_scan": ("ct_row_scan", [P, P, P, I, L, I, I, P]),
     }
     fn_name, argtypes = sigs[name]
     fn = getattr(lib, fn_name)

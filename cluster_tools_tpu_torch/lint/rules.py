@@ -763,7 +763,7 @@ def ct004_fault_site_coverage(module: LintModule) -> List[Finding]:
 #: the package (``chip_smoke.py``, ``scripts/``); read from the real module
 #: when the checked file lies in the package.
 _DEFAULT_KERNEL_ENTRIES = frozenset({
-    "tile_ccl", "tile_ws_propagate", "edt_cascade", "apply_remap",
+    "tile_ccl", "tile_ws_propagate", "edt_cascade", "apply_remap", "row_scan",
 })
 
 #: clock reads that start or end a timing

@@ -12,10 +12,13 @@ wrapper                           CUDA source             replaces (Pallas kerne
 ``tile_ws_propagate``             tile_ws.cu              ``tile_ws_propagate_pallas`` (B2)
 ``edt_cascade``                   edt_cascade.cu          ``edt_cascade_pallas`` (B3)
 ``apply_remap``                   apply_remap.cu          ``apply_remap_pallas`` (B4)
+``row_scan``                      row_scan.cu             no Pallas kernel: XLA's ``cumsum``/``cummax``
 ================================  ======================  =============================================
 
 B1d computes B1's function by run doubling (``_ccl_kernel_doubling``); as
-in the reference, nothing on the main path selects it.
+in the reference, nothing on the main path selects it.  ``row_scan`` is the
+stages' row-wise inclusive scan, which the reference leaves to XLA and
+PyTorch runs on one thread block a row.
 
 A wrapper runs the twin only for a CPU tensor (or ``impl="torch"``); for
 a CUDA tensor it launches its kernel or raises — never a silent fallback.
@@ -489,5 +492,52 @@ def apply_remap(labels, old_tbl, new_tbl, tile=DEFAULT_TILE, cap: int = 64, impl
         "apply_remap", labels.device, _cuda_lib("apply_remap"), "ct_apply_remap",
         labels.data_ptr(), old_tbl.data_ptr(), new_tbl.data_ptr(), out.data_ptr(),
         *labels.shape, *tile, int(cap),
+    )
+    return out
+
+
+# ---------------------------------------------------------- row scan ----
+
+SCAN_OPS = ("sum", "max")
+# elements a CTA of the kernel scans (csrc/row_scan.cu, kTile)
+ROW_SCAN_TILE = 4096
+
+
+def row_scan_torch(x: torch.Tensor, op: str) -> torch.Tensor:
+    """Twin of the row scan: ``torch.cumsum(x, 1, dtype=torch.int32)`` or
+    ``torch.cummax(x, 1).values``."""
+    if op == "sum":
+        return torch.cumsum(x, 1, dtype=torch.int32)
+    return torch.cummax(x, 1).values
+
+
+def row_scan(x: torch.Tensor, op: str, impl: str = "auto") -> torch.Tensor:
+    """Inclusive scan along the last axis of a ``[B, N]`` tensor, int32 out.
+
+    ``op``: ``sum`` of int32 or bool input, wrapping as int32 arithmetic
+    does, or ``max`` of int32 input.  Exact, so the kernel and the twin
+    agree bit for bit.
+    """
+    if op not in SCAN_OPS:
+        raise ValueError(f"op must be one of {SCAN_OPS}, got {op!r}")
+    if x.dim() != 2:
+        raise ValueError(f"row_scan expects a [B, N] tensor, got shape {tuple(x.shape)}")
+    dtypes = (torch.int32, torch.bool) if op == "sum" else (torch.int32,)
+    if x.dtype not in dtypes:
+        raise ValueError(f"row_scan {op}: dtype {x.dtype} not in {dtypes}")
+    if resolve_impl(impl, x) == "torch":
+        return row_scan_torch(x, op)
+    name = f"row_scan.{op}"
+    _record(name, (x,), {"op": op})
+    _check(x, dtypes, name)
+    rows, n = x.shape
+    out = torch.empty((rows, n), dtype=torch.int32, device=x.device)
+    if out.numel() == 0:
+        return out
+    # a tile counter, then one status word per (row, tile)
+    scratch = torch.zeros(1 + rows * -(-n // ROW_SCAN_TILE), dtype=torch.int64, device=x.device)
+    _launch(
+        name, x.device, _cuda_lib("row_scan"), "ct_row_scan",
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), rows, n, SCAN_OPS.index(op), int(x.dtype == torch.bool),
     )
     return out

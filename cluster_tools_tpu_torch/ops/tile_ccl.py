@@ -27,7 +27,7 @@ import torch
 
 from ..device import as_tensor, resolve_device, resolve_impl
 from .ccl import _shift
-from .kernels import BIG, apply_remap, count_rung, tile_ccl
+from .kernels import BIG, apply_remap, count_rung, row_scan, tile_ccl
 from .unionfind import union_find_tensor
 
 DEFAULT_TILE = (16, 16, 128)
@@ -106,6 +106,9 @@ def _compact(flags: torch.Tensor, values, cap: int, fill: int):
 # row computes exactly what the single-lane function computes for that
 # lane alone (labels lane-local; capacities, overflow flags and round
 # counts per row).  The single-lane functions are the rows with B = 1.
+# Their row scans run on the hand-written row scan (``kernels.row_scan``)
+# on the CUDA route and on its twin, torch's own scans, on the torch
+# route, so each takes the route's ``impl``.
 
 
 def _zeros_i32(b: int, like: torch.Tensor) -> torch.Tensor:
@@ -116,8 +119,10 @@ def _iota_rows(b: int, n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=like.device).expand(b, n)
 
 
-def _cumsum_rows(x: torch.Tensor) -> torch.Tensor:
-    return torch.cumsum(x.to(torch.int32), 1, dtype=torch.int32)
+def _cumsum_rows(flags: torch.Tensor, impl: str) -> torch.Tensor:
+    # one row too: there torch takes cub, which the row scan matches on
+    # int32 and beats on bool flags (no int32 cast pass; PERF.md)
+    return row_scan(flags.contiguous(), "sum", impl)
 
 
 def _take_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -168,12 +173,12 @@ def _gather_rows(order: torch.Tensor, *xs: torch.Tensor):
     return tuple(torch.gather(x, 1, order) for x in xs)
 
 
-def _compact_rows(flags: torch.Tensor, values, cap: int, fill: int):
+def _compact_rows(flags: torch.Tensor, values, cap: int, fill: int, impl: str):
     """:func:`_compact` per row: ``flags`` ``[B, ...]`` and each value of
     the same shape; returns ``([B, cap] per value, n_kept [B] int32)``."""
     b = flags.shape[0]
     flat = flags.reshape(b, -1)
-    pos = _cumsum_rows(flat) - 1
+    pos = _cumsum_rows(flat, impl) - 1
     dest = torch.where(flat, pos, cap)
     dest = torch.where(dest >= cap, cap, dest).long()
     out = []
@@ -209,8 +214,8 @@ def resolve_tier_mode(mode: Optional[str] = None) -> str:
 
 
 def run_capacity_tiered(arrays, n_total, big_cap, core, n_padded, max_rounds,
-                        tier, trunc_fold=None):
-    """Run ``core(*arrays, cap, max_rounds)`` on ``[B, M]`` rows at 1/16
+                        tier, impl, trunc_fold=None):
+    """Run ``core(*arrays, cap, max_rounds, impl)`` on ``[B, M]`` rows at 1/16
     capacity when the live entry count allows (see the reference's
     docstring); the first ``n_padded`` outputs are padded back to big-tier
     sizes with ``BIG``.  ``n_total`` is per row; under ``cond`` the tier is
@@ -221,8 +226,8 @@ def run_capacity_tiered(arrays, n_total, big_cap, core, n_padded, max_rounds,
     small_n = min(big_cap, max(3 * 16384, arrays[0].shape[1] // 16))
 
     def _small(args):
-        compacted, _ = _compact_rows(args[0] < BIG, args, small_n, BIG)
-        out = core(*compacted, small_n, max_rounds)
+        compacted, _ = _compact_rows(args[0] < BIG, args, small_n, BIG, impl)
+        out = core(*compacted, small_n, max_rounds, impl)
         padded = []
         for x in out[:n_padded]:
             extra = (x.shape[1] // small_n) * big_cap - x.shape[1]
@@ -230,7 +235,7 @@ def run_capacity_tiered(arrays, n_total, big_cap, core, n_padded, max_rounds,
         return tuple(padded) + tuple(out[n_padded:])
 
     def _big(args):
-        return core(*args, big_cap, max_rounds)
+        return core(*args, big_cap, max_rounds, impl)
 
     if tier == "big" or small_n >= big_cap:
         return _big(tuple(arrays))
@@ -250,7 +255,7 @@ def _stride_slice(x: torch.Tensor, start: int, stop: int, step: int, axis: int) 
     return x[tuple(idx)]
 
 
-def _face_pairs_axis(labels: torch.Tensor, tile, axis: int, pair_cap: int):
+def _face_pairs_axis(labels: torch.Tensor, tile, axis: int, pair_cap: int, impl: str):
     """Label pairs across tile boundaries along spatial ``axis`` of a
     ``[B, z, y, x]`` stack, run-deduped; ``([B, pair_cap] x2, kept [B])``."""
     b = labels.shape[0]
@@ -265,11 +270,11 @@ def _face_pairs_axis(labels: torch.Tensor, tile, axis: int, pair_cap: int):
     # run-dedup along the largest non-sliced axis
     dedup_axis = (2 if axis != 2 else 1) + 1
     keep = valid & ((a != _shift1(a, dedup_axis, -1)) | (bb != _shift1(bb, dedup_axis, -1)))
-    return _compact_rows(keep, (a, bb), pair_cap, BIG)
+    return _compact_rows(keep, (a, bb), pair_cap, BIG, impl)
 
 
 def merge_face_pairs_lanes(labels, tile, pair_cap=DEFAULT_PAIR_CAP, edge_cap=DEFAULT_EDGE_CAP,
-                           max_rounds: int = 64, tier: str = "cond"):
+                           max_rounds: int = 64, tier: str = "cond", impl: str = "auto"):
     """:func:`merge_face_pairs` over a ``[B, z, y, x]`` stack of lane-local
     labels; every output has a leading lane axis (overflow ``[B]`` bool)."""
     b = labels.shape[0]
@@ -277,14 +282,14 @@ def merge_face_pairs_lanes(labels, tile, pair_cap=DEFAULT_PAIR_CAP, edge_cap=DEF
     overflow = _zeros_i32(b, labels)
     n_total = _zeros_i32(b, labels)
     for axis in range(3):
-        (pa, pb), kept = _face_pairs_axis(labels, tile, axis, pair_cap)
+        (pa, pb), kept = _face_pairs_axis(labels, tile, axis, pair_cap, impl)
         pair_lists.append((pa, pb))
         overflow = torch.maximum(overflow, (kept > pair_cap).to(torch.int32))
         n_total = n_total + torch.clamp(kept, max=pair_cap)
     a = torch.cat([p[0] for p in pair_lists], 1)
     bb = torch.cat([p[1] for p in pair_lists], 1)
     ea, eb, root_a, root_b, n_edges, core_ovf = run_capacity_tiered(
-        (a, bb), n_total, edge_cap, _merge_core, 4, max_rounds, tier
+        (a, bb), n_total, edge_cap, _merge_core, 4, max_rounds, tier, impl
     )
     overflow = torch.maximum(overflow, core_ovf)
     return ea, eb, root_a, root_b, n_edges, overflow > 0
@@ -301,7 +306,7 @@ def merge_face_pairs(labels, tile, pair_cap=DEFAULT_PAIR_CAP, edge_cap=DEFAULT_E
     return tuple(o[0] for o in out[:5]) + (bool(out[5][0]),)
 
 
-def _merge_core(a, b, edge_cap, max_rounds):
+def _merge_core(a, b, edge_cap, max_rounds, impl):
     """Dedup + dense-id union-find over one capacity tier, per row; outputs
     ``[B, edge_cap]`` (``BIG``-padded), overflow ``[B]`` int32."""
     rows = a.shape[0]
@@ -309,7 +314,7 @@ def _merge_core(a, b, edge_cap, max_rounds):
     a, b = _gather_rows(order, a, b)
     dup = (a == _shift1(a, 1, -1)) & (b == _shift1(b, 1, -1))
     keep = (~dup) & (a < BIG)
-    (ea, eb), n_edges = _compact_rows(keep, (a, b), edge_cap, BIG)
+    (ea, eb), n_edges = _compact_rows(keep, (a, b), edge_cap, BIG, impl)
     overflow = (n_edges > edge_cap).to(torch.int32)
 
     # dense ids over the endpoint labels: the union-find table is edge-sized
@@ -317,7 +322,7 @@ def _merge_core(a, b, edge_cap, max_rounds):
     vals = torch.cat([ea, eb], 1)
     svals, sslots = torch.sort(vals, dim=1, stable=True)
     is_new = svals != _shift1(svals, 1, -1)
-    rank = _cumsum_rows(is_new) - 1
+    rank = _cumsum_rows(is_new, impl) - 1
     uniq = _scatter_set_rows(torch.full((rows, m2), BIG, dtype=torch.int32, device=a.device), rank, svals)
     dense = torch.zeros((rows, m2), dtype=torch.int32, device=a.device)
     dense.scatter_(1, sslots, rank)
@@ -361,7 +366,7 @@ def _tile_id_of(v: torch.Tensor, shape, tile) -> torch.Tensor:
 
 
 def build_remap_tables_lanes(tile_ids, old_vals, new_vals, n_tiles: int,
-                             table_cap: int = DEFAULT_TABLE_CAP, tier: str = "cond"):
+                             table_cap: int = DEFAULT_TABLE_CAP, tier: str = "cond", impl: str = "auto"):
     """Per-tile (old_label -> new_label) tables for kernel B4, per row of
     ``[B, M]`` entries.  ``tile_ids`` gives each entry's tile (``BIG``
     drops it); duplicates of (tile, old) collapse to one slot.  Returns
@@ -373,27 +378,27 @@ def build_remap_tables_lanes(tile_ids, old_vals, new_vals, n_tiles: int,
         n_live = (tile_ids < BIG).sum(1)
 
         def _small(args):
-            compacted, _ = _compact_rows(args[0] < BIG, args, small_n, BIG)
-            return _remap_tables_core(*compacted, n_tiles, table_cap)
+            compacted, _ = _compact_rows(args[0] < BIG, args, small_n, BIG, impl)
+            return _remap_tables_core(*compacted, n_tiles, table_cap, impl)
 
         if tier == "small":
             old_tbl, new_tbl, overflow = _small((tile_ids, old_vals, new_vals))
             return old_tbl, new_tbl, overflow | (n_live > small_n)
         if int(n_live.max()) <= small_n:
             return _small((tile_ids, old_vals, new_vals))
-    return _remap_tables_core(tile_ids, old_vals, new_vals, n_tiles, table_cap)
+    return _remap_tables_core(tile_ids, old_vals, new_vals, n_tiles, table_cap, impl)
 
 
-def _remap_tables_core(tile_ids, old_vals, new_vals, n_tiles, table_cap):
+def _remap_tables_core(tile_ids, old_vals, new_vals, n_tiles, table_cap, impl):
     rows = tile_ids.shape[0]
     order = _lexsort_rows(tile_ids, old_vals)
     tid, v, r = _gather_rows(order, tile_ids, old_vals, new_vals)
     dup = (tid == _shift1(tid, 1, -1)) & (v == _shift1(v, 1, -1))
     valid = (tid < BIG) & (~dup)
     # within-tile slot rank counting only valid entries
-    cnt = _cumsum_rows(valid)
+    cnt = _cumsum_rows(valid, impl)
     is_first = (tid != _shift1(tid, 1, -1)) & (tid < BIG)
-    base = torch.cummax(torch.where(is_first, cnt - valid.to(torch.int32), -1), 1).values
+    base = row_scan(torch.where(is_first, cnt - valid.to(torch.int32), -1), "max", impl)
     slot = torch.where(valid, cnt - 1 - base, table_cap)
     overflow = (valid & (slot >= table_cap)).any(1)
     dest = torch.where(valid & (slot < table_cap), tid * table_cap + slot, n_tiles * table_cap)
@@ -518,14 +523,15 @@ def label_components_tiled_lanes(mask: torch.Tensor, connectivity: int = 1, impl
     # the kernel's labels are flat indices into the stack: back to the lane's
     labels = torch.where(stacked < BIG, stacked - _lane_offsets(lanes, n_pad, m.device), BIG)
     ea, eb, root_a, root_b, n_edges, overflow = merge_face_pairs_lanes(
-        labels, tile, pair_cap=pair_cap, edge_cap=edge_cap, tier=tier
+        labels, tile, pair_cap=pair_cap, edge_cap=edge_cap, tier=tier, impl=impl
     )
     n_tiles = (zp // tz) * (yp // ty) * (xp // tx)
     v = torch.cat([ea, eb], 1)
     r = torch.cat([root_a, root_b], 1)
     changed = (v < BIG) & (r != v)
     tids = torch.where(changed, _tile_id_of(v, (zp, yp, xp), tile), BIG)
-    old_tbl, new_tbl, tbl_overflow = build_remap_tables_lanes(tids, v, r, n_tiles, table_cap=table_cap, tier=tier)
+    old_tbl, new_tbl, tbl_overflow = build_remap_tables_lanes(tids, v, r, n_tiles, table_cap=table_cap, tier=tier,
+                                                              impl=impl)
     if bool(tbl_overflow.any()):
         # a lane whose table overflows takes the gather rung; both rungs
         # give the same labels, so the whole stack takes it

@@ -27,7 +27,7 @@ import torch
 
 from ..device import as_tensor, resolve_device, resolve_impl
 from .ccl import _compress, _shift
-from .kernels import WS_OFFS, apply_remap, count_rung, tile_ws_propagate
+from .kernels import WS_OFFS, apply_remap, count_rung, row_scan, tile_ws_propagate
 from .tile_ccl import (
     BIG,
     DEFAULT_TABLE_CAP,
@@ -145,7 +145,8 @@ def _strip_entries(values: torch.Tensor, tile, axis: int, side: int):
     return sl, tid
 
 
-def collect_negative_values_lanes(values: torch.Tensor, tile, cap: int, tier: str = "cond"):
+def collect_negative_values_lanes(values: torch.Tensor, tile, cap: int, tier: str = "cond",
+                                  impl: str = "auto"):
     """Deduped (value, tile_id) pairs for negative labels on tile
     boundaries, per lane of a ``[B, z, y, x]`` stack (lane-local tile
     ids); returns ``(vals [B, *], tids [B, *], overflow [B] bool)``."""
@@ -162,7 +163,7 @@ def collect_negative_values_lanes(values: torch.Tensor, tile, cap: int, tier: st
             prev = _shift1(sl, dedup_axis, -1)
             prev_t = _shift1(tid, dedup_axis, -1)
             keep = neg & ((sl != prev) | (tid != prev_t))
-            (v, t_), kept = _compact_rows(keep, (sl, tid), fam_cap, BIG)
+            (v, t_), kept = _compact_rows(keep, (sl, tid), fam_cap, BIG, impl)
             overflow = torch.maximum(overflow, (kept > fam_cap).to(torch.int32))
             n_total = n_total + torch.clamp(kept, max=fam_cap)
             vs.append(v)
@@ -170,7 +171,7 @@ def collect_negative_values_lanes(values: torch.Tensor, tile, cap: int, tier: st
     v = torch.cat(vs, 1)
     t_ = torch.cat(ts, 1)
     cv, ct, n_kept = run_capacity_tiered(
-        (v, t_), n_total, cap, _collect_core, 2, 0, tier,
+        (v, t_), n_total, cap, _collect_core, 2, 0, tier, impl,
         # the last output is a COUNT checked against ``cap`` below
         trunc_fold=lambda n, trunc: torch.where(trunc > 0, cap + 1, n),
     )
@@ -178,17 +179,17 @@ def collect_negative_values_lanes(values: torch.Tensor, tile, cap: int, tier: st
     return cv, ct, overflow > 0
 
 
-def _collect_core(v, t_, cap, _max_rounds):
+def _collect_core(v, t_, cap, _max_rounds, impl):
     """Sort-dedup one (value, tile) tier per row; outputs ``[B, cap]``."""
     order = _lexsort_rows(v, t_)
     v, t_ = _gather_rows(order, v, t_)
     dup = (v == _shift1(v, 1, BIG)) & (t_ == _shift1(t_, 1, BIG))
     keep = (~dup) & (v < BIG)
-    (cv, ct), n_kept = _compact_rows(keep, (v, t_), cap, BIG)
+    (cv, ct), n_kept = _compact_rows(keep, (v, t_), cap, BIG, impl)
     return cv, ct, n_kept
 
 
-def value_join_lanes(query_vals, table_vals, table_finals, tier: str = "cond"):
+def value_join_lanes(query_vals, table_vals, table_finals, tier: str = "cond", impl: str = "auto"):
     """For each query value, the table's final (or the query itself if
     absent): a sort-based join per row of ``[B, M]`` arrays, tiered like
     the reference's ``value_join``; under ``cond`` the tier is one decision
@@ -199,21 +200,21 @@ def value_join_lanes(query_vals, table_vals, table_finals, tier: str = "cond"):
     small_t = max(16384, nt // 16)
     # tier "small" keeps the cond: value_join has no overflow channel
     if tier == "big":
-        return _value_join_core(query_vals, table_vals, table_finals)
+        return _value_join_core(query_vals, table_vals, table_finals, impl)
     if small_q < nq and small_t < nt:
         n_q = int((query_vals < BIG).sum(1).max())
         n_t = int((table_vals < BIG).sum(1).max())
         if n_q <= small_q and n_t <= small_t:
             (cq, slots), _ = _compact_rows(
-                query_vals < BIG, (query_vals, _iota_rows(lanes, nq, query_vals)), small_q, BIG,
+                query_vals < BIG, (query_vals, _iota_rows(lanes, nq, query_vals)), small_q, BIG, impl,
             )
-            (ctv, ctf), _ = _compact_rows(table_vals < BIG, (table_vals, table_finals), small_t, BIG)
-            res = _value_join_core(cq, ctv, ctf)
+            (ctv, ctf), _ = _compact_rows(table_vals < BIG, (table_vals, table_finals), small_t, BIG, impl)
+            res = _value_join_core(cq, ctv, ctf, impl)
             return _scatter_set_rows(query_vals, slots, res)
-    return _value_join_core(query_vals, table_vals, table_finals)
+    return _value_join_core(query_vals, table_vals, table_finals, impl)
 
 
-def _value_join_core(query_vals, table_vals, table_finals):
+def _value_join_core(query_vals, table_vals, table_finals, impl):
     lanes, nq = query_vals.shape
     nt = table_vals.shape[1]
     dev = query_vals.device
@@ -230,7 +231,7 @@ def _value_join_core(query_vals, table_vals, table_finals):
     order = _lexsort_rows(keys, is_query)
     keys, is_query, payload, slot = _gather_rows(order, keys, is_query, payload, slot)
     pos = _iota_rows(lanes, nt + nq, query_vals)
-    last_tbl = torch.cummax(torch.where(is_query == 0, pos, -1), 1).values
+    last_tbl = row_scan(torch.where(is_query == 0, pos, -1), "max", impl)
     at = torch.clamp(last_tbl, 0, nt + nq - 1)
     tbl_key = _take_rows(keys, at)
     tbl_fin = _take_rows(payload, at)
@@ -239,7 +240,8 @@ def _value_join_core(query_vals, table_vals, table_finals):
     return _scatter_set_rows(out, torch.where(is_query == 1, slot, nq), res)
 
 
-def chase_exits_lanes(values: torch.Tensor, codes: torch.Tensor, max_hops: int = 256, tier: str = "cond"):
+def chase_exits_lanes(values: torch.Tensor, codes: torch.Tensor, max_hops: int = 256, tier: str = "cond",
+                      impl: str = "auto"):
     """Resolve exit codes by following values across tiles, per lane:
     ``values`` ``[B, ...]``, ``codes`` ``[B, C]``.  Returns ``(finals [B,
     C], unconverged [B] bool)``: each code's chain end (seed label, 0, or
@@ -269,7 +271,7 @@ def chase_exits_lanes(values: torch.Tensor, codes: torch.Tensor, max_hops: int =
         return _core(codes)
 
     def _small(c):
-        (pc, slots), _ = _compact_rows(c <= -2, (c, _iota_rows(lanes, cap, c)), small_n, BIG)
+        (pc, slots), _ = _compact_rows(c <= -2, (c, _iota_rows(lanes, cap, c)), small_n, BIG, impl)
         fin_s, moved = _core(pc)
         # non-active codes map to themselves; padded slots (BIG) drop
         return _scatter_set_rows(c, slots, fin_s), moved
@@ -303,7 +305,7 @@ def _resolve_codes_gather(values: torch.Tensor, codes, finals) -> torch.Tensor:
 
 def fill_unseeded_basins_lanes(labels, height, fill_cap: int = DEFAULT_FILL_CAP,
                                max_rounds: Optional[int] = None, adj_cap: Optional[int] = None,
-                               tier: str = "cond"):
+                               tier: str = "cond", impl: str = "auto"):
     """Merge unseeded basins across their lowest saddles (Boruvka rounds on
     the compacted basin-boundary edge list), per lane of a ``[B, z, y, x]``
     stack.  Returns ``(edge_vals [B, *], edge_finals [B, *], overflow [B]
@@ -327,7 +329,7 @@ def fill_unseeded_basins_lanes(labels, height, fill_cap: int = DEFAULT_FILL_CAP,
         flag = (a != b) & (a != 0) & (b != 0) & ((a < 0) | (b < 0))
         dedup_axis = (2 if axis != 2 else 1) + 1
         keep = flag & ((a != _shift1(a, dedup_axis, 0)) | (b != _shift1(b, dedup_axis, 0)))
-        (pa, pb, ph), kept = _compact_rows(keep, (a, b, saddle), fill_cap, BIG)
+        (pa, pb, ph), kept = _compact_rows(keep, (a, b, saddle), fill_cap, BIG, impl)
         overflow = torch.maximum(overflow, (kept > fill_cap).to(torch.int32))
         n_total = n_total + torch.clamp(kept, max=fill_cap)
         evs_a.append(pa)
@@ -339,13 +341,13 @@ def fill_unseeded_basins_lanes(labels, height, fill_cap: int = DEFAULT_FILL_CAP,
     if adj_cap is None:
         adj_cap = min(3 * fill_cap, max(DEFAULT_ADJ_CAP, n_lane // 32))
     edge_vals, edge_finals, core_overflow = run_capacity_tiered(
-        (a, b, hk), n_total, adj_cap, _fill_core, 2, max_rounds, tier
+        (a, b, hk), n_total, adj_cap, _fill_core, 2, max_rounds, tier, impl
     )
     overflow = torch.maximum(overflow, core_overflow)
     return edge_vals, edge_finals, overflow > 0
 
 
-def _fill_core(a, b, hk, adj_cap, max_rounds):
+def _fill_core(a, b, hk, adj_cap, max_rounds, impl):
     """Dedup + dense ids + Boruvka rounds over one capacity tier, per row;
     outputs ``[B, 2 * adj_cap]``, overflow ``[B]`` int32."""
     dev = a.device
@@ -355,7 +357,7 @@ def _fill_core(a, b, hk, adj_cap, max_rounds):
     sa, sb, sh = _gather_rows(order, a, b, hk)
     first = (sa != _shift1(sa, 1, BIG)) | (sb != _shift1(sb, 1, BIG))
     keep_adj = first & (sa < BIG)
-    (a, b, hk), n_adj = _compact_rows(keep_adj, (sa, sb, sh), adj_cap, BIG)
+    (a, b, hk), n_adj = _compact_rows(keep_adj, (sa, sb, sh), adj_cap, BIG, impl)
     overflow = (n_adj > adj_cap).to(torch.int32)
 
     # dense ids over all endpoint values
@@ -364,7 +366,7 @@ def _fill_core(a, b, hk, adj_cap, max_rounds):
     vals = torch.cat([a, b], 1)
     sv, ss = torch.sort(vals, dim=1, stable=True)
     is_new = sv != _shift1(sv, 1, -BIG)
-    rank = _cumsum_rows(is_new) - 1
+    rank = _cumsum_rows(is_new, impl) - 1
     uniq = _scatter_set_rows(torch.full((lanes, m2), BIG, dtype=torch.int32, device=dev), rank, sv)
     dense = torch.zeros((lanes, m2), dtype=torch.int32, device=dev)
     dense.scatter_(1, ss, rank)
@@ -417,7 +419,7 @@ def _fill_core(a, b, hk, adj_cap, max_rounds):
 
 
 def fill_unseeded_basins_dense_lanes(values, height, max_rounds: Optional[int] = None,
-                                     face_cap: Optional[int] = None):
+                                     face_cap: Optional[int] = None, impl: str = "auto"):
     """Sort-free unseeded-basin fill per lane of a ``[B, z, y, x]`` stack:
     face-list scatter-min Boruvka rounds with exact per-pair min saddles.
     ``values``: >0 seeded, <= -2 unseeded terminal code, 0 invalid, -1
@@ -445,7 +447,7 @@ def fill_unseeded_basins_dense_lanes(values, height, max_rounds: Optional[int] =
     for axis in range(3):
         nb = _shift(values, -1, axis + 1, 0).reshape(lanes, n)
         ok0 = (v != nb) & (v != 0) & (nb != 0) & ((v <= -2) | (nb <= -2))
-        (idx_c,), n_faces = _compact_rows(ok0, (flat_idx,), face_cap, n)
+        (idx_c,), n_faces = _compact_rows(ok0, (flat_idx,), face_cap, n, impl)
         trunc = trunc | (n_faces > face_cap)
         stride = int(np.prod(shape[axis + 1:], dtype=np.int64))
         pad = idx_c >= n
@@ -549,14 +551,14 @@ def _ws_flow_lanes(height, seeds, mask, *, impl, tile, exit_cap, table_cap, tier
         values = torch.where(values <= -2, values + _lane_offsets(lanes, zp * yp * xp, values.device), values)
 
     # cross-tile exits: collect, chase, remap
-    codes, code_tiles, overflow = collect_negative_values_lanes(values, tile, exit_cap, tier)
-    finals, chase_unconverged = chase_exits_lanes(values, codes, tier=tier)
+    codes, code_tiles, overflow = collect_negative_values_lanes(values, tile, exit_cap, tier, impl)
+    finals, chase_unconverged = chase_exits_lanes(values, codes, tier=tier, impl=impl)
     overflow = overflow | chase_unconverged
     n_tiles = (zp // tz) * (yp // ty) * (xp // tx)
     changed = (codes <= -2) & (finals != codes)
     tids = torch.where(changed, code_tiles, BIG)
     old_tbl, new_tbl, tbl_overflow = build_remap_tables_lanes(tids, codes, finals, n_tiles, table_cap=table_cap,
-                                                              tier=tier)
+                                                              tier=tier, impl=impl)
     if bool(tbl_overflow.any()):
         # both rungs give the same labels, so an overflowing lane takes
         # the whole stack to the gather rung
@@ -597,19 +599,19 @@ def _ws_fill_lanes(values, h, orig_shape, *, impl, tile, exit_cap, fill_cap, tab
     if fill_rounds is None:
         fill_rounds = _auto_fill_rounds(zp * yp * xp)
     if fill_mode == "dense":
-        values, overflow = fill_unseeded_basins_dense_lanes(values, h, max_rounds=fill_rounds)
+        values, overflow = fill_unseeded_basins_dense_lanes(values, h, max_rounds=fill_rounds, impl=impl)
         out = torch.where(values > 0, values, 0).to(torch.int32)
         if padded:
             out = out[:, :z, :y, :x]
         return out.contiguous(), overflow
     fill_vals, fill_finals, overflow = fill_unseeded_basins_lanes(
-        values, h, fill_cap=fill_cap, max_rounds=fill_rounds, adj_cap=adj_cap, tier=tier
+        values, h, fill_cap=fill_cap, max_rounds=fill_rounds, adj_cap=adj_cap, tier=tier, impl=impl
     )
     n_tiles = (zp // tz) * (yp // ty) * (xp // tx)
     # tiles needing a basin's entry: strip incidences + the terminal's tile
-    bvals, btiles, b_overflow = collect_negative_values_lanes(values, tile, exit_cap, tier)
+    bvals, btiles, b_overflow = collect_negative_values_lanes(values, tile, exit_cap, tier, impl)
     overflow = overflow | b_overflow
-    bfin = value_join_lanes(bvals, fill_vals, fill_finals, tier)
+    bfin = value_join_lanes(bvals, fill_vals, fill_finals, tier, impl)
     tvals = fill_vals
     t_of = _tile_id_of(torch.where(tvals <= -2, -tvals - 2, 0), (zp, yp, xp), tile)
     ttiles = torch.where(tvals <= -2, t_of, BIG)
@@ -620,7 +622,7 @@ def _ws_fill_lanes(values, h, orig_shape, *, impl, tile, exit_cap, fill_cap, tab
         torch.where((tvals <= -2) & (fill_finals != tvals), ttiles, BIG),
     ], 1)
     old2, new2, tbl_overflow2 = build_remap_tables_lanes(all_tiles, all_vals, all_fin, n_tiles,
-                                                         table_cap=table_cap, tier=tier)
+                                                         table_cap=table_cap, tier=tier, impl=impl)
     if bool(tbl_overflow2.any()):
         count_rung("fill:gather")
         values = _resolve_codes_gather_lanes(values, fill_vals, fill_finals)

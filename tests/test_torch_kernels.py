@@ -305,6 +305,40 @@ def test_gather_rungs_match_reference(masks):
     np.testing.assert_array_equal(got, want)
 
 
+def _row_scan_input(kind: str, rows: int, n: int, gen: torch.Generator) -> torch.Tensor:
+    """A ``[rows, n]`` input of the row scan: ``sum`` random int32 (its
+    sums wrap), ``wrap`` every entry 2^30 (the sum passes 2^31 at the third
+    entry), ``bool`` flags, ``max`` -1 rows with a sparse 1e-3 of them the
+    column index (as the stages' running-max sites have them), ``-1 max``
+    only -1."""
+    dev = gen.device
+    if kind == "wrap":
+        return torch.full((rows, n), 2**30, dtype=torch.int32, device=dev)
+    if kind == "bool":
+        return torch.rand((rows, n), generator=gen, device=dev) < 0.3
+    if kind == "-1 max":
+        return torch.full((rows, n), -1, dtype=torch.int32, device=dev)
+    if kind == "max":
+        col = torch.arange(n, dtype=torch.int32, device=dev).expand(rows, n)
+        return torch.where(torch.rand((rows, n), generator=gen, device=dev) < 1e-3, col, -1)
+    return torch.randint(-(2**31), 2**31 - 1, (rows, n), generator=gen, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("n", [0, 1, 4097])
+@pytest.mark.parametrize("kind", ["sum", "wrap", "bool", "max", "-1 max"])
+def test_row_scan_twin_matches_numpy(rows, n, kind):
+    """The row scan's twin (the route a CPU tensor takes) against numpy,
+    row by row: int32 sums wrap as numpy's int32 sums do."""
+    x = _row_scan_input(kind, rows, n, torch.Generator().manual_seed(rows * 10007 + n))
+    op = "max" if kind.endswith("max") else "sum"
+    got = K.row_scan(x, op)
+    assert got.dtype == torch.int32 and got.shape == (rows, n)
+    for r, row in enumerate(x.numpy()):
+        want = np.maximum.accumulate(row) if op == "max" else np.cumsum(row, dtype=np.int32)
+        np.testing.assert_array_equal(got[r].numpy(), want.astype(np.int32), err_msg=f"row {r}")
+
+
 def test_reference_io_roundtrip(volume):
     tensors, kwargs = from_reference(volume, seeds=np.zeros(SHAPE, np.int64), device="cpu",
                                      impl="pallas", interpret=True, threshold=0.4, sigma_seeds=0.0)
@@ -454,6 +488,65 @@ def test_cuda_row_kernels_address_volumes_of_2_31_voxels_or_more(cuda, kernel):
             base = sl.start * shape[1] * shape[2]
             want = torch.where(want < -1, want - base, want)  # -(g + 2) codes
             assert torch.equal(got[sl], _int32(want)), sl
+
+
+ROW_SCAN_CASES = [
+    ((1, 576**3), "sum"), ((1, 576**3), "bool"), ((1, 576**3), "max"),
+    ((8, 114 * 576 * 576), "sum"), ((8, 114 * 576 * 576), "bool"), ((8, 114 * 576 * 576), "max"),
+    ((3, 1_000_003), "sum"), ((3, 1_000_003), "bool"), ((3, 1_000_003), "max"),
+    ((3, 1_000_003), "wrap"), ((3, 1_000_003), "-1 max"),
+] + [((2, n), kind) for n in (0, 1, K.ROW_SCAN_TILE - 1, K.ROW_SCAN_TILE + 1)
+     for kind in ("sum", "bool", "max", "-1 max")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,kind", ROW_SCAN_CASES, ids=lambda c: "x".join(map(str, c)) if isinstance(c, tuple) else c)
+def test_cuda_row_scan_matches_twin(cuda, shape, kind):
+    """The row scan against its twin (torch's own scans on the card), bit
+    for bit: the stages' shapes (a 576^3 row, eight 114x576x576 rows), a
+    ragged row, rows of 0, 1 and a tile +- 1 elements, bool flags, a sum
+    that wraps past 2^31 and rows of -1 alone."""
+    x = _row_scan_input(kind, *shape, torch.Generator(device=cuda).manual_seed(shape[1] % 1000 + shape[0]))
+    op = "max" if kind.endswith("max") else "sum"
+    K.reset_counts()
+    got = K.row_scan(x, op, impl="cuda")
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[f"row_scan.{op}"] == (1 if x.numel() else 0)
+    assert torch.equal(got, K.row_scan_torch(x, op))
+
+
+@pytest.mark.gpu
+def test_cuda_step_scans_rows_on_the_row_scan(cuda):
+    """A traced tiny step (the benchmark configuration's CPU size) launches
+    no torch row scan, counts row-scan launches, and returns the CPU twins'
+    labels bit for bit; the same step with ``impl="torch"`` on the card
+    launches no kernel."""
+    import json
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from cluster_tools_tpu_torch.parallel.split_pipeline import make_ws_ccl_split
+
+    config = json.loads((Path(__file__).resolve().parents[1] / "port_bench/configs/ws_cc_step_512.json").read_text())
+    kw = dict(config["step"], **config["tiny"]["step"])
+    vol = _t(synthetic_boundaries_np((1,) + tuple(config["tiny"]["volume_shape"]), seed=11))
+    make_ws_ccl_split(device="cuda", **kw)(vol.to(cuda))  # loads the kernels
+    K.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = make_ws_ccl_split(device="cuda", **kw)(vol.to(cuda))
+        torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert not [n for n in names if "tensor_kernel_scan_innermost_dim" in n], sorted(names)
+    assert launches.get("row_scan.max", 0) > 0 and launches.get("row_scan.sum", 0) > 0, launches
+    want = make_ws_ccl_split(device="cpu", **dict(kw, fill_mode="capacity"))(vol)
+    for what, a, b in zip(("ws", "cc", "n_fg", "overflow"), got, want):
+        assert torch.equal(torch.as_tensor(a).cpu(), torch.as_tensor(b)), what
+    K.reset_counts()
+    make_ws_ccl_split(device="cuda", impl="torch", **kw)(vol.to(cuda))
+    torch.cuda.synchronize()
+    assert not sum(K.LAUNCHES.values()), dict(K.LAUNCHES)
 
 
 def test_cuda_route_refuses_cpu_tensors(masks):
